@@ -1,0 +1,23 @@
+"""Architecture registry: ``--arch <id>`` → ModelConfig (ported archs only)."""
+
+from __future__ import annotations
+
+import importlib
+from repro_torch.models.config import ModelConfig
+
+_MODULES = {
+    "rwkv6-1.6b": "repro_torch.configs.rwkv6_1b6",
+}
+
+
+def get_config(name: str, smoke: bool = False) -> ModelConfig:
+    """The full (or ``smoke``) config of a ported architecture.
+
+    Raises:
+      KeyError: ``name`` is not ported; the message names what is.
+    """
+    if name not in _MODULES:
+        raise KeyError(f"arch {name!r} is not ported to repro_torch; "
+                       f"ported: {list(_MODULES)}")
+    mod = importlib.import_module(_MODULES[name])
+    return mod.SMOKE if smoke else mod.CONFIG

@@ -1,0 +1,172 @@
+"""The port's rwkv6 backbone against the JAX package's, on smoke configs.
+
+JAX params travel to the port through ``repro_torch.convert`` and the same
+numpy token stream goes through both (teacher forcing).  Tolerances:
+
+* One layer against the JAX layer run eagerly (op by op, each op rounding
+  to bf16 as the port's does): at most one bf16 ulp (2⁻⁸) relative plus
+  2⁻⁸ of the largest magnitude — only the f32 WKV sums run in another
+  order, and that can move a bf16 rounding by one ulp.
+* The whole backbone against JAX's compiled forward: XLA keeps excess
+  precision inside its fusions and skips some of each layer's dozen bf16
+  roundings — ``repro_torch.parity``'s bf16 backbone rule (2⁻⁵ relative
+  in norm, 2⁻⁴ of the largest magnitude at any element).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+import jax
+import jax.numpy as jnp
+
+from repro.configs import get_config as jax_config
+from repro.models import blocks as jblocks
+from repro.models import model as jmodel
+from repro.models.config import SketchHeadConfig as JaxSketchHeadConfig
+from repro_torch.configs import get_config
+from repro_torch.convert import params_from_numpy
+from repro_torch.models import blocks, model
+from repro_torch.models.config import SketchHeadConfig
+from repro_torch.parity import assert_bf16_backbone_close
+
+BF16_ULP = 2.0 ** -8
+ARCH = "rwkv6-1.6b"
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jcfg, cfg = jax_config(ARCH, smoke=True), get_config(ARCH, smoke=True)
+    jparams = jmodel.init_model(jax.random.PRNGKey(0), jcfg)
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (3, 40))
+    return jcfg, cfg, jparams, params, toks.astype(np.int32)
+
+
+def _f32(a):
+    return np.asarray(jnp.asarray(a).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+def test_config_matches_jax(smoke):
+    cfg, jcfg = get_config(ARCH, smoke=smoke), jax_config(ARCH, smoke=smoke)
+    for f in dataclasses.fields(cfg):
+        assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
+    assert cfg.n_periods == jcfg.n_periods
+    assert dataclasses.asdict(SketchHeadConfig()) == dataclasses.asdict(
+        JaxSketchHeadConfig())
+
+
+def test_unported_arch_names_what_is_ported():
+    with pytest.raises(KeyError, match="rwkv6-1.6b"):
+        get_config("gemma2-27b")
+
+
+def test_convert_carries_bf16_bits(setup):
+    _, _, jparams, params, _ = setup
+    jleaves = jax.tree_util.tree_leaves_with_path(jparams)
+    assert len(jleaves) == len(jax.tree.leaves(params))
+    for path, leaf in jleaves:
+        t = params
+        for key in path:
+            t = t[key.key]
+        assert str(t.dtype).split(".")[-1] == str(leaf.dtype)
+        np.testing.assert_array_equal(t.float().numpy(), _f32(leaf))
+
+
+def test_init_model_tree_matches_jax(setup):
+    jcfg, cfg, jparams, _, _ = setup
+    ours = model.init_model(cfg, torch.Generator("cpu").manual_seed(0))
+    jflat = {jax.tree_util.keystr(p): l
+             for p, l in jax.tree_util.tree_leaves_with_path(jparams)}
+    oflat = {jax.tree_util.keystr(p): l
+             for p, l in jax.tree_util.tree_leaves_with_path(ours)}
+    assert set(oflat) == set(jflat)
+    for k, leaf in jflat.items():
+        assert tuple(oflat[k].shape) == leaf.shape, k
+        assert str(oflat[k].dtype).split(".")[-1] == str(leaf.dtype), k
+
+
+@pytest.mark.parametrize("seq", [40, 1])
+def test_layer_matches_jax_eager(setup, seq):
+    """Prefill-shaped (40 tokens: a full and a ragged WKV chunk) and
+    decode-shaped (1 token against a non-zero cache) layers."""
+    jcfg, cfg, jparams, params, _ = setup
+    rng = np.random.default_rng(seq)
+    x = jnp.asarray(rng.standard_normal((3, seq, cfg.d_model)), jnp.bfloat16)
+    jcache = cache = None
+    if seq == 1:
+        c = [rng.standard_normal(s).astype(np.float32) * 0.5
+             for s in ((3, 64), (3, 64), (3, 1, 64, 64))]
+        from repro.models.rwkv import RWKVCache as JaxCache
+        from repro_torch.models.rwkv import RWKVCache
+        jcache = JaxCache(*(jnp.asarray(a) for a in c))
+        cache = RWKVCache(*(torch.from_numpy(a) for a in c))
+    for i in range(cfg.n_periods):
+        jlayer = jax.tree.map(lambda t: t[i], jparams["periods"]["pos0"])
+        with jax.disable_jit():
+            jy, jc, _ = jblocks.apply_layer(jlayer, x, jnp.arange(seq), jcfg,
+                                            "rwkv", "dense", cache=jcache)
+        y, c = blocks.apply_layer(model._index(params["periods"]["pos0"], i),
+                                  params_from_numpy(np.asarray(x), "cpu"),
+                                  cfg, "rwkv", cache=cache)
+        want, got = _f32(jy), y.float().numpy()
+        np.testing.assert_allclose(got, want, rtol=BF16_ULP,
+                                   atol=BF16_ULP * np.abs(want).max())
+        if seq == 1:
+            for a, b in zip(c, jc):
+                np.testing.assert_allclose(a.numpy(), np.asarray(b),
+                                           rtol=BF16_ULP, atol=BF16_ULP)
+
+
+@pytest.mark.parametrize("return_hidden", [False, True])
+def test_forward_teacher_forced_matches_jax(setup, return_hidden):
+    jcfg, cfg, jparams, params, toks = setup
+    want, _, _ = jmodel.forward(jparams, jnp.asarray(toks), jcfg,
+                                remat=False, return_hidden=return_hidden)
+    got, _ = model.forward(params, torch.from_numpy(toks), cfg,
+                           return_hidden=return_hidden)
+    assert got.dtype == torch.float32
+    assert got.shape == want.shape
+    assert_bf16_backbone_close(got.numpy(), np.asarray(want))
+
+
+def test_prefill_then_decode_equals_forward(setup):
+    """Within the port: prefill 33 tokens (a full and a 1-token WKV chunk),
+    then 7 decode steps, against one forward over all 40.  The WKV sums
+    chunk differently, so a bf16 result may move by one ulp."""
+    _, cfg, _, params, toks = setup
+    full, _ = model.forward(params, torch.from_numpy(toks), cfg)
+    cache = model.init_decode_cache(cfg, 3, 40, device="cpu")
+    logits, cache = model.forward(params, torch.from_numpy(toks[:, :33]), cfg,
+                                  cache=cache)
+    steps = [logits]
+    for t in range(33, 40):
+        lg, cache = model.decode_step(params, cache,
+                                      torch.from_numpy(toks[:, t:t + 1]), cfg)
+        steps.append(lg[:, None])
+    dec = torch.cat(steps, dim=1)
+    torch.testing.assert_close(dec, full, rtol=BF16_ULP,
+                               atol=BF16_ULP * float(full.abs().max()))
+
+
+def test_decode_step_hidden_matches_jax(setup):
+    jcfg, cfg, jparams, params, toks = setup
+    jcache = jmodel.init_decode_cache(jcfg, 3, 40)
+    _, jcache, _ = jmodel.forward(jparams, jnp.asarray(toks[:, :32]), jcfg,
+                                  cache=jcache,
+                                  cache_pos=jnp.zeros((), jnp.int32),
+                                  remat=False)
+    want, _ = jmodel.decode_step(jparams, jcache, jnp.asarray(toks[:, 32:33]),
+                                 jnp.asarray(32, jnp.int32), jcfg,
+                                 return_hidden=True)
+    cache = model.init_decode_cache(cfg, 3, 40, device="cpu")
+    _, cache = model.forward(params, torch.from_numpy(toks[:, :32]), cfg,
+                             cache=cache)
+    got, _ = model.decode_step(params, cache,
+                               torch.from_numpy(toks[:, 32:33]), cfg,
+                               return_hidden=True)
+    assert got.shape == (3, cfg.d_model) and got.dtype == torch.float32
+    assert_bf16_backbone_close(got.numpy(), np.asarray(want))
