@@ -5,12 +5,13 @@
     lm = LM.from_config("rwkv6-1.6b")                     # on the card
     tokens = lm.generate(prompts, max_new_tokens=16)
     lm = lm.with_head(SketchHead.load("head.npz"))        # sketched decode
+    finished = lm.serve([(prompt, 16, arrival), ...])     # continuous batching
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Dict, Iterable, List, Optional
 
 import torch
 
@@ -93,3 +94,54 @@ class LM:
             prompts = prompts[None]
         return generate(self.params, self.cfg, prompts, max_new_tokens,
                         head=self.head, eos_id=eos_id, pad_id=pad_id)
+
+    # -- continuous batching -------------------------------------------------
+
+    def engine(self, n_slots: int, max_seq: int, *,
+               sampler=None, eos_id: Optional[int] = None, head_cache=None,
+               decode_chunk: int = 1, spec_decode: int = 0,
+               paged: bool = False):
+        """A fresh continuous-batching ``ServeEngine`` over this model and
+        head, on this LM's device.
+
+        Args:
+          n_slots: decode-cache slot-pool size.
+          max_seq: per-slot cache length (prompt + generation budget).
+          sampler: the sampling policy (greedy when omitted).
+          eos_id: optional early-retirement token.
+          head_cache: a ``HeadCache`` for per-tenant serving: this LM's
+            head (a ``SketchHead``) becomes the shared spec and each slot
+            decodes through its request's tenant's bank row; every
+            ``submit`` then needs ``tenant=``.
+          decode_chunk / spec_decode / paged: not ported yet; anything but
+            the defaults raises ``NotImplementedError``.
+        """
+        from repro_torch.launch.engine import make_engine
+
+        return make_engine(self.params, self.cfg, n_slots, max_seq,
+                           head=self.head, sampler=sampler, eos_id=eos_id,
+                           decode_chunk=decode_chunk, spec_decode=spec_decode,
+                           paged=paged, head_cache=head_cache,
+                           device=self.device)
+
+    def serve(self, requests: Iterable, *, n_slots: int = 4,
+              max_seq: Optional[int] = None, sampler=None,
+              eos_id: Optional[int] = None) -> Dict[int, List[int]]:
+        """Serve ``(prompt, max_new_tokens[, arrival])`` requests through
+        the engine; returns each request's generated tokens (prompt
+        excluded) by request id, in submission order from 0.  ``max_seq``
+        defaults to the longest request."""
+        import numpy as np
+
+        reqs = []
+        for r in requests:
+            prompt = np.asarray(r[0], np.int32).reshape(-1)
+            reqs.append((prompt, int(r[1]), int(r[2]) if len(r) > 2 else 0))
+        if not reqs:
+            return {}
+        if max_seq is None:
+            max_seq = max(len(p) + g for p, g, _ in reqs)
+        engine = self.engine(n_slots, max_seq, sampler=sampler, eos_id=eos_id)
+        for prompt, max_new, arrival in reqs:
+            engine.submit(prompt, max_new, arrival=arrival)
+        return engine.run()

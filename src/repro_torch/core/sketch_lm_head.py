@@ -4,7 +4,10 @@ the ``.npz`` archive shared with the JAX package.
 A frozen head is ``{"proj": (d, d'), "w": (L, K, d'), "b": (L, K),
 "array": (L, R, V)}`` (+ ``"scale": (L, R)`` when the counts are stored
 int8 or packed int4).  Its decode cost is a d×d' transform, L·K hashes and
-L·V adds, in place of the dense head's 2·d·V multiply-adds.
+L·V adds, in place of the dense head's 2·d·V multiply-adds.  Per-tenant
+serving stacks several such heads into a bank (:func:`stack_heads`) and
+``apply_head(tenant_ids=…)`` decodes each batch row through its own
+tenant's head; :func:`refresh_head` folds live traffic into a head online.
 
 Decode backends: ``fused`` (one kernel: transform → hash → gather, the
 serving default), ``two_kernel`` (``q = h·A`` as a plain matmul, then the
@@ -28,10 +31,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.lsh import L2LSH, LSHConfig
-from repro_torch.kernels.common import pack_int4_rows, unpack_int4_rows
+from repro_torch.kernels.common import (pack_int4_rows, select_tenant_rows,
+                                        unpack_int4_rows)
 from repro_torch.kernels.fused_decode.ops import (fused_decode_logits,
                                                   fused_decode_ref)
 from repro_torch.kernels.lsh_hash.ops import lsh_hash
+from repro_torch.kernels.race_update.ops import race_update_counts
 from repro_torch.kernels.sketch_head.ops import sketch_head_logits
 from repro_torch.models.config import SketchHeadConfig
 
@@ -89,8 +94,9 @@ def quantize_counts(array: torch.Tensor, quant: str
 
 
 def quantize_head(head: dict, quant: Optional[str]) -> dict:
-    """A copy of the f32 head with its counts quantized (adds ``"scale"``);
-    ``None`` copies it unchanged."""
+    """A copy of the f32 head with its counts quantized (adds ``"scale"``).
+    ``None`` returns a shallow copy: a new dict holding the same tensors,
+    so a caller that updates one in place clones it first."""
     _check_quant(quant)
     if "scale" in head:
         raise ValueError("head is already quantized (has a 'scale' leaf)")
@@ -103,7 +109,8 @@ def quantize_head(head: dict, quant: Optional[str]) -> dict:
 def dequantize_head(head: dict, quant: Optional[str],
                     n_rows: Optional[int] = None) -> dict:
     """The f32 head back from quantized storage (``n_rows`` = L, read off
-    ``head["w"]`` when omitted)."""
+    ``head["w"]`` when omitted).  ``None`` returns a shallow copy (a new
+    dict holding the same tensors), as :func:`quantize_head` does."""
     _check_quant(quant)
     if quant is None:
         return dict(head)
@@ -135,15 +142,94 @@ def freeze_head(generator: torch.Generator, kernel_params: dict,
     return quantize_head(head, quant)
 
 
+def stack_heads(heads) -> dict:
+    """Stack per-tenant frozen heads into one bank: every leaf gains a
+    leading bank axis T.  All heads must share leaves (one quantization
+    mode), shapes and dtypes."""
+    heads = list(heads)
+    if not heads:
+        raise ValueError("stack_heads needs at least one head")
+    keys = set(heads[0])
+    for h in heads[1:]:
+        if set(h) != keys:
+            raise ValueError(
+                f"cannot stack heads with different leaves: {sorted(keys)} "
+                f"vs {sorted(h)} — mixed quantization across tenants is not "
+                f"supported")
+    return {k: torch.stack([h[k] for h in heads]) for k in keys}
+
+
+def refresh_head(head: dict, cfg: SketchHeadConfig, hidden: torch.Tensor, *,
+                 alphas: Optional[torch.Tensor] = None,
+                 targets: Optional[torch.Tensor] = None, lr: float = 1.0,
+                 pred_backend: str = "fused",
+                 out: Optional[torch.Tensor] = None) -> dict:
+    """Fold live-traffic (hidden, logit) pairs into an f32 head's counts.
+
+    The (M, d) hiddens hash through the head's own transform and bank
+    (``lsh_hash``), then ``race_update_counts`` adds the per-point weights
+    into the (L, R, V) counts in their own layout.  Exactly one of
+
+    * ``alphas`` — (M, V) direct fold: the points join the anchor set with
+      these weights, :func:`freeze_head` over the augmented set up to f32
+      summation order;
+    * ``targets`` — (M, V) residual fold: the weights are
+      ``lr · (targets − pred)`` with ``pred`` the head's own logits for
+      ``hidden``.
+
+    One deliberate difference from the JAX package, which computes
+    ``pred`` with its plain composition (``backend="ref"``): on a CUDA
+    tensor ``pred`` comes from the head's decode backend ``pred_backend``
+    (``fused`` by default), so no plain version runs on the card's path.
+    On CPU tensors every backend is the plain composition, as in JAX.
+
+    Returns a new dict whose ``"array"`` is a fresh tensor, or ``out`` —
+    an (L, R, V) f32 tensor the caller owns, which may be
+    ``head["array"]`` itself for an in-place fold.  The other leaves are
+    the input's tensors.
+
+    Raises:
+      ValueError: the head is quantized (dequantize it first and
+        re-quantize on publish, as ``ServeEngine.refresh``/``publish``
+        do), or not exactly one of ``alphas``/``targets`` is given.
+    """
+    if "scale" in head:
+        raise ValueError(
+            "refresh_head accumulates in f32; dequantize the head first "
+            "(dequantize_head) and re-quantize on publish — see "
+            "ServeEngine.refresh")
+    if (alphas is None) == (targets is None):
+        raise ValueError("pass exactly one of alphas= (direct fold) / "
+                         "targets= (residual fold)")
+    q = hidden.to(torch.float32) @ head["proj"]
+    idx = lsh_hash(q, head["w"], head["b"], bandwidth=cfg.bandwidth,
+                   n_buckets=cfg.n_buckets)                        # (M, L)
+    if targets is not None:
+        pred = apply_head(head, hidden, cfg, backend=pred_backend)
+        alphas = lr * (targets.to(torch.float32) - pred)
+    res = dict(head)
+    res["array"] = race_update_counts(head["array"], idx,
+                                      alphas.to(torch.float32).contiguous(),
+                                      out=out)
+    return res
+
+
 def apply_head(head: dict, hidden: torch.Tensor, cfg: SketchHeadConfig, *,
-               backend: str = "fused", quant: Optional[str] = None
-               ) -> torch.Tensor:
+               backend: str = "fused", quant: Optional[str] = None,
+               tenant_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Sketched logits (B, V) f32 for (B, d) final hiddens (f32 or bf16).
 
     ``backend``: ``"fused"`` (one kernel), ``"two_kernel"`` (matmul, then
     the ``lsh_hash`` and ``sketch_head`` kernels) or ``"ref"`` (the plain
     composition).  On CPU tensors the kernel wrappers run their plain
     versions.  ``quant`` must match the presence of the head's ``"scale"``.
+
+    ``tenant_ids`` ((B,) bank rows) selects the multi-tenant path: ``head``
+    is a bank (:func:`stack_heads`, leading axis T on every leaf), each
+    bank row's logits are computed over the full batch by the unchanged
+    single-tenant path — on ``two_kernel`` each row hashes through its own
+    ``(proj, w, b)`` — and row ``b`` takes bank row ``tenant_ids[b]``'s
+    logits without arithmetic, bitwise what that head alone gives.
     """
     _check_quant(quant)
     if (quant is not None) != ("scale" in head):
@@ -153,6 +239,8 @@ def apply_head(head: dict, hidden: torch.Tensor, cfg: SketchHeadConfig, *,
             "(got scale " + ("present" if "scale" in head else "absent") + ")")
     scale = head.get("scale")
     h32 = hidden.to(torch.float32).contiguous()
+    if tenant_ids is not None:
+        return _apply_bank(head, h32, cfg, backend, quant, tenant_ids)
     if backend == "ref":
         return fused_decode_ref(h32, head["proj"], head["w"], head["b"],
                                 head["array"], cfg.bandwidth, cfg.n_buckets,
@@ -168,6 +256,34 @@ def apply_head(head: dict, hidden: torch.Tensor, cfg: SketchHeadConfig, *,
                        n_buckets=cfg.n_buckets)
         return sketch_head_logits(head["array"], idx, scale=scale,
                                   quant=quant)
+    raise ValueError(f"unknown sketch-head backend {backend!r}; "
+                     f"expected one of {HEAD_BACKENDS}")
+
+
+def _apply_bank(bank, h32, cfg, backend, quant, tenant_ids):
+    """The ``tenant_ids`` branch of :func:`apply_head`."""
+    scale = bank.get("scale")
+    n_bank = bank["w"].shape[0]
+    if backend == "ref":
+        per_tenant = torch.stack([
+            fused_decode_ref(h32, bank["proj"][t], bank["w"][t],
+                             bank["b"][t], bank["array"][t], cfg.bandwidth,
+                             cfg.n_buckets,
+                             None if scale is None else scale[t], quant)
+            for t in range(n_bank)])
+        return select_tenant_rows(per_tenant, tenant_ids)
+    if backend == "fused":
+        return fused_decode_logits(
+            h32, bank["proj"], bank["w"], bank["b"], bank["array"],
+            bandwidth=cfg.bandwidth, n_buckets=cfg.n_buckets, scale=scale,
+            quant=quant, tenant_ids=tenant_ids)
+    if backend == "two_kernel":
+        idx = torch.stack([
+            lsh_hash(h32 @ bank["proj"][t], bank["w"][t], bank["b"][t],
+                     bandwidth=cfg.bandwidth, n_buckets=cfg.n_buckets)
+            for t in range(n_bank)])
+        return sketch_head_logits(bank["array"], idx, scale=scale,
+                                  quant=quant, tenant_ids=tenant_ids)
     raise ValueError(f"unknown sketch-head backend {backend!r}; "
                      f"expected one of {HEAD_BACKENDS}")
 

@@ -21,6 +21,20 @@ def pad_axis(x: torch.Tensor, axis: int, multiple: int, value=0) -> torch.Tensor
     return F.pad(x, pads, value=value)
 
 
+def select_tenant_rows(per_tenant: torch.Tensor,
+                       tenant_ids: torch.Tensor) -> torch.Tensor:
+    """Per-slot tenant gather: ``out[b] = per_tenant[tenant_ids[b], b]``.
+
+    ``per_tenant`` is a (T, B, …) stack of full-batch outputs, one per bank
+    row, each from the unchanged single-tenant path; ``tenant_ids`` the
+    (B,) slot → bank-row binding.  The gather moves bits and never sums,
+    so row ``b`` is bitwise what tenant ``tenant_ids[b]``'s head alone
+    gives.
+    """
+    rows = torch.arange(per_tenant.shape[1], device=per_tenant.device)
+    return per_tenant[tenant_ids.long(), rows]
+
+
 def pack_int4_rows(q: torch.Tensor) -> torch.Tensor:
     """Pack int4-valued int8 rows pairwise along axis 0: (N, …) → (⌈N/2⌉, …).
 

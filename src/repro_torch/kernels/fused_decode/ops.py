@@ -15,7 +15,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import QUANT_CODES, check_operand, stream_of
+from repro_torch.kernels.common import (QUANT_CODES, check_operand,
+                                        select_tenant_rows, stream_of)
 from repro_torch.kernels.lsh_hash.ops import lsh_hash_ref
 from repro_torch.kernels.sketch_head.ops import check_sketch, sketch_head_ref
 
@@ -47,7 +48,8 @@ def fused_decode_logits(hidden: torch.Tensor, proj: torch.Tensor,
                         sketch: torch.Tensor, *, bandwidth: float,
                         n_buckets: int, scale: Optional[torch.Tensor] = None,
                         quant: Optional[str] = None,
-                        idx_out: Optional[torch.Tensor] = None
+                        idx_out: Optional[torch.Tensor] = None,
+                        tenant_ids: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
     """Sketched (B, V) f32 logits in one kernel: transform → hash → gather.
 
@@ -62,7 +64,23 @@ def fused_decode_logits(hidden: torch.Tensor, proj: torch.Tensor,
       quant: ``None``, ``"int8"`` or ``"int4"``.
       idx_out: optional (B, L) int32 tensor that receives the bucket
         indices the kernel computed (for parity checks).
+      tenant_ids: (B,) per-slot bank rows for the multi-tenant path.  Every
+        head operand then carries a leading bank axis T — proj (T, d, d'),
+        w (T, L, K, d'), b (T, L, K), sketch (T, …), scale (T, L, R) — and
+        the unchanged single-tenant path runs over the full batch once per
+        bank row (T launches on the card); row ``b`` is then taken from
+        bank row ``tenant_ids[b]`` by ``select_tenant_rows``.
     """
+    if tenant_ids is not None:
+        if idx_out is not None:
+            raise ValueError("idx_out is not supported with tenant_ids")
+        per_tenant = torch.stack([
+            fused_decode_logits(
+                hidden, proj[t], w[t], b[t], sketch[t], bandwidth=bandwidth,
+                n_buckets=n_buckets, scale=None if scale is None else scale[t],
+                quant=quant)
+            for t in range(w.shape[0])])
+        return select_tenant_rows(per_tenant, tenant_ids)
     if hidden.device.type == "cpu":
         if (scale is None) != (quant is None):
             raise ValueError("quant and scale must be passed together")

@@ -16,7 +16,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (QUANT_CODES, check_operand,
-                                        stream_of, unpack_int4_rows)
+                                        select_tenant_rows, stream_of,
+                                        unpack_int4_rows)
 
 
 def dequantize_sketch_ref(sketch: torch.Tensor, scale: torch.Tensor,
@@ -76,7 +77,9 @@ def _launcher():
 
 def sketch_head_logits(sketch: torch.Tensor, idx: torch.Tensor, *,
                        scale: Optional[torch.Tensor] = None,
-                       quant: Optional[str] = None) -> torch.Tensor:
+                       quant: Optional[str] = None,
+                       tenant_ids: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """(B, V) f32 logit estimates: the row-mean over L of the sketch reads.
 
     Args:
@@ -86,7 +89,24 @@ def sketch_head_logits(sketch: torch.Tensor, idx: torch.Tensor, *,
         row with an index outside [0, R) comes back as NaN.
       scale: (L, R) f32 per-row scales, given iff ``quant`` is.
       quant: ``None``, ``"int8"`` or ``"int4"``.
+      tenant_ids: (B,) per-slot bank rows for the multi-tenant path:
+        ``sketch`` is then (T, …), ``scale`` (T, L, R) and ``idx`` (T, B, L),
+        one full-batch index tensor from each bank row's own hash bank; the
+        single-tenant gather runs once per bank row (T launches on the
+        card) and row ``b`` is taken from bank row ``tenant_ids[b]``.
     """
+    if tenant_ids is not None:
+        if idx.dim() != 3 or idx.shape[0] != sketch.shape[0]:
+            raise ValueError(
+                f"tenant_ids needs a (T, B, L) index stack matching the "
+                f"(T, …) sketch bank; got idx {tuple(idx.shape)} vs sketch "
+                f"{tuple(sketch.shape)}")
+        per_tenant = torch.stack([
+            sketch_head_logits(sketch[t], idx[t],
+                               scale=None if scale is None else scale[t],
+                               quant=quant)
+            for t in range(sketch.shape[0])])
+        return select_tenant_rows(per_tenant, tenant_ids)
     if idx.device.type == "cpu":
         _check_quant_args(scale, quant)
         return sketch_head_ref(sketch, idx, scale, quant)

@@ -1,23 +1,30 @@
-"""Serving launcher: one static batch, greedy, dense or sketched head.
+"""Serving launcher: greedy, dense or sketched head, as one static batch
+or (``--engine``) a request stream through the continuous-batching engine.
 
 A single bulk prefill ingests every prompt through the dense head, then
 the decode loop emits tokens step by step; with ``--sketch-head`` each
 decode step's logits come from the Representer-Sketch head on its
 ``--backend`` (``fused``: one CUDA kernel; ``two_kernel``; ``ref``).  The
 head is loaded from a ``--head-path`` archive saved by either package.
+``--engine`` serves a synthetic stream instead (staggered arrivals, every
+4th prompt shared, lengths ``gen`` and ``gen // 4``) over ``--batch``
+slots.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
       [--smoke] [--sketch-head --head-path head.npz] [--backend fused] \\
-      [--quant int8] [--batch 4 --prompt-len 32 --gen 16] [--device cuda]
+      [--quant int8] [--batch 4 --prompt-len 32 --gen 16] [--device cuda] \\
+      [--engine --requests 12 --arrival-every 1 --stats-json]
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.api.heads import DenseHead
@@ -62,6 +69,60 @@ def generate(params: dict, cfg, prompts: torch.Tensor, gen_len: int, *,
     return torch.cat(out, dim=1)
 
 
+def engine_stream(vocab_size: int, n_requests: int, prompt_len: int,
+                  gen: int, arrival_every: int, seed: int) -> list:
+    """The synthetic request stream of ``--engine``: ``(prompt, max_new,
+    arrival)`` with arrivals every ``arrival_every`` ticks, every 4th
+    prompt one shared prompt (the rest unique), and a skewed length mix —
+    even requests ``max(1, gen // 4)`` new tokens, odd ones ``gen``."""
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(0, vocab_size, prompt_len, dtype=np.int32)
+    stream = []
+    for i in range(n_requests):
+        prompt = (shared if i % 4 == 3 else
+                  rng.integers(0, vocab_size, prompt_len, dtype=np.int32))
+        stream.append((prompt, gen if i % 2 else max(1, gen // 4),
+                       i * arrival_every))
+    return stream
+
+
+def run_engine(lm, args) -> None:
+    """Serve ``engine_stream`` through ``lm.engine`` over ``args.batch``
+    slots; prints the run and, with ``args.stats_json``, one
+    ``STATS_JSON {…}`` line."""
+    n_requests = args.requests or 2 * args.batch
+    engine = lm.engine(n_slots=args.batch,
+                       max_seq=args.prompt_len + args.gen)
+    for prompt, gen, arrival in engine_stream(
+            lm.cfg.vocab_size, n_requests, args.prompt_len, args.gen,
+            args.arrival_every, args.seed):
+        engine.submit(prompt, gen, arrival=arrival)
+    dev = lm.device
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    finished = engine.run()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dur = time.perf_counter() - t0
+    n_generated = sum(len(v) for v in finished.values())
+    print(f"arch={lm.cfg.name} head={lm.head.describe()} device={dev} engine "
+          f"served {len(finished)} requests over {args.batch} slots: "
+          f"{n_generated} new tokens in {dur:.3f}s "
+          f"({n_generated / dur:.1f} new tok/s), "
+          f"{engine.stats['decode_steps']} decode steps, slot utilization "
+          f"{engine.slot_utilization:.2f}")
+    print("sample token ids:", finished[min(finished)][:24])
+    if args.stats_json:
+        record = {"arch": lm.cfg.name, "head": lm.head.describe(),
+                  "device": str(dev), "n_slots": args.batch,
+                  "requests": len(finished), "tokens": n_generated,
+                  "seconds": dur,
+                  "slot_utilization": engine.slot_utilization}
+        record.update({k: int(v) for k, v in engine.stats.items()})
+        print("STATS_JSON " + json.dumps(record, sort_keys=True))
+
+
 def main(argv=None) -> None:
     from repro_torch.api.heads import load_head
     from repro_torch.api.lm import LM, check_device
@@ -83,10 +144,23 @@ def main(argv=None) -> None:
                          "archive was saved with)")
     ap.add_argument("--quant", default=None, choices=["int8", "int4"],
                     help="quantize an f32 head's counts on load")
+    ap.add_argument("--engine", action="store_true",
+                    help="serve a request stream through the "
+                         "continuous-batching engine (--batch slots) instead "
+                         "of one static batch")
+    ap.add_argument("--requests", type=int, default=0,
+                    help="engine mode: number of requests (default 2 x batch)")
+    ap.add_argument("--arrival-every", type=int, default=1,
+                    help="engine mode: ticks between request arrivals")
+    ap.add_argument("--stats-json", action="store_true",
+                    help="engine mode: print the engine stats as one "
+                         "'STATS_JSON {...}' line")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random backbone and prompts")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    if args.stats_json and not args.engine:
+        ap.error("--stats-json applies to engine mode; add --engine")
     if args.sketch_head and not args.head_path:
         ap.error("--sketch-head needs --head-path: in-process distillation "
                  "of a head is not ported yet (a later slice); save one "
@@ -118,6 +192,9 @@ def main(argv=None) -> None:
                 head, quant=args.quant,
                 params=quantize_head(head.params, args.quant))
         lm = lm.with_head(head)
+    if args.engine:
+        run_engine(lm, args)
+        return
     prompts = torch.randint(0, lm.cfg.vocab_size,
                             (args.batch, args.prompt_len), generator=gen,
                             device=device)

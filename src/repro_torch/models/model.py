@@ -71,6 +71,53 @@ def mask_cache_update(cache: dict, new_cache: dict,
         for name in new_cache["periods"]}}
 
 
+def _map_caches(fn, *caches) -> dict:
+    """``fn`` over the (n_periods, B, …) leaves of one or more decode
+    caches, leaf by leaf."""
+    return {"periods": {
+        name: RWKVCache(*(fn(*leaves) for leaves in zip(
+            *(c["periods"][name] for c in caches))))
+        for name in caches[0]["periods"]}}
+
+
+def _slot_index(slots, device) -> torch.Tensor:
+    return torch.as_tensor(slots, dtype=torch.int64, device=device)
+
+
+def cache_slot_insert(cfg: ModelConfig, pool: dict, src: dict,
+                      slots) -> dict:
+    """A copy of ``pool`` with the rows of a freshly prefilled cache in
+    ``slots``: row i of ``src`` goes to pool slot ``slots[i]``.  Rows of
+    other slots are copied unchanged, bit for bit, which is what makes
+    admission mid-decode safe.  ``cfg`` is unused by the rwkv cache; kept
+    for the JAX package's signature."""
+    del cfg
+
+    def insert(old, new):
+        idx = _slot_index(slots, old.device)
+        return old.index_copy(1, idx, new.to(old.dtype))
+    return _map_caches(insert, pool, src)
+
+
+def cache_expand_rows(cfg: ModelConfig, cache: dict, inv) -> dict:
+    """Batch rows ``inv`` of every leaf, (G_unique, …) → (G, …): the
+    admission dedupe prefills each distinct prompt once and expands the
+    rows back to one per request."""
+    del cfg
+    return _map_caches(
+        lambda leaf: leaf.index_select(1, _slot_index(inv, leaf.device)),
+        cache)
+
+
+def cache_slot_reset(cfg: ModelConfig, pool: dict, slots) -> dict:
+    """A copy of ``pool`` with ``slots`` zeroed — bitwise fresh
+    ``init_decode_cache`` rows — and every other row unchanged."""
+    del cfg
+    return _map_caches(
+        lambda leaf: leaf.index_fill(1, _slot_index(slots, leaf.device), 0),
+        pool)
+
+
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
             cache: Optional[dict] = None, return_hidden: bool = False
             ) -> Tuple[torch.Tensor, Optional[dict]]:

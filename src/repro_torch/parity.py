@@ -10,6 +10,10 @@
   asserts this for every mismatch.
 * Logits: a mean of the same L f32 terms summed in two orders differs by
   at most ``2·(γ_L + 2u)·max|term|`` (:func:`gather_atol`).
+* Sketch folds (``race_update``): a count plus the sum of M weights is a
+  sum of M + 1 f32 terms, within ``γ_{M+1}·(|count| + Σ_m |α[m, v]|)`` of
+  its exact value in any order (:func:`race_update_tol`); the kernel is
+  held to that bound per element against the plain version.
 * The bf16 backbone against another implementation of it (the JAX
   package's compiled forward, or the same model on another device): bf16
   keeps 8 bits (one ulp is 2⁻⁸ relative), each layer rounds a dozen times,
@@ -83,6 +87,20 @@ def gather_atol(n_rows: int, max_abs_term: float) -> float:
     """Largest difference of two f32 means of the same ``n_rows`` terms,
     each at most ``max_abs_term`` in magnitude, summed in any orders."""
     return 2.0 * (_gamma(n_rows) + 2.0 * U32) * max_abs_term
+
+
+def race_update_tol(counts: torch.Tensor, alphas: torch.Tensor,
+                    class_axis: int) -> torch.Tensor:
+    """Per-element tolerance of a fold of (M, C) weights ``alphas`` into
+    ``counts``: ``γ_{M+1}·(|count| + Σ_m |α[m, c]|)``, the class ``c`` on
+    ``class_axis`` of ``counts`` (-1 for a head's (L, R, V) counts, 0 for a
+    (C, L, R) sketch)."""
+    n_points = alphas.shape[0]
+    mass = alphas.to(torch.float64).abs().sum(dim=0)
+    shape = [1] * counts.dim()
+    shape[class_axis] = -1
+    return _gamma(n_points + 1) * (counts.to(torch.float64).abs()
+                                   + mass.reshape(shape))
 
 
 BF16_NORM_TOL = 2.0 ** -5

@@ -24,7 +24,12 @@ from repro_torch.core.sketch_lm_head import quantize_counts
 from repro_torch.kernels.common import pack_int4_rows, pad_axis, unpack_int4_rows
 from repro_torch.kernels.fused_decode.ops import fused_decode_logits, fused_decode_ref
 from repro_torch.kernels.lsh_hash.ops import lsh_hash, lsh_hash_ref
-from repro_torch.parity import check_hash_indices, gather_atol
+from repro_torch.kernels.race_update.ops import (race_update,
+                                                 race_update_counts,
+                                                 race_update_counts_ref,
+                                                 race_update_ref)
+from repro_torch.parity import (check_hash_indices, gather_atol,
+                                race_update_tol)
 from repro_torch.kernels.sketch_head.ops import (dequantize_sketch_ref,
                                                  sketch_head_logits,
                                                  sketch_head_ref)
@@ -42,11 +47,12 @@ def jx():
     from repro.kernels.fused_decode.ops import fused_decode_logits as jfused
     from repro.kernels.lsh_hash.ops import lsh_hash as jhash
     from repro.kernels.lsh_hash.ref import lsh_hash_ref as jhash_ref
+    from repro.kernels.race_update.ops import race_update as jrace
     from repro.kernels.sketch_head.ops import sketch_head_logits as jgather
     from repro.kernels.sketch_head.ref import sketch_head_ref as jgather_ref
     return dict(jax=jax, jnp=jnp, lsh=jlsh, quant=jquant, common=jcommon,
                 fused=jfused, hash=jhash, hash_ref=jhash_ref, gather=jgather,
-                gather_ref=jgather_ref)
+                gather_ref=jgather_ref, race=jrace)
 
 
 @pytest.fixture
@@ -215,6 +221,47 @@ def test_fused_decode_matches_jax(jx, b, k, quant):
                                    np.asarray(want)[same], rtol=0, atol=atol)
 
 
+def _race_case(seed, m, n_rows, r, c):
+    """A (C, L, R) sketch, (M, L) indices with some outside [0, R) (they add
+    nothing), and (M, C) weights."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((c, n_rows, r)).astype(np.float32),
+            rng.integers(-1, r + 1, (m, n_rows)).astype(np.int32),
+            (rng.standard_normal((m, c)) * 0.1).astype(np.float32))
+
+
+@pytest.mark.parametrize("m,n_rows,r,c", [(1, 3, 4, 5), (37, 5, 7, 203),
+                                          (300, 9, 16, 64)])
+def test_race_update_matches_jax(jx, m, n_rows, r, c):
+    """Both entries, (C, L, R) and the head's (L, R, V), against JAX's
+    race_update (pallas in interpret mode, 256-point blocks, and ref) on
+    the same indices and weights, within race_update_tol."""
+    sketch, idx, alphas = _race_case(m, m, n_rows, r, c)
+    got = race_update(_t(sketch), _t(idx), _t(alphas))
+    lrv = race_update_counts(_t(sketch).permute(1, 2, 0).contiguous(),
+                             _t(idx), _t(alphas))
+    assert got.shape == (c, n_rows, r) and lrv.shape == (n_rows, r, c)
+    tol = race_update_tol(_t(sketch), _t(alphas), 0).numpy()
+    for backend in ("pallas", "ref"):
+        want = np.asarray(jx["race"](jx["jnp"].asarray(sketch), idx, alphas,
+                                     backend=backend), np.float64)
+        assert (np.abs(got.numpy() - want) <= tol).all()
+        assert (np.abs(lrv.numpy().transpose(2, 0, 1) - want) <= tol).all()
+
+
+def test_race_update_out_in_place():
+    sketch, idx, alphas = _race_case(3, 20, 4, 6, 33)
+    want = race_update_ref(_t(sketch), _t(idx), _t(alphas))
+    buf = _t(sketch)
+    assert race_update(buf, _t(idx), _t(alphas), out=buf) is buf
+    assert torch.equal(buf, want)
+    counts = _t(sketch).permute(1, 2, 0).contiguous()
+    got = race_update_counts(counts, _t(idx), _t(alphas), out=counts)
+    assert got is counts and torch.equal(
+        counts, race_update_counts_ref(_t(sketch).permute(1, 2, 0),
+                                       _t(idx), _t(alphas)))
+
+
 def test_quant_scale_must_pair():
     h = _head(40)
     with pytest.raises(ValueError, match="together"):
@@ -286,6 +333,44 @@ def test_cuda_fused_decode_kernel(cuda, shape, quant):
                                rtol=0, atol=atol)
 
 
+_RACE_SHAPES = [  # (m, n_rows, r, v)
+    (256, 128, 16, 65536),      # the refresh of the serve.py rwkv6 head
+    (1024, 64, 16, 65519),      # SketchHeadConfig(), ragged V
+    (37, 5, 7, 203),            # odd everything
+    (100, 19, 40, 333),         # R > 16: several bucket passes
+    (0, 3, 4, 5),               # no points: out = counts
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", _RACE_SHAPES)
+def test_cuda_race_update_kernel(cuda, shape):
+    """Both entries against their plain versions within race_update_tol,
+    two launches bit for bit equal, the in-place fold equal to the fresh
+    one, and one launch counted per call."""
+    m, n_rows, r, v = shape
+    g = torch.Generator(cuda).manual_seed(m)
+    counts = torch.randn((n_rows, r, v), generator=g, device=cuda)
+    idx = torch.randint(-1, r + 1, (m, n_rows), generator=g, device=cuda,
+                        dtype=torch.int32)
+    alphas = torch.randn((m, v), generator=g, device=cuda)
+    race_update.launches = 0
+    got, again = (race_update_counts(counts, idx, alphas) for _ in range(2))
+    inplace = counts.clone()
+    race_update_counts(inplace, idx, alphas, out=inplace)
+    sketch = counts.permute(2, 0, 1).contiguous()
+    clr = race_update(sketch, idx, alphas)
+    torch.cuda.synchronize()
+    assert race_update.launches == 4
+    want = race_update_counts_ref(counts, idx, alphas)
+    assert bool(((got - want).abs().double()
+                 <= race_update_tol(counts, alphas, -1)).all())
+    assert torch.equal(got, again) and torch.equal(inplace, got)
+    assert torch.equal(clr.permute(1, 2, 0), got)
+    assert bool(((clr - race_update_ref(sketch, idx, alphas)).abs().double()
+                 <= race_update_tol(sketch, alphas, 0)).all())
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_refuse_bad_operands(cuda):
     hid, proj, w, bias, store, _, bw, r, _ = _cuda_case(cuda, _CUDA_SHAPES[2], None)
@@ -298,3 +383,7 @@ def test_cuda_wrappers_refuse_bad_operands(cuda):
     with pytest.raises(ValueError, match="cuda"):
         fused_decode_logits(hid, proj.cpu(), w, bias, store, bandwidth=bw,
                             n_buckets=r)
+    with pytest.raises(TypeError, match="dtype"):
+        race_update_counts(store, torch.zeros((2, 5), dtype=torch.int64,
+                                              device=cuda),
+                           torch.zeros((2, 203), device=cuda))
