@@ -44,16 +44,39 @@
    teacher-forced on the engine's tokens, see ``check_staggered``), and
    three tenants over a capacity-2 ``HeadCache`` against single-tenant
    engines, with fused_decode launched once per bank row per tick.
-7. Prints the ``{"kernels": [...]}`` line (race_update's launches from the
-   refresh path), the card line, and last ``{"ok": true, "device":
-   {...}}``.
+7. race_query kernel phase: the CUDA kernel against ``race_query_ref``
+   at each tabular dataset's FULL-budget query shape (B = its test set,
+   L = 2000 or 4000, R = 30-100 or 64, C = 2 or 1, g = 8), g in {5, 1},
+   L % g != 0, a ragged B, a bf16 sketch, tied means and the [1, 2, 3, 10]
+   even-g median: every estimate within ``race_query_tol``, two launches
+   bit for bit equal, timed beside its plain version and its bound.
+8. Paper phase: ``repro_torch.launch.paper_repro.run_dataset`` on all six
+   datasets at the FULL budget (teacher → distill → freeze → query), with
+   the launch counts zeroed before and read after each (lsh_hash 2,
+   race_update 1, race_query 1); the query held against the plain version
+   on the same debiased state, the hash against its plain version, the
+   freeze's race_update (C, L, R) against its plain version and timed;
+   classification sets gated on tests/test_distill.py's relations
+   (kernel >= NN - 0.08, sketch >= kernel - 0.10).  The process runs with
+   PYTHONHASHSEED=0 (it re-executes itself once to set it), because the
+   datasets are seeded with Python's salted ``hash(name)``.
+9. LM distill phase: the serve CLI's own ``--sketch-head`` without
+   ``--head-path`` on full-width rwkv6-1.6b (in-process ``distill_head``,
+   300 steps, 1024 hiddens, 256 anchors; freeze; ``generate``), then
+   ``--engine --tenants 3`` over 2 slots, launch counts asserted.
+10. Prints the ``{"kernels": [...]}`` line (race_update's launches from the
+   refresh path, race_query's from the paper phase), the card line, and
+   last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the exit code is non-zero and the last line
 is not printed.  Without a CUDA device it exits non-zero at once.
 """
 
+import contextlib
+import io
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -71,14 +94,17 @@ from repro_torch.core.sketch_lm_head import (dequantize_head, freeze_head, quant
 from repro_torch.kernels import _build
 from repro_torch.kernels.fused_decode.ops import fused_decode_logits, fused_decode_ref
 from repro_torch.kernels.lsh_hash.ops import lsh_hash, lsh_hash_ref
+from repro_torch.kernels.race_query.ops import race_query, race_query_ref
 from repro_torch.kernels.race_update.ops import (race_update, race_update_counts,
                                                  race_update_counts_ref, race_update_ref)
 from repro_torch.parity import (BF16_MAX_TOL, BF16_NORM_TOL, assert_bf16_backbone_close,
                                 bf16_backbone_errors, check_hash_indices, gather_atol,
-                                race_update_tol)
+                                race_query_tol, race_update_tol)
 from repro_torch.kernels.sketch_head.ops import (dequantize_sketch_ref,
                                                  sketch_head_logits,
                                                  sketch_head_ref)
+from repro_torch.data.tabular import DATASETS
+from repro_torch.launch import paper_repro, serve
 from repro_torch.launch.serve import engine_stream
 from repro_torch.launch.steps import prefill_step, serve_step
 from repro_torch.models import model
@@ -101,6 +127,8 @@ KERNELS = {   # name: (wrapper, source, TPU kernel it replaces)
                     "src/repro/kernels/sketch_head/kernel.py:41"),
     "race_update": (race_update, "src/repro_torch/kernels/csrc/race_update.cu",
                     "src/repro/kernels/race_update/kernel.py:27"),
+    "race_query": (race_query, "src/repro_torch/kernels/csrc/race_query.cu",
+                   "src/repro/kernels/race_query/kernel.py:29"),
 }
 N_REQUESTS, SLOTS, TENANT_SLOTS, CAPACITY = 12, 4, 2, 2
 REFRESH_PROMPTS = 8                 # x PROMPT tokens = M = 256 refresh points
@@ -858,6 +886,175 @@ def refresh_phase(dev, timer, lm, kparams, quant):
     return launched, rec
 
 
+def query_work(sketch, idx):
+    """(bytes, operations) of one query: the indices read once, the sketch
+    entries they touch read once, the (B, C) estimates written once; one
+    add per (query, class, row)."""
+    c, n_rows, n_buckets = sketch.shape
+    b = idx.shape[0]
+    rows = torch.arange(n_rows, device=idx.device)
+    touched = int((rows[None, :] * n_buckets + idx.long()).unique().numel())
+    return (4 * b * n_rows + sketch.element_size() * c * touched + 4 * b * c,
+            b * c * n_rows)
+
+
+def check_query(timer, sketch, idx, n_groups):
+    """race_query against race_query_ref: every estimate within
+    ``race_query_tol`` (NaN where both are NaN), two launches bit for bit
+    equal; returns the timed record."""
+    got = race_query(sketch, idx, n_groups=n_groups)
+    again = race_query(sketch, idx, n_groups=n_groups)
+    want = race_query_ref(sketch, idx, n_groups)
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError("race_query: two launches gave different bits")
+    tol = race_query_tol(sketch, idx, n_groups)
+    both_nan = got.isnan() & want.isnan()
+    err = (got.double() - want.double()).abs()
+    if not bool(((err <= tol) | both_nan).all()):
+        raise AssertionError(f"race_query off by {float(err[~both_nan].max())}, beyond "
+                             f"race_query_tol")
+    rec = dict(max_abs_err=float(err[~both_nan].max()) if bool((~both_nan).any()) else 0.0,
+               ms=timer.ms(lambda: race_query(sketch, idx, n_groups=n_groups)),
+               plain_ms=timer.ms(lambda: race_query_ref(sketch, idx, n_groups)),
+               library_ms=None, nan=int(both_nan.sum()))
+    rec["bytes"], rec["ops"] = query_work(sketch, idx)
+    rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], rec["ops"])
+    return rec
+
+
+def paper_shape(name):
+    """(B, C, L, R) of a dataset's query at the FULL budget (run_dataset's
+    sizing)."""
+    spec, budget = DATASETS[name], paper_repro.FULL
+    regression = spec.task == "regression"
+    return (min(spec.n_test, budget["test_cap"]), 1 if regression else 2,
+            budget["rows"] * (2 if regression else 1),
+            64 if regression else max(spec.rs_R // 10, 16))
+
+
+def query_phase(dev, timer):
+    """race_query against its plain version: each dataset's FULL-budget
+    shape at g = 8, then g in {5, 1}, L % g != 0, a ragged B, a bf16
+    sketch, tied means, L < g (NaN) and the [1, 2, 3, 10] median."""
+    gen = torch.Generator(dev).manual_seed(3)
+
+    def case(label, b, c, n_rows, r, g, dtype=torch.float32, sketch=None):
+        if sketch is None:
+            sketch = torch.randn((c, n_rows, r), generator=gen, device=dev).to(dtype)
+        idx = torch.randint(0, r, (b, n_rows), generator=gen, device=dev, dtype=torch.int32)
+        rec = check_query(timer, sketch, idx, g)
+        print("kernel_case " + json.dumps(dict(kernel="race_query", entry=label, B=b, C=c,
+                                               L=n_rows, R=r, g=g, dtype=str(dtype), **rec)),
+              flush=True)
+
+    for name in DATASETS:
+        case(name, *paper_shape(name), 8)
+    b, c, n_rows, r = paper_shape("adult")
+    case("g=5", b, c, n_rows, r, 5)
+    case("g=1 (mean)", b, c, n_rows, r, 1)
+    case("L % g != 0", b, c, n_rows + 3, r, 8)
+    case("ragged B", 777, c, n_rows, r, 8)
+    case("bf16 sketch", b, c, n_rows, r, 8, torch.bfloat16)
+    case("5 classes", 300, 5, 640, 16, 8)
+    case("tied means", 1000, 2, 64, 4, 8,
+         sketch=torch.randint(0, 2, (2, 64, 4), generator=gen, device=dev).float())
+    case("L < g (NaN)", 50, 1, 5, 16, 8)
+    s = torch.tensor([1.0, 2.0, 3.0, 10.0], device=dev).reshape(1, 4, 1)
+    got = race_query(s, torch.zeros((3, 4), dtype=torch.int32, device=dev), n_groups=4)
+    if not bool((got == 2.5).all()):
+        raise AssertionError(f"median of [1, 2, 3, 10] is {got.tolist()}, not 2.5")
+    print("race_query: median of [1, 2, 3, 10] = 2.5 (midpoint), every case within "
+          "race_query_tol and bit-stable", flush=True)
+
+
+def paper_phase(dev, timer):
+    """The paper's recipe on all six datasets at the FULL budget through
+    run_dataset; returns (race_query record of the first dataset's query,
+    race_query launches over the phase)."""
+    budget = paper_repro.FULL
+    chunks = -(-budget["n_points"] // 4096)
+    want = {"lsh_hash": chunks + 1, "race_update": chunks, "race_query": 1}
+    first, n_query = None, 0
+    for name in DATASETS:
+        torch.cuda.synchronize()
+        reset_counts()
+        r = paper_repro.run_dataset(name, budget, 0, dev)
+        launched = counts()
+        expect_launches(f"paper {name}", launched, want)
+        n_query += launched["race_query"]
+        sk, state, q = (r["parts"][k] for k in ("sketch", "state", "queries"))
+        cfg = sk.config
+        w, b = state["hash"]["w"], state["hash"]["b"]
+        idx = sk.lsh.hash(state["hash"], q)
+        mism = check_hash_indices(idx, lsh_hash_ref(q, w, b, cfg.bandwidth, cfg.n_buckets),
+                                  q, w, b, cfg.bandwidth)
+        qrec = check_query(timer, sk.debiased(state), idx, cfg.n_groups)
+        points, alphas = r["parts"]["kparams"]["points"], r["parts"]["kparams"]["alphas"]
+        pidx = sk.lsh.hash(state["hash"], points)
+        zeros = torch.zeros_like(state["array"])
+        if not torch.equal(race_update(zeros, pidx, alphas.contiguous()), state["array"]):
+            raise AssertionError(f"paper {name}: the frozen array is not race_update of the "
+                                 f"anchors")
+        urec = check_race(timer, zeros, pidx, alphas.contiguous(), "sketch")
+        shape = dict(B=q.shape[0], C=cfg.n_outputs, L=cfg.n_rows, R=cfg.n_buckets,
+                     g=cfg.n_groups, M=points.shape[0])
+        print("kernel_case " + json.dumps(dict(kernel="race_query", entry=f"paper {name}",
+                                               idx_mismatches=mism, **shape, **qrec)))
+        print("kernel_case " + json.dumps(dict(kernel="race_update",
+                                               entry=f"freeze {name} (C, L, R)", **shape,
+                                               **urec)))
+        print(f"paper {name} ({r['task']}, data checksum {r['data_checksum']}): NN "
+              f"{r['nn']:.4f} Kernel {r['kernel']:.4f} RS {r['rs']:.4f}; memory "
+              f"{r['mem_reduction']:.1f}x, FLOPs {r['flop_reduction']:.1f}x fewer; seconds "
+              f"{ {k: round(v, 3) for k, v in r['stage_seconds'].items()} } (total "
+              f"{r['seconds']:.2f}); launches {launched}; {mism} query index mismatches at "
+              f"floor boundaries", flush=True)
+        if r["task"] == "classification" and not (r["kernel"] >= r["nn"] - 0.08
+                                                  and r["rs"] >= r["kernel"] - 0.10):
+            raise AssertionError(f"paper {name}: kernel {r['kernel']} vs NN {r['nn']} (limit "
+                                 f"-0.08) or sketch {r['rs']} vs kernel (limit -0.10) off")
+        first = first or qrec
+    return first, n_query
+
+
+def lm_distill_phase():
+    """The serve CLI's ``--sketch-head`` without ``--head-path`` at full
+    width (distill in process, freeze, generate), then ``--engine --tenants
+    3`` over 2 slots; launch counts zeroed before and read after each."""
+    def cli(argv):
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            serve.main(argv)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        out = buf.getvalue()
+        print(out.rstrip())
+        mse = float(out.split("distill MSE: ")[1].split()[0])
+        if not math.isfinite(mse):
+            raise AssertionError(f"serve {' '.join(argv)}: distill MSE {mse}")
+        return out, counts(), dt
+
+    base = ["--prompt-len", str(PROMPT), "--gen", str(GEN)]
+    out, launched, dt = cli(["--sketch-head", "--batch", str(BATCH), *base])
+    if "head=sketch/fused " not in out:
+        raise AssertionError("serve --sketch-head did not serve the fused sketch head")
+    expect_launches("serve --sketch-head", launched, {"lsh_hash": 1, "fused_decode": GEN - 1})
+    print(f"serve --sketch-head (no --head-path): {dt:.2f} s wall, launches {launched}")
+    out, launched, dt = cli(["--sketch-head", "--engine", "--tenants", "3", "--batch",
+                             str(TENANT_SLOTS), "--requests", str(N_REQUESTS), "--stats-json",
+                             *base])
+    stats = json.loads(out.split("STATS_JSON ")[1].splitlines()[0])
+    expect_launches("serve --engine --tenants 3", launched, {
+        "lsh_hash": 3, "fused_decode": stats["tenants"]["capacity"] * stats["decode_steps"]})
+    if stats["requests"] != N_REQUESTS or not stats["tenants"]["evictions"]:
+        raise AssertionError(f"serve --engine --tenants 3: {stats}")
+    print(f"serve --engine --tenants 3: {dt:.2f} s wall, launches {launched}")
+
+
 def leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -869,6 +1066,10 @@ def leaves(tree):
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
+    if os.environ.get("PYTHONHASHSEED") != "0":
+        # The tabular datasets are seeded with hash(name): pin it.
+        os.execve(sys.executable, [sys.executable, *sys.argv],
+                  dict(os.environ, PYTHONHASHSEED="0"))
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False      # IEEE f32: TF32 flips floor()
     torch.backends.cudnn.allow_tf32 = False
@@ -903,6 +1104,9 @@ def main() -> None:
                                                   kparams, None)
     timed("refresh int8", refresh_phase, dev, timer, lm, kparams, "int8")
     timed("engine", engine_phase, dev, lm, frozen, kparams)
+    timed("race_query", query_phase, dev, timer)
+    recs["race_query"], query_launches = timed("paper", paper_phase, dev, timer)
+    timed("lm distill", lm_distill_phase)
     print(f"phase seconds: {phase_seconds}")
 
     line = []
@@ -910,6 +1114,8 @@ def main() -> None:
         rec = recs[name]
         if name == "race_update":
             launches = refresh_launches[name]
+        elif name == "race_query":
+            launches = query_launches
         else:
             launches = runs["two_kernel" if name != "fused_decode" else "fused"][-1][
                 "launches"][name]

@@ -6,6 +6,13 @@ in the JAX tree layout (``embed``, ``head``, ``final_norm``,
 caller does the ``np.asarray`` on the JAX side — and returns the same tree
 of torch tensors.  ``torch.from_numpy`` rejects numpy's ``bfloat16``
 (an extension dtype), so those leaves travel as their int16 bits.
+
+``jax.random`` draws cannot be replayed in torch, so the paper path's
+states travel the same way: :func:`teacher_from_numpy` (an MLP's list of
+``{"w", "b"}``), :func:`kernel_params_from_numpy` (a ``KernelModel``'s
+``{"points", "alphas", "proj"}``) and :func:`sketch_state_from_numpy` (a
+``RepresenterSketch`` state ``{"hash", "array", "mass"}``), each checking
+the keys it expects.
 """
 
 from __future__ import annotations
@@ -29,3 +36,34 @@ def params_from_numpy(tree, device="cuda"):
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_numpy(v, device) for v in tree)
     return _leaf(tree, device)
+
+
+def _checked(tree: dict, keys, what: str) -> dict:
+    if set(tree) != set(keys):
+        raise ValueError(f"{what} needs keys {sorted(keys)}, got "
+                         f"{sorted(tree)}")
+    return tree
+
+
+def teacher_from_numpy(layers, device="cuda") -> list:
+    """An MLP teacher's params (``[{"w": (a, b), "b": (b,)}, ...]``)."""
+    return [params_from_numpy(_checked(dict(layer), ("w", "b"),
+                                       "a teacher layer"), device)
+            for layer in layers]
+
+
+def kernel_params_from_numpy(params, device="cuda") -> dict:
+    """A ``KernelModel``'s params ``{"points", "alphas", "proj"}``."""
+    return params_from_numpy(_checked(dict(params),
+                                      ("points", "alphas", "proj"),
+                                      "kernel-model params"), device)
+
+
+def sketch_state_from_numpy(state, device="cuda") -> dict:
+    """A ``RepresenterSketch`` state ``{"hash": {...}, "array": (C, L, R),
+    "mass": (C,)}``; ``hash`` holds the family's params (``w`` and, for
+    the L2 families, ``b``)."""
+    state = dict(_checked(dict(state), ("hash", "array", "mass"),
+                          "a sketch state"))
+    state["hash"] = dict(state["hash"])
+    return params_from_numpy(state, device)

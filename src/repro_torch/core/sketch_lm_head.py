@@ -1,5 +1,5 @@
-"""Representer-Sketch LM head, decode side: freeze, quantize, apply, and
-the ``.npz`` archive shared with the JAX package.
+"""Representer-Sketch LM head: distill, freeze, quantize, apply, and the
+``.npz`` archive shared with the JAX package.
 
 A frozen head is ``{"proj": (d, d'), "w": (L, K, d'), "b": (L, K),
 "array": (L, R, V)}`` (+ ``"scale": (L, R)`` when the counts are stored
@@ -14,8 +14,10 @@ serving default), ``two_kernel`` (``q = h·A`` as a plain matmul, then the
 ``lsh_hash`` and ``sketch_head`` kernels) and ``ref`` (the plain
 composition, on request only).  Archive formats v1 (f32 only, no
 metadata) and v2 (``meta_format_version``, ``meta_quant``, ``scale``) load;
-v2 is written.  In-process distillation is not ported: heads arrive as
-archives or are frozen here from given kernel params.
+v2 is written.  :func:`distill_head` fits the kernel params to a dense
+head's logits in process (plain PyTorch with autograd, ``core/distill``);
+:func:`head_costs` compares the head's memory and FLOPs with the dense
+unembed's.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.distill import DistillConfig, distill
+from repro_torch.core.kernel_model import KernelModel, KernelModelConfig
 from repro_torch.core.lsh import L2LSH, LSHConfig
 from repro_torch.kernels.common import (pack_int4_rows, select_tenant_rows,
                                         unpack_int4_rows)
@@ -48,6 +52,31 @@ HEAD_BACKENDS = ("fused", "two_kernel", "ref")
 
 #: Archive format written by :func:`save_head` (v1 archives still load).
 HEAD_FORMAT_VERSION = 2
+
+
+def distill_head(generator: torch.Generator, head_table: torch.Tensor,
+                 hidden_samples: torch.Tensor, cfg: SketchHeadConfig, *,
+                 n_points: int = 512,
+                 distill_cfg: DistillConfig = DistillConfig(n_steps=1500,
+                                                            lr=5e-3)
+                 ) -> Tuple[dict, Dict[str, float]]:
+    """Kernel params ``{"points", "alphas", "proj"}`` (M = ``n_points``
+    anchors, V = vocab outputs) fitted to the dense head's f32 logits
+    ``h · Wᵀ`` on ``hidden_samples`` (N, d), with the metrics of
+    :func:`repro_torch.core.distill.distill`.  ``head_table`` is the
+    (V, d) unembed; draws come from ``generator`` (on the samples'
+    device)."""
+    v, d = head_table.shape
+    model = KernelModel(KernelModelConfig(
+        in_dim=d, proj_dim=cfg.proj_dim, n_points=n_points, n_outputs=v,
+        bandwidth=cfg.bandwidth, k=cfg.k))
+    table = head_table.to(torch.float32)
+
+    def teacher(h):
+        return h.to(torch.float32) @ table.T
+
+    return distill(generator, teacher, hidden_samples.to(torch.float32),
+                   model, distill_cfg)
 
 
 def _check_quant(quant: Optional[str]) -> None:
@@ -381,3 +410,44 @@ def load_head_meta(path) -> Dict[str, object]:
     """Registry metadata of a saved head."""
     with np.load(Path(path)) as data:
         return _meta_from_archive(data)
+
+
+def head_costs(cfg: SketchHeadConfig, d_model: int, vocab: int, *,
+               quant: Optional[str] = None) -> dict:
+    """Memory and FLOPs of the sketched head against the dense unembed
+    (paper §4.3 model), the JAX package's ``head_costs``.
+
+    ``*_params`` count elements; ``*_bytes`` are dtype-aware (f32 counts
+    4 B, int8 1 B, packed int4 ½ B plus the (L, R) f32 scales; hash and
+    transform params f32).
+    """
+    _check_quant(quant)
+    dense_params = d_model * vocab
+    n_counts = cfg.n_rows * cfg.n_buckets * vocab
+    aux_params = (d_model * cfg.proj_dim                  # transform A
+                  + cfg.n_rows * cfg.k * cfg.proj_dim)    # hash bank w
+    sketch_params = n_counts + aux_params
+    dense_flops = 2 * d_model * vocab
+    sketch_flops = (2 * d_model * cfg.proj_dim
+                    + 2 * cfg.proj_dim * cfg.k * cfg.n_rows
+                    + cfg.n_rows * vocab)
+    if quant == "int8":
+        count_bytes = n_counts
+    elif quant == "int4":
+        count_bytes = -(-cfg.n_rows // 2) * cfg.n_buckets * vocab
+    else:
+        count_bytes = 4 * n_counts
+    scale_bytes = 4 * cfg.n_rows * cfg.n_buckets if quant else 0
+    dense_bytes = 4 * dense_params
+    sketch_bytes = count_bytes + scale_bytes + 4 * aux_params
+    return {
+        "dense_params": dense_params,
+        "sketch_params": sketch_params,
+        "param_ratio": dense_params / sketch_params,
+        "dense_bytes": dense_bytes,
+        "sketch_bytes": sketch_bytes,
+        "bytes_ratio": dense_bytes / sketch_bytes,
+        "dense_flops": dense_flops,
+        "sketch_flops": sketch_flops,
+        "flop_ratio": dense_flops / sketch_flops,
+    }

@@ -5,15 +5,18 @@ A single bulk prefill ingests every prompt through the dense head, then
 the decode loop emits tokens step by step; with ``--sketch-head`` each
 decode step's logits come from the Representer-Sketch head on its
 ``--backend`` (``fused``: one CUDA kernel; ``two_kernel``; ``ref``).  The
-head is loaded from a ``--head-path`` archive saved by either package.
-``--engine`` serves a synthetic stream instead (staggered arrivals, every
-4th prompt shared, lengths ``gen`` and ``gen // 4``) over ``--batch``
-slots.
+head is loaded from a ``--head-path`` archive saved by either package, or,
+without one, distilled from the dense unembed in process (a short
+distillation, then a freeze).  ``--engine`` serves a synthetic stream
+instead (staggered arrivals, every 4th prompt shared, lengths ``gen`` and
+``gen // 4``) over ``--batch`` slots; ``--tenants N`` with ``--engine
+--sketch-head`` serves N per-tenant heads (one shared distillation, a hash
+bank each) through a ``HeadCache``, requests round-robin over tenants.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
-      [--smoke] [--sketch-head --head-path head.npz] [--backend fused] \\
+      [--smoke] [--sketch-head [--head-path head.npz]] [--backend fused] \\
       [--quant int8] [--batch 4 --prompt-len 32 --gen 16] [--device cuda] \\
-      [--engine --requests 12 --arrival-every 1 --stats-json]
+      [--engine --requests 12 --arrival-every 1 --stats-json [--tenants 3]]
 """
 
 from __future__ import annotations
@@ -27,10 +30,15 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.api.heads import DenseHead
+from repro_torch.api.heads import DenseHead, SketchHead
 from repro_torch.api.sampler import Sampler
 from repro_torch.launch.steps import prefill_step, serve_step
+from repro_torch.models.config import SketchHeadConfig
 from repro_torch.models.model import init_decode_cache
+
+#: The head that ``--sketch-head`` distills for an arch without its own.
+QUICK_HEAD = SketchHeadConfig(n_rows=128, n_buckets=16, k=1, proj_dim=32,
+                              bandwidth=2.0)
 
 
 def generate(params: dict, cfg, prompts: torch.Tensor, gen_len: int, *,
@@ -69,6 +77,87 @@ def generate(params: dict, cfg, prompts: torch.Tensor, gen_len: int, *,
     return torch.cat(out, dim=1)
 
 
+def _distill_quick(params, cfg, distill_steps: int):
+    """The in-process distillation of ``--sketch-head`` without a head
+    archive: 1024 random hiddens (seed 11), ``distill_head`` with 256
+    anchors (seed 12).  Returns (head config, kernel params)."""
+    from repro_torch.core.distill import DistillConfig
+    from repro_torch.core.sketch_lm_head import distill_head
+
+    head_cfg = cfg.sketch_head or QUICK_HEAD
+    table = params["embed"] if cfg.tie_embeddings else params["head"]
+    dev = table.device
+    hiddens = torch.randn((1024, cfg.d_model),
+                          generator=torch.Generator(dev).manual_seed(11),
+                          device=dev)
+    print(f"distilling sketch head (L={head_cfg.n_rows}, "
+          f"R={head_cfg.n_buckets}, {distill_steps} steps) ...")
+    t0 = time.perf_counter()
+    kparams, metrics = distill_head(
+        torch.Generator(dev).manual_seed(12), table, hiddens, head_cfg,
+        n_points=256,
+        distill_cfg=DistillConfig(n_steps=distill_steps, lr=5e-3))
+    print(f"  distill MSE: {metrics['final_mse']:.5f} "
+          f"({time.perf_counter() - t0:.2f} s)")
+    return head_cfg, kparams
+
+
+def build_or_load_head(params, cfg, head_path: Optional[str],
+                       backend: Optional[str] = None,
+                       distill_steps: int = 300,
+                       quant: Optional[str] = None) -> SketchHead:
+    """A ready-to-serve :class:`SketchHead` on the params' device: loaded
+    from ``head_path`` (on the backend it was saved with unless
+    ``backend`` says otherwise; ``quant`` quantizes an f32 archive's
+    counts), or distilled from the dense head now (seeds 11, 12) and
+    frozen (seed 13) when ``head_path`` is None."""
+    from repro_torch.core.sketch_lm_head import freeze_head, quantize_head
+    from repro_torch.api.heads import load_head
+
+    dev = params["embed"].device
+    if head_path is None:
+        head_cfg, kparams = _distill_quick(params, cfg, distill_steps)
+        return SketchHead(cfg=head_cfg, backend=backend or "fused",
+                          quant=quant, params=freeze_head(
+                              torch.Generator(dev).manual_seed(13), kparams,
+                              head_cfg, quant=quant))
+    head = load_head(head_path, dev)
+    v, d = head.params["array"].shape[-1], head.params["proj"].shape[0]
+    if (d, v) != (cfg.d_model, cfg.vocab_size):
+        raise ValueError(
+            f"sketch head {head_path} was frozen for (d_model={d}, vocab={v}) "
+            f"but --arch {cfg.name} has (d_model={cfg.d_model}, "
+            f"vocab={cfg.vocab_size})")
+    if backend is not None:
+        head = head.with_backend(backend)
+    if quant is not None and head.quant != quant:
+        if head.quant is not None:
+            raise ValueError(f"head is stored {head.quant}; cannot "
+                             f"re-quantize to {quant}")
+        head = dataclasses.replace(head, quant=quant,
+                                   params=quantize_head(head.params, quant))
+    return head
+
+
+def build_tenant_heads(params, cfg, n_tenants: int,
+                       backend: Optional[str] = None,
+                       quant: Optional[str] = None,
+                       distill_steps: int = 300):
+    """One shared quick distillation, ``n_tenants`` freezes: every tenant
+    shares the anchors, alphas and transform and draws its own hash bank
+    (seed 100 + t).  Returns (the shared ``SketchHead`` spec, {"tenant-t":
+    frozen params})."""
+    from repro_torch.core.sketch_lm_head import freeze_head
+
+    head_cfg, kparams = _distill_quick(params, cfg, distill_steps)
+    dev = params["embed"].device
+    spec = SketchHead(cfg=head_cfg, backend=backend or "fused", quant=quant)
+    heads = {f"tenant-{t}": freeze_head(
+        torch.Generator(dev).manual_seed(100 + t), kparams, head_cfg,
+        quant=quant) for t in range(n_tenants)}
+    return spec, heads
+
+
 def engine_stream(vocab_size: int, n_requests: int, prompt_len: int,
                   gen: int, arrival_every: int, seed: int) -> list:
     """The synthetic request stream of ``--engine``: ``(prompt, max_new,
@@ -86,17 +175,21 @@ def engine_stream(vocab_size: int, n_requests: int, prompt_len: int,
     return stream
 
 
-def run_engine(lm, args) -> None:
+def run_engine(lm, args, head_cache=None) -> None:
     """Serve ``engine_stream`` through ``lm.engine`` over ``args.batch``
-    slots; prints the run and, with ``args.stats_json``, one
-    ``STATS_JSON {…}`` line."""
+    slots (with ``head_cache``, request i to tenant ``i % args.tenants``);
+    prints the run and, with ``args.stats_json``, one ``STATS_JSON {…}``
+    line."""
     n_requests = args.requests or 2 * args.batch
     engine = lm.engine(n_slots=args.batch,
-                       max_seq=args.prompt_len + args.gen)
-    for prompt, gen, arrival in engine_stream(
+                       max_seq=args.prompt_len + args.gen,
+                       head_cache=head_cache)
+    for i, (prompt, gen, arrival) in enumerate(engine_stream(
             lm.cfg.vocab_size, n_requests, args.prompt_len, args.gen,
-            args.arrival_every, args.seed):
-        engine.submit(prompt, gen, arrival=arrival)
+            args.arrival_every, args.seed)):
+        engine.submit(prompt, gen, arrival=arrival,
+                      tenant=(None if head_cache is None
+                              else f"tenant-{i % args.tenants}"))
     dev = lm.device
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -112,19 +205,29 @@ def run_engine(lm, args) -> None:
           f"({n_generated / dur:.1f} new tok/s), "
           f"{engine.stats['decode_steps']} decode steps, slot utilization "
           f"{engine.slot_utilization:.2f}")
+    if head_cache is not None:
+        hs = head_cache.stats
+        print(f"tenants: {args.tenants} over HeadCache capacity "
+              f"{head_cache.capacity}, hits {hs['hits']}/"
+              f"{hs['hits'] + hs['misses']}, {hs['loads']} loads, "
+              f"{hs['evictions']} evictions")
     print("sample token ids:", finished[min(finished)][:24])
     if args.stats_json:
-        record = {"arch": lm.cfg.name, "head": lm.head.describe(),
+        record = {"arch": lm.cfg.name, "head": engine.backend.head.describe(),
                   "device": str(dev), "n_slots": args.batch,
                   "requests": len(finished), "tokens": n_generated,
                   "seconds": dur,
                   "slot_utilization": engine.slot_utilization}
         record.update({k: int(v) for k, v in engine.stats.items()})
+        if head_cache is not None:
+            record["tenants"] = {
+                "n_tenants": args.tenants, "capacity": head_cache.capacity,
+                **{k: int(v) for k, v in head_cache.stats.items()}}
         print("STATS_JSON " + json.dumps(record, sort_keys=True))
 
 
 def main(argv=None) -> None:
-    from repro_torch.api.heads import load_head
+    from repro_torch.api.heads import HeadCache
     from repro_torch.api.lm import LM, check_device
 
     ap = argparse.ArgumentParser()
@@ -134,8 +237,9 @@ def main(argv=None) -> None:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--sketch-head", action="store_true",
-                    help="decode through the Representer-Sketch head loaded "
-                         "from --head-path instead of the dense unembed")
+                    help="decode through the Representer-Sketch head "
+                         "instead of the dense unembed (loaded from "
+                         "--head-path, else distilled in process)")
     ap.add_argument("--head-path", default=None,
                     help="frozen head .npz (saved by either package)")
     ap.add_argument("--backend", default=None,
@@ -155,16 +259,23 @@ def main(argv=None) -> None:
     ap.add_argument("--stats-json", action="store_true",
                     help="engine mode: print the engine stats as one "
                          "'STATS_JSON {...}' line")
+    ap.add_argument("--tenants", type=int, default=0,
+                    help="engine mode with --sketch-head: serve N per-tenant "
+                         "heads (one shared distillation, a hash bank each) "
+                         "through an LRU HeadCache; requests round-robin "
+                         "over tenants (not with --head-path)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random backbone and prompts")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.stats_json and not args.engine:
         ap.error("--stats-json applies to engine mode; add --engine")
-    if args.sketch_head and not args.head_path:
-        ap.error("--sketch-head needs --head-path: in-process distillation "
-                 "of a head is not ported yet (a later slice); save one "
-                 "with repro's examples/serve_sketch_head.py")
+    if args.tenants:
+        if not (args.engine and args.sketch_head):
+            ap.error("--tenants needs --engine and --sketch-head")
+        if args.head_path:
+            ap.error("--tenants distills one shared head in process; "
+                     "--head-path is not supported")
     if (args.quant or args.backend) and not args.sketch_head:
         ap.error("--quant/--backend apply to the sketch head; add "
                  "--sketch-head")
@@ -173,27 +284,21 @@ def main(argv=None) -> None:
     gen = torch.Generator(device).manual_seed(args.seed)
     lm = LM.from_config(args.arch, smoke=args.smoke, device=device,
                         generator=gen)
-    if args.sketch_head:
-        head = load_head(args.head_path, device)
-        v, d = head.params["array"].shape[-1], head.params["proj"].shape[0]
-        if (d, v) != (lm.cfg.d_model, lm.cfg.vocab_size):
-            raise ValueError(
-                f"sketch head {args.head_path} was frozen for (d_model={d}, "
-                f"vocab={v}) but --arch {lm.cfg.name} has "
-                f"(d_model={lm.cfg.d_model}, vocab={lm.cfg.vocab_size})")
-        if args.backend is not None:
-            head = head.with_backend(args.backend)
-        if args.quant is not None and head.quant != args.quant:
-            if head.quant is not None:
-                ap.error(f"head is stored {head.quant}; cannot re-quantize "
-                         f"to {args.quant}")
-            from repro_torch.core.sketch_lm_head import quantize_head
-            head = dataclasses.replace(
-                head, quant=args.quant,
-                params=quantize_head(head.params, args.quant))
-        lm = lm.with_head(head)
+    head_cache = None
+    if args.tenants:
+        spec, tenant_heads = build_tenant_heads(
+            lm.params, lm.cfg, args.tenants, args.backend, args.quant)
+        # Capacity below the tenant count when the slots allow it, so the
+        # run pages tenants in and out.
+        head_cache = HeadCache(tenant_heads.__getitem__,
+                               capacity=max(1, min(args.tenants, args.batch)))
+        lm = lm.with_head(spec)
+    elif args.sketch_head:
+        lm = lm.with_head(build_or_load_head(
+            lm.params, lm.cfg, args.head_path, args.backend,
+            quant=args.quant))
     if args.engine:
-        run_engine(lm, args)
+        run_engine(lm, args, head_cache)
         return
     prompts = torch.randint(0, lm.cfg.vocab_size,
                             (args.batch, args.prompt_len), generator=gen,

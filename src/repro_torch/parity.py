@@ -14,6 +14,12 @@
   sum of M + 1 f32 terms, within ``γ_{M+1}·(|count| + Σ_m |α[m, v]|)`` of
   its exact value in any order (:func:`race_update_tol`); the kernel is
   held to that bound per element against the plain version.
+* Sketch queries (``race_query``): each group mean is a sum of m = ⌊L/g⌋
+  f32 reads divided by m; two orders of the sum and one division each
+  differ by at most ``2·(γ_m + 2u)·Σ_group |read| / m``.  The median is
+  1-Lipschitz in the max-norm over the g means, and its midpoint
+  ``(lo + hi)·0.5`` adds one rounding on each side, ``2u·max_g |mean|``;
+  :func:`race_query_tol` is the sum, per (query, class).
 * The bf16 backbone against another implementation of it (the JAX
   package's compiled forward, or the same model on another device): bf16
   keeps 8 bits (one ulp is 2⁻⁸ relative), each layer rounds a dozen times,
@@ -101,6 +107,23 @@ def race_update_tol(counts: torch.Tensor, alphas: torch.Tensor,
     shape[class_axis] = -1
     return _gamma(n_points + 1) * (counts.to(torch.float64).abs()
                                    + mass.reshape(shape))
+
+
+def race_query_tol(sketch: torch.Tensor, idx: torch.Tensor,
+                   n_groups: int) -> torch.Tensor:
+    """(B, C) float64 tolerance of a median-of-means estimate from the
+    (C, L, R) ``sketch`` at the (B, L) indices ``idx``:
+    ``max_g 2·(γ_m + 2u)·Σ_group |read| / m + 2u·max_g |mean|`` with
+    m = ⌊L / n_groups⌋ (NaN where m = 0: the estimate itself is NaN)."""
+    s = sketch.to(torch.float64)
+    rows = torch.arange(s.shape[1], device=s.device)
+    reads = s[:, rows, idx.long()].permute(1, 0, 2)          # (B, C, L)
+    m = reads.shape[-1] // n_groups
+    grouped = reads[..., : n_groups * m].reshape(*reads.shape[:-1],
+                                                 n_groups, m)
+    mag = grouped.abs().sum(dim=-1) / m                       # (B, C, g)
+    return (2.0 * (_gamma(m) + 2.0 * U32) * mag.amax(dim=-1)
+            + 2.0 * U32 * grouped.mean(dim=-1).abs().amax(dim=-1))
 
 
 BF16_NORM_TOL = 2.0 ** -5

@@ -47,6 +47,18 @@ HEAD_CFG = dict(n_rows=9, n_buckets=5, k=2, proj_dim=8, bandwidth=2.0)
 QUANTS = [None, "int8", "int4"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread while this file runs: the distillation and
+    training loops are thousands of tiny eager ops, and PyTorch's default
+    (a thread per core in every pytest worker) oversubscribes the machine
+    under ``-n 6`` and slows them by orders of magnitude."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _kernel_params(seed, d, v, m=32, dp=8):
     rng = np.random.default_rng(seed)
     return {"points": rng.standard_normal((m, dp)).astype(np.float32),
@@ -324,6 +336,12 @@ def test_serve_cli_on_cpu(tmp_path, jax_archives, capsys):
                 "--head-path", str(jax_archives[None]), "--quant", "int4",
                 "--backend", "fused"])
     assert "head=sketch/fused/int4" in capsys.readouterr().out
+    # Without --head-path the head is distilled in process.
+    serve.main(["--smoke", "--device", "cpu", "--batch", "2",
+                "--prompt-len", "8", "--gen", "3", "--sketch-head"])
+    out = capsys.readouterr().out
+    assert "distill MSE" in out and "head=sketch/fused" in out
     with pytest.raises(SystemExit):
-        serve.main(["--smoke", "--device", "cpu", "--sketch-head"])
-    assert "distillation" in capsys.readouterr().err
+        serve.main(["--smoke", "--device", "cpu", "--sketch-head",
+                    "--tenants", "2"])
+    assert "--tenants needs --engine" in capsys.readouterr().err
