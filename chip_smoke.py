@@ -64,15 +64,48 @@
    ``--head-path`` on full-width rwkv6-1.6b (in-process ``distill_head``,
    300 steps, 1024 hiddens, 256 anchors; freeze; ``generate``), then
    ``--engine --tenants 3`` over 2 slots, launch counts asserted.
-10. Prints the ``{"kernels": [...]}`` line (race_update's launches from the
-   refresh path, race_query's from the paper phase), the card line, and
-   last ``{"ok": true, "device": {...}}``.
+10. flash_attn kernel phase (after race_update's): the CUDA kernel against
+   ``flash_attention_ref`` with gemma2-27b's heads (H=32, Hkv=16, dh=128,
+   bf16, softcap 50) at the main path's prefill (B=4, S=32) and the long
+   prefill (B=1, S=4160), window 4096 and none, plus softcap-free twins;
+   ragged S=200 with window 64 (the band starts mid-tile, f32); S=256,
+   window 32, softcap 30 (f32); dh=160, Hkv=8, S=1000 (bf16).  Every
+   element within ``repro_torch.parity.flash_attn_tol`` (plus one bf16 ulp
+   for bf16), two launches bit for bit equal; timed
+   beside the plain version and one PyTorch call computing the same
+   function: ``scaled_dot_product_attention`` without a softcap (GQA; a
+   boolean mask for a window), compiled ``flex_attention`` with one (the
+   softcap as its score_mod, the causal or window block mask, GQA).
+11. gemma2-27b main path (after freeing the rwkv6 model): full width and
+   depth (46 layers, d_model 4608, vocab 256000, 27.2 B random bf16 params
+   from seed 0) with the serve head frozen at V=256000; ``LM.generate`` of
+   4 x 32-token prompts for 16 new tokens, dense and fused (flash_attn 46
+   launches per generate, all in the prefill; fused_decode 15); the decode
+   step's profile; the teacher-forced prefill check (the flash prefill's
+   last hidden against the prompt fed token by token through decode steps
+   without flash, bf16 backbone rule); one teacher-forced decode step's
+   hidden (B=4, cache_pos 32) with fused_decode, lsh_hash and sketch_head
+   held against their plain versions and timed at gemma2's width.
+12. gemma2-27b engine, dense and fused: four requests arriving together
+   over four slots equal ``LM.generate``; six staggered requests over two
+   slots under ``check_staggered``; flash_attn 46 per prefill batch.
+13. gemma2-27b long prefill: B=1, a 4160-token prompt: flash_attn 46
+   launches, the first local layer's ring (4096 slots, 64 wrapped) equal
+   to its keys recomputed, wall time and flash_attn's share of the kernel
+   time under torch.profiler, then 4 new tokens through ``LM.generate``.
+14. Prints the ``{"kernels": [...]}`` line (race_update's launches from the
+   refresh path, race_query's from the paper phase, flash_attn's from the
+   gemma2 main path with its record at the main path's global-layer
+   prefill, flex_attention as its library call, softcap-free kernel and
+   SDPA times beside it), the card line,
+   and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the exit code is non-zero and the last line
 is not printed.  Without a CUDA device it exits non-zero at once.
 """
 
 import contextlib
+import gc
 import io
 import json
 import math
@@ -92,13 +125,15 @@ from repro_torch.api import LM, DenseHead, HeadCache, SketchHead
 from repro_torch.core.sketch_lm_head import (dequantize_head, freeze_head, quantize_counts,
                                              quantize_head)
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attn.ops import flash_attention, flash_attention_ref
 from repro_torch.kernels.fused_decode.ops import fused_decode_logits, fused_decode_ref
 from repro_torch.kernels.lsh_hash.ops import lsh_hash, lsh_hash_ref
 from repro_torch.kernels.race_query.ops import race_query, race_query_ref
 from repro_torch.kernels.race_update.ops import (race_update, race_update_counts,
                                                  race_update_counts_ref, race_update_ref)
 from repro_torch.parity import (BF16_MAX_TOL, BF16_NORM_TOL, assert_bf16_backbone_close,
-                                bf16_backbone_errors, check_hash_indices, gather_atol,
+                                assert_flash_attn_close, bf16_backbone_errors,
+                                check_hash_indices, flash_attn_tol, gather_atol,
                                 race_query_tol, race_update_tol)
 from repro_torch.kernels.sketch_head.ops import (dequantize_sketch_ref,
                                                  sketch_head_logits,
@@ -109,6 +144,7 @@ from repro_torch.launch.serve import engine_stream
 from repro_torch.launch.steps import prefill_step, serve_step
 from repro_torch.models import model
 from repro_torch.models.config import SketchHeadConfig
+from repro_torch.models.layers import apply_rope, embed, rms_norm, softcap
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
@@ -129,9 +165,15 @@ KERNELS = {   # name: (wrapper, source, TPU kernel it replaces)
                     "src/repro/kernels/race_update/kernel.py:27"),
     "race_query": (race_query, "src/repro_torch/kernels/csrc/race_query.cu",
                    "src/repro/kernels/race_query/kernel.py:29"),
+    "flash_attn": (flash_attention, "src/repro_torch/kernels/csrc/flash_attn.cu",
+                   "src/repro/kernels/flash_attn/kernel.py:40"),
 }
 N_REQUESTS, SLOTS, TENANT_SLOTS, CAPACITY = 12, 4, 2, 2
 REFRESH_PROMPTS = 8                 # x PROMPT tokens = M = 256 refresh points
+GEMMA = "gemma2-27b"
+GEMMA_LONG = 4160                   # past the 4096 window: the local rings wrap
+GEMMA_STAGGERED = 6                 # staggered requests over TENANT_SLOTS slots
+BF16_TC_FLOP_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
 
 
 def card_line() -> str:
@@ -333,10 +375,15 @@ def backbone_phase(dev):
     assert_bf16_backbone_close(got.cpu().numpy(), want.numpy())
 
 
-def main_path(dev, timer):
+def build_served(arch, dev):
+    """Full-width ``arch`` from seed 0 on the card, and the serve head
+    (SERVE_HEAD) frozen from random kernel params over 256 anchors at the
+    arch's vocabulary; returns (lm, kernel params, frozen head, the
+    generator, for the prompts)."""
     gen = torch.Generator(dev).manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    lm = LM.from_config("rwkv6-1.6b", device=dev, generator=gen)
+    lm = LM.from_config(arch, device=dev, generator=gen)
     cfg = lm.cfg
     m = 256
     kparams = {"points": torch.randn((m, SERVE_HEAD.proj_dim), generator=gen, device=dev),
@@ -348,42 +395,22 @@ def main_path(dev, timer):
     n_params = sum(t.numel() for t in leaves(lm.params))
     print(f"main path: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
           f"vocab {cfg.vocab_size}, {n_params / 1e9:.3f} B params, built and head "
-          f"frozen in {time.perf_counter() - t0:.2f} s")
+          f"frozen in {time.perf_counter() - t0:.2f} s; "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB allocated (peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB)", flush=True)
+    return lm, kparams, frozen, gen
+
+
+def main_path(dev, timer):
+    lm, kparams, frozen, gen = build_served("rwkv6-1.6b", dev)
+    cfg = lm.cfg
     heads = {"dense": lm.head,
              "fused": SketchHead(cfg=SERVE_HEAD, backend="fused", params=frozen),
              "two_kernel": SketchHead(cfg=SERVE_HEAD, backend="two_kernel", params=frozen)}
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device=dev)
-    for head in heads.values():                       # warm-up: libraries, handles
-        lm.with_head(head).generate(prompts, 2)
-    runs = {name: [] for name in heads}
-    want_launches = {"dense": {}, "fused": {"fused_decode": GEN - 1},
-                     "two_kernel": {"lsh_hash": GEN - 1, "sketch_head": GEN - 1}}
-    for rep in range(REPEATS):
-        for name, head in heads.items():
-            served = lm.with_head(head)
-            torch.cuda.synchronize()
-            reset_counts()
-            t0 = time.perf_counter()
-            tokens = served.generate(prompts, GEN)
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            launched = counts()
-            if tokens.shape != (BATCH, PROMPT + GEN) or not torch.equal(tokens[:, :PROMPT], prompts):
-                raise AssertionError(f"{name}: bad token block {tuple(tokens.shape)}")
-            if int(tokens.min()) < 0 or int(tokens.max()) >= cfg.vocab_size:
-                raise AssertionError(f"{name}: token ids out of range")
-            for kname, n in launched.items():
-                if n != want_launches[name].get(kname, 0):
-                    raise AssertionError(f"{name} run launched {kname} {n} times, expected "
-                                         f"{want_launches[name].get(kname, 0)}")
-            runs[name].append(dict(seconds=dt, tokens=tokens, launches=launched))
-            print(f"run {rep} head={served.head.describe()}: {BATCH}x{GEN} new tokens in "
-                  f"{dt:.4f} s = {BATCH * GEN / dt:.1f} new tok/s; launches {launched}",
-                  flush=True)
-    for name, rs in runs.items():
-        tps = sorted(BATCH * GEN / r["seconds"] for r in rs)
-        print(f"generate head={name}: new tok/s over {REPEATS} runs {tps} "
-              f"(median {float(np.median(tps)):.1f})")
+    runs = generate_runs(lm, heads, prompts, {
+        "dense": {}, "fused": {"fused_decode": GEN - 1},
+        "two_kernel": {"lsh_hash": GEN - 1, "sketch_head": GEN - 1}})
     agree = float((runs["fused"][-1]["tokens"][:, PROMPT:]
                    == runs["two_kernel"][-1]["tokens"][:, PROMPT:]).float().mean())
     print(f"free-running fused vs two_kernel token agreement (reported, not gated): {agree:.3f}")
@@ -422,6 +449,41 @@ def main_path(dev, timer):
     return runs, recs, lm, frozen, kparams
 
 
+def generate_runs(lm, heads, prompts, want_launches):
+    """``REPEATS`` rounds of ``LM.generate`` (BATCH x PROMPT prompts, GEN new
+    tokens) through each head in turn, after a warm-up, with the launch
+    counts zeroed just before and checked just after each run; returns
+    {head: [{seconds, tokens, launches}]}."""
+    cfg = lm.cfg
+    for head in heads.values():                       # warm-up: libraries, handles
+        lm.with_head(head).generate(prompts, 2)
+    runs = {name: [] for name in heads}
+    for rep in range(REPEATS):
+        for name, head in heads.items():
+            served = lm.with_head(head)
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            tokens = served.generate(prompts, GEN)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launched = counts()
+            if tokens.shape != (BATCH, PROMPT + GEN) or not torch.equal(tokens[:, :PROMPT], prompts):
+                raise AssertionError(f"{name}: bad token block {tuple(tokens.shape)}")
+            if int(tokens.min()) < 0 or int(tokens.max()) >= cfg.vocab_size:
+                raise AssertionError(f"{name}: token ids out of range")
+            expect_launches(f"{cfg.name} {name} run", launched, want_launches[name])
+            runs[name].append(dict(seconds=dt, tokens=tokens, launches=launched))
+            print(f"run {rep} {cfg.name} head={served.head.describe()}: {BATCH}x{GEN} new tokens "
+                  f"in {dt:.4f} s = {BATCH * GEN / dt:.1f} new tok/s; launches {launched}",
+                  flush=True)
+    for name, rs in runs.items():
+        tps = sorted(BATCH * GEN / r["seconds"] for r in rs)
+        print(f"generate {cfg.name} head={name}: new tok/s over {REPEATS} runs {tps} "
+              f"(median {float(np.median(tps)):.1f})")
+    return runs
+
+
 def step_profile(lm, heads, prompts, tokens):
     """One decode step per head: median wall time of 5 synchronized steps,
     then one step under torch.profiler for the device's kernel time (busy
@@ -439,12 +501,12 @@ def step_profile(lm, heads, prompts, tokens):
             for _ in range(6):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                serve_step(lm.params, cache, tok, cfg, head=head)
+                serve_step(lm.params, cache, tok, cfg, head=head, pos=PROMPT)
                 torch.cuda.synchronize()
                 walls.append((time.perf_counter() - t0) * 1e3)
             wall = float(np.median(walls[1:]))
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                serve_step(lm.params, cache, tok, cfg, head=head)
+                serve_step(lm.params, cache, tok, cfg, head=head, pos=PROMPT)
                 torch.cuda.synchronize()
             kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
             busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 if kernels else None
@@ -455,7 +517,8 @@ def step_profile(lm, heads, prompts, tokens):
             busy_txt = ("not measured (the profiler saw no device events)" if busy is None
                         else f"{busy:.3f} ms of kernels in {len(kernels)} launches, busy share "
                              f"{busy / wall:.3f}")
-            print(f"decode step head={name}: {wall:.3f} ms wall (median of 5); {busy_txt}")
+            print(f"decode step {cfg.name} head={name}: {wall:.3f} ms wall (median of 5); "
+                  f"{busy_txt}")
             for kname, us in top:
                 print(f"    {us / 1e3:8.4f} ms  {kname[:90]}")
 
@@ -679,9 +742,9 @@ def solo_steps(served, prompt, tokens):
         logits, cache = prefill_step(served.params, torch.as_tensor(prompt, device=dev)[None]
                                      .long(), cfg, cache)
         out = [logits[0].float()]
-        for tok in tokens[:-1]:
+        for j, tok in enumerate(tokens[:-1]):
             logits, cache = serve_step(served.params, cache, torch.tensor([[tok]], device=dev),
-                                       cfg, head=tap or served.head)
+                                       cfg, head=tap or served.head, pos=len(prompt) + j)
             out.append(logits[0].float())
     return out, [None] + ([h[0] for h in tap.seen] if tap else [None] * (len(out) - 1))
 
@@ -713,7 +776,8 @@ def check_staggered(name, served, stream, fin, ticks, frozen):
       against the solo's at every decode step, and each tick's logits are
       bit for bit the fused kernel's on that tick's hiddens, which is held
       against fused_decode_ref (``check_fused``: indices under the boundary
-      rule, logits under the gather bound).  The engine's and the solo's
+      rule, logits under the gather bound), then the final-logit softcap
+      where the arch has one.  The engine's and the solo's
       buckets are computed from hiddens that differ in their last bits, so
       a bucket may flip between them; those flips are counted, not gated.
 
@@ -725,7 +789,10 @@ def check_staggered(name, served, stream, fin, ticks, frozen):
         if tick["hidden"] is not None:
             chk = check_fused(SERVE_HEAD, frozen, tick["hidden"], None)
             rows = sorted(tick["owner"])
-            if not torch.equal(chk["got"][rows], tick["logits"][rows]):
+            fused = chk["got"]
+            if served.cfg.final_logit_softcap:           # serve_step applies it after the head
+                fused = softcap(fused, served.cfg.final_logit_softcap)
+            if not torch.equal(fused[rows], tick["logits"][rows]):
                 raise AssertionError(f"engine {name}: a tick's logits are not the fused "
                                      f"kernel's on its hiddens")
         for s, rid in tick["owner"].items():
@@ -767,15 +834,16 @@ def check_staggered(name, served, stream, fin, ticks, frozen):
                 got, want = eng_logits.cpu().numpy(), logits.cpu().numpy()
                 worst = track(worst, bf16_backbone_errors(got, want), i, j)
                 assert_bf16_backbone_close(got, want)
-    what = "logits" if name == "dense" else "final hidden"
+    sketched = served.head.needs_hidden
+    what = "final hidden" if sketched else "logits"
     print(f"engine {name}: {n_equal} of {len(stream)} staggered streams equal solo "
           f"LM.generate token for token; all {n_steps} steps held against a teacher-forced "
           f"solo run: dense-logit tokens at most {worst_gap:.6g} below the solo maximum (two "
           f"bf16 ulps allowed), engine {what} within {worst[0]:.3g} in norm and "
           f"{worst[1]:.3g} of the largest (limits {BF16_NORM_TOL}, {BF16_MAX_TOL}; largest "
           f"norm error at request, new token {worst[2]})"
-          + ("" if name == "dense" else f"; {n_flips} engine-vs-solo bucket flips over "
-             f"{n_steps - len(stream)} decode steps (reported)"), flush=True)
+          + (f"; {n_flips} engine-vs-solo bucket flips over {n_steps - len(stream)} decode "
+             f"steps (reported)" if sketched else ""), flush=True)
 
 
 def refresh_phase(dev, timer, lm, kparams, quant):
@@ -1055,6 +1123,310 @@ def lm_distill_phase():
     print(f"serve --engine --tenants 3: {dt:.2f} s wall, launches {launched}")
 
 
+def live_pairs(s, window):
+    """(query, key) pairs a causal (+window) attention of length s keeps."""
+    return sum(min(i + 1, window or s) for i in range(s))
+
+
+def flash_cases():
+    """(label, B, S, H, Hkv, dh, dtype, window, softcap) of the flash phase:
+    gemma2-27b's heads at the main path's and the long prefill's shapes
+    (each layer kind, and softcap-free for the library yardstick), and
+    ragged, f32 and dh=160 cases."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    g = (32, 16, 128)
+    cases = []
+    for label, b, s in (("main prefill", BATCH, PROMPT), ("long prefill", 1, GEMMA_LONG)):
+        cases += [(f"{label}, local", b, s, *g, bf16, 4096, 50.0),
+                  (f"{label}, global", b, s, *g, bf16, None, 50.0),
+                  (f"{label}, softcap-free", b, s, *g, bf16, None, None)]
+    return cases + [
+        ("ragged S=200, window 64 (band starts mid-tile)", 2, 200, 8, 4, 128, f32, 64, None),
+        ("S=256, window 32, softcap 30", 2, 256, 8, 4, 128, f32, 32, 30.0),
+        ("dh=160, Hkv=8, S=1000", 2, 1000, 32, 8, 160, bf16, None, None)]
+
+
+def flex_call(qt, kt, vt, window, cap):
+    """One compiled ``flex_attention`` call computing the softcapped
+    function on (B, H, S, dh) inputs: ``cap·tanh(s/cap)`` as its score_mod,
+    the causal (and window) block mask, GQA not expanded."""
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    def score_mod(score, b, h, q_idx, kv_idx):
+        return cap * torch.tanh(score / cap)
+
+    def mask_mod(b, h, q_idx, kv_idx):
+        keep = q_idx >= kv_idx
+        return keep if window is None else keep & (q_idx - kv_idx < window)
+
+    s = qt.shape[2]
+    block_mask = create_block_mask(mask_mod, None, None, s, s, device=qt.device)
+    flex = torch.compile(flex_attention, dynamic=False)
+    return lambda: flex(qt, kt, vt, score_mod=score_mod, block_mask=block_mask,
+                        enable_gqa=True)
+
+
+def check_flash(timer, gen, b, s, h, hkv, dh, dtype, window, cap):
+    """flash_attention against flash_attention_ref on random inputs, every
+    element within ``flash_attn_tol`` (the f32 bound of two evaluations,
+    plus one bf16 ulp for bf16 outputs), two launches bit for bit equal;
+    timed beside the plain version and one PyTorch call computing the same
+    function: ``scaled_dot_product_attention`` without a softcap (GQA,
+    causal or a boolean window mask), compiled ``flex_attention`` with
+    one; returns the record."""
+    dev = gen.device
+    q = torch.randn((b, s, h, dh), generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((b, s, hkv, dh), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    got = flash_attention(q, k, v, window=window, softcap=cap)
+    again = flash_attention(q, k, v, window=window, softcap=cap)
+    want = flash_attention_ref(q, k, v, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError("flash_attn: two launches gave different bits")
+    err = assert_flash_attn_close(got, want, flash_attn_tol(q, k, v, window, cap))
+    rec = dict(max_abs_err=err,
+               ms=timer.ms(lambda: flash_attention(q, k, v, window=window, softcap=cap)),
+               plain_ms=timer.ms(lambda: flash_attention_ref(q, k, v, window=window,
+                                                             softcap=cap)))
+    del got, again
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    if cap is None:
+        mask = None
+        if window is not None:
+            i = torch.arange(s, device=dev)
+            mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
+
+        def lib():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  is_causal=mask is None, enable_gqa=True)
+        rec["library"] = "scaled_dot_product_attention"
+    else:
+        lib = flex_call(qt, kt, vt, window, cap)
+        rec["library"] = "flex_attention (torch.compile)"
+    lerr = float((lib().transpose(1, 2).float() - want.float()).abs().max())
+    # A yardstick, checked loosely: its bf16 path rounds p to bf16 before
+    # p·v, so it sits a few bf16 ulps from the f32 function.
+    if not lerr < 0.05:
+        raise AssertionError(f"{rec['library']} disagrees by {lerr}")
+    rec["library_ms"], rec["library_max_abs_err"] = timer.ms(lib), lerr
+    del want
+    size = q.element_size()
+    pairs = b * h * live_pairs(s, window)
+    rec["bytes"] = size * (2 * q.numel() + k.numel() + v.numel())
+    rec["ops"] = 4 * dh * pairs
+    rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], rec["ops"])
+    rec["bf16_tensor_core_ms"] = rec["ops"] / BF16_TC_FLOP_PER_S * 1e3
+    return rec
+
+
+def flash_phase(dev, timer):
+    """The flash_attn kernel against its plain version at every case of
+    ``flash_cases``; returns {label: record}."""
+    gen = torch.Generator(dev).manual_seed(8)
+    recs = {}
+    for label, b, s, h, hkv, dh, dtype, window, cap in flash_cases():
+        rec = check_flash(timer, gen, b, s, h, hkv, dh, dtype, window, cap)
+        recs[label] = rec
+        print("kernel_case " + json.dumps(dict(
+            kernel="flash_attn", entry=label, B=b, S=s, H=h, Hkv=hkv, dh=dh,
+            dtype=str(dtype), window=window, softcap=cap, **rec)), flush=True)
+        free_card()
+    print("flash_attn: every case within its tolerance of the plain version and bit-stable "
+          "over two launches", flush=True)
+    return recs
+
+
+def free_card():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def prefill_vs_decode(lm, prompts):
+    """The teacher-forced check of the prefill path: the last prompt
+    position's final hidden from the bulk prefill (flash_attn, one launch
+    per layer) against the same prompt fed one token at a time through
+    decode steps (plain attention over the cache, no flash), under the
+    bf16 backbone rule."""
+    cfg, dev = lm.cfg, prompts.device
+    b, p = prompts.shape
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        reset_counts()
+        hidden, _ = model.forward(lm.params, prompts, cfg,
+                                  cache=model.init_decode_cache(cfg, b, p, device=dev),
+                                  cache_pos=0, return_hidden=True)
+        torch.cuda.synchronize()
+        expect_launches("flash prefill", counts(), {"flash_attn": cfg.n_layers})
+        cache = model.init_decode_cache(cfg, b, p, device=dev)
+        reset_counts()
+        for t in range(p):
+            step, cache = model.decode_step(lm.params, cache, prompts[:, t:t + 1], cfg,
+                                            cache_pos=t, return_hidden=True)
+        torch.cuda.synchronize()
+        expect_launches("token-by-token prompt", counts(), {})
+    got, want = step.cpu().numpy(), hidden[:, -1].cpu().numpy()
+    norm_err, max_err = bf16_backbone_errors(got, want)
+    assert_bf16_backbone_close(got, want)
+    print(f"{cfg.name} teacher-forced prefill check: the flash prefill's last hidden vs {p} "
+          f"decode steps without flash: {norm_err:.3g} in norm, {max_err:.3g} of the largest "
+          f"(limits {BF16_NORM_TOL}, {BF16_MAX_TOL})", flush=True)
+
+
+def gemma_main_path(dev, timer):
+    """Full-width, full-depth gemma2-27b: LM.generate through the dense and
+    the fused head (flash_attn once per layer in the prefill, none in
+    decode), the decode step's profile, the prefill check, and the sketch
+    kernels against their plain versions on a teacher-forced decode
+    step's hidden."""
+    lm, _, frozen, gen = build_served(GEMMA, dev)
+    cfg = lm.cfg
+    heads = {"dense": lm.head, "fused": SketchHead(cfg=SERVE_HEAD, backend="fused",
+                                                   params=frozen)}
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device=dev)
+    runs = generate_runs(lm, heads, prompts, {
+        "dense": {"flash_attn": cfg.n_layers},
+        "fused": {"flash_attn": cfg.n_layers, "fused_decode": GEN - 1}})
+    step_profile(lm, heads, prompts, runs["fused"][-1]["tokens"])
+    prefill_vs_decode(lm, prompts)
+
+    # Teacher-forced: the flash prefill, then one decode step's hidden, the
+    # input fused_decode takes on this path (B=4, d_model 4608, V=256000).
+    with torch.inference_mode():
+        cache = model.init_decode_cache(cfg, BATCH, PROMPT + GEN, device=dev)
+        _, cache = prefill_step(lm.params, prompts, cfg, cache)
+        tok = runs["fused"][-1]["tokens"][:, PROMPT:PROMPT + 1]
+        hidden, _ = model.decode_step(lm.params, cache, tok, cfg, cache_pos=PROMPT,
+                                      return_hidden=True)
+    del cache
+    if hidden.shape != (BATCH, cfg.d_model) or not bool(hidden.isfinite().all()):
+        raise AssertionError(f"{cfg.name} decode hidden not finite or mis-shaped")
+    for name, rec in check_and_time(timer, SERVE_HEAD, frozen, hidden, None, True).items():
+        print("kernel_case " + json.dumps(dict(
+            kernel=name, arch=cfg.name, entry="teacher-forced decode hidden",
+            L=SERVE_HEAD.n_rows, R=SERVE_HEAD.n_buckets, K=SERVE_HEAD.k,
+            d_proj=SERVE_HEAD.proj_dim, r=SERVE_HEAD.bandwidth, B=BATCH, d=cfg.d_model,
+            V=cfg.vocab_size, quant="f32", **rec)), flush=True)
+    return lm, frozen, runs
+
+
+def gemma_engine_phase(lm, frozen):
+    """gemma2-27b through the engine, dense and fused: four requests
+    arriving together over four slots equal LM.generate of the same batch;
+    six staggered requests over two slots, every step held by
+    ``check_staggered``; flash_attn launched once per layer per prefill
+    batch."""
+    cfg, dev = lm.cfg, lm.device
+    together = torch.randint(0, cfg.vocab_size, (SLOTS, PROMPT),
+                             generator=torch.Generator(dev).manual_seed(5), device=dev)
+    stream = engine_stream(cfg.vocab_size, GEMMA_STAGGERED, PROMPT, GEN, 1, 0)
+    for name, head in (("dense", DenseHead()),
+                       ("fused", SketchHead(cfg=SERVE_HEAD, backend="fused", params=frozen))):
+        served = lm.with_head(head)
+        want = served.generate(together, GEN)[:, PROMPT:].tolist()
+        torch.cuda.synchronize()
+        reset_counts()
+        got = served.serve([(p, GEN) for p in together.cpu().numpy()], n_slots=SLOTS)
+        expect_launches(f"{cfg.name} engine {name} (together)", counts(),
+                        {"flash_attn": cfg.n_layers,
+                         "fused_decode": GEN - 1 if name == "fused" else 0})
+        if [got[i] for i in range(SLOTS)] != want:
+            raise AssertionError(f"{cfg.name} engine {name}: requests arriving together "
+                                 f"differ from LM.generate of the same batch")
+        print(f"{cfg.name} engine {name}: {SLOTS} requests arriving together equal "
+              f"LM.generate of the same batch token for token")
+        eng, fin, dt, launched = run_engine(served, stream, TENANT_SLOTS)
+        engine_report(f"{cfg.name} {served.head.describe()}", eng, fin, dt, launched)
+        want_launches = {"flash_attn": cfg.n_layers * eng.stats["prefill_batches"]}
+        if name == "fused":
+            want_launches["fused_decode"] = eng.stats["decode_steps"]
+        expect_launches(f"{cfg.name} engine {name}", launched, want_launches)
+        rec_fin, ticks = record_engine(served, stream, TENANT_SLOTS)
+        if rec_fin != fin:
+            raise AssertionError(f"{cfg.name} engine {name}: a second run of the stream gave "
+                                 f"other tokens")
+        check_staggered(f"{cfg.name} {name}", served, stream, fin, ticks, frozen)
+
+
+def gemma_long_prefill(lm):
+    """B=1, a 4160-token prompt (past the 4096 window): the bulk prefill
+    (flash_attn once per layer; wall time and the attention kernels' share
+    under torch.profiler), the local layers' rings checked slot by slot
+    against the first layer's keys, then LM.generate of 4 new tokens."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, dev = lm.cfg, lm.device
+    prompt = torch.randint(0, cfg.vocab_size, (1, GEMMA_LONG),
+                           generator=torch.Generator(dev).manual_seed(6), device=dev)
+    max_seq = GEMMA_LONG + 4
+    with torch.inference_mode():
+        fresh = model.init_decode_cache(cfg, 1, max_seq, device=dev)
+        prefill_step(lm.params, prompt, cfg, fresh)                 # warm-up
+        del fresh
+        free_card()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        logits, cache = prefill_step(lm.params, prompt, cfg,
+                                     model.init_decode_cache(cfg, 1, max_seq, device=dev))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        expect_launches(f"{cfg.name} long prefill", counts(), {"flash_attn": cfg.n_layers})
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if logits.shape != (1, cfg.vocab_size) or not bool(logits.isfinite().all()):
+            raise AssertionError("long prefill logits not finite or mis-shaped")
+
+        # The first local layer's ring against its keys, recomputed here.
+        ring = cache["periods"]["pos0"].k[0, 0]                    # (size, Hkv, dh)
+        size, a = ring.shape[0], cfg.attention
+        p0 = model._index(lm.params["periods"]["pos0"], 0)
+        x = embed(prompt, lm.params["embed"]) * torch.tensor(
+            cfg.d_model ** 0.5, dtype=torch.bfloat16, device=dev)
+        h = rms_norm(x, p0["norm1"], cfg.norm_eps)
+        keys = apply_rope((h @ p0["mixer"]["wk"]).reshape(1, GEMMA_LONG, a.n_kv_heads,
+                                                          a.head_dim),
+                          torch.arange(GEMMA_LONG, device=dev), a.rope_theta)[0]
+        j = torch.arange(size, device=dev)
+        held = GEMMA_LONG - 1 - ((GEMMA_LONG - 1 - j) % size)
+        wrapped = int((held >= size).sum())            # slots written over once at least
+        last = torch.arange(GEMMA_LONG - size, GEMMA_LONG, device=dev)
+        if (size != a.window or wrapped != min(size, GEMMA_LONG - size)
+                or not torch.equal(held.sort().values, last) or not torch.equal(ring, keys[held])):
+            raise AssertionError(f"long prefill: the ring of {size} slots does not hold the "
+                                 f"last {size} positions ({wrapped} wrapped)")
+        del cache, logits, x, h, keys, ring
+        free_card()
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            prefill_step(lm.params, prompt, cfg,
+                         model.init_decode_cache(cfg, 1, max_seq, device=dev))
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+        busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+        attn_ms = sum(e.time_range.elapsed_us() for e in kernels
+                      if "flash_attn" in e.name) / 1e3
+        free_card()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        tokens = lm.generate(prompt, 4)
+        torch.cuda.synchronize()
+        gen_wall = time.perf_counter() - t0
+    expect_launches(f"{cfg.name} long generate", counts(), {"flash_attn": cfg.n_layers})
+    if tokens.shape != (1, GEMMA_LONG + 4) or int(tokens.min()) < 0 or \
+            int(tokens.max()) >= cfg.vocab_size:
+        raise AssertionError(f"long generate: bad tokens {tuple(tokens.shape)}")
+    share = ("not measured (the profiler saw no device events)" if not kernels else
+             f"flash_attn {attn_ms:.3f} ms of {busy:.3f} ms of kernels "
+             f"({attn_ms / busy:.3f} of the kernel time, {attn_ms / (wall * 1e3):.3f} of "
+             f"the wall)")
+    print(f"{cfg.name} long prefill: B=1, {GEMMA_LONG} tokens in {wall * 1e3:.1f} ms wall, "
+          f"peak {peak:.1f} GiB allocated; {share}; ring of {size} slots holds the last "
+          f"{size} positions ({wrapped} wrapped); generate of 4 new tokens "
+          f"{gen_wall * 1e3:.1f} ms wall, launches flash_attn {cfg.n_layers}", flush=True)
+
+
 def leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1070,6 +1442,10 @@ def main() -> None:
         # The tabular datasets are seeded with hash(name): pin it.
         os.execve(sys.executable, [sys.executable, *sys.argv],
                   dict(os.environ, PYTHONHASHSEED="0"))
+    # torch.compile's caches (the flex_attention yardstick) stay in the
+    # checkout's git-ignored build directory.
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(_build.BUILD_DIR / "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(_build.BUILD_DIR / "triton"))
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False      # IEEE f32: TF32 flips floor()
     torch.backends.cudnn.allow_tf32 = False
@@ -1098,6 +1474,7 @@ def main() -> None:
 
     timed("kernels", kernel_phase, dev, timer)
     timed("race_update", race_phase, dev, timer)
+    flash = timed("flash_attn", flash_phase, dev, timer)
     timed("backbone", backbone_phase, dev)
     runs, recs, lm, frozen, kparams = timed("main path", main_path, dev, timer)
     refresh_launches, recs["race_update"] = timed("refresh f32", refresh_phase, dev, timer, lm,
@@ -1107,7 +1484,18 @@ def main() -> None:
     timed("race_query", query_phase, dev, timer)
     recs["race_query"], query_launches = timed("paper", paper_phase, dev, timer)
     timed("lm distill", lm_distill_phase)
+    del lm, frozen, kparams
+    free_card()
+    glm, gfrozen, gruns = timed("gemma2 main path", gemma_main_path, dev, timer)
+    timed("gemma2 engine", gemma_engine_phase, glm, gfrozen)
+    del gfrozen
+    free_card()
+    timed("gemma2 long prefill", gemma_long_prefill, glm)
     print(f"phase seconds: {phase_seconds}")
+    recs["flash_attn"] = dict(flash["main prefill, global"],
+                              ms_softcap_free=flash["main prefill, softcap-free"]["ms"],
+                              library_ms_softcap_free=flash["main prefill, softcap-free"][
+                                  "library_ms"])
 
     line = []
     for name, (_, source, replaces) in KERNELS.items():
@@ -1116,13 +1504,17 @@ def main() -> None:
             launches = refresh_launches[name]
         elif name == "race_query":
             launches = query_launches
+        elif name == "flash_attn":
+            launches = gruns["fused"][-1]["launches"][name]
         else:
             launches = runs["two_kernel" if name != "fused_decode" else "fused"][-1][
                 "launches"][name]
         line.append(dict(name=name, route="cuda", source=source, replaces=replaces,
                          launches=launches, max_abs_err=rec["max_abs_err"], ms=rec["ms"],
                          plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
-                         bound_by=rec["bound_by"], library_ms=rec["library_ms"]))
+                         bound_by=rec["bound_by"], library_ms=rec["library_ms"],
+                         **{k: rec[k] for k in ("ms_softcap_free", "library_ms_softcap_free")
+                            if k in rec}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))
     print(card_line())

@@ -7,6 +7,7 @@ from repro_torch.models.config import ModelConfig
 
 _MODULES = {
     "rwkv6-1.6b": "repro_torch.configs.rwkv6_1b6",
+    "gemma2-27b": "repro_torch.configs.gemma2_27b",
 }
 
 

@@ -12,7 +12,8 @@ states travel the same way: :func:`teacher_from_numpy` (an MLP's list of
 ``{"w", "b"}``), :func:`kernel_params_from_numpy` (a ``KernelModel``'s
 ``{"points", "alphas", "proj"}``) and :func:`sketch_state_from_numpy` (a
 ``RepresenterSketch`` state ``{"hash", "array", "mass"}``), each checking
-the keys it expects.
+the keys it expects.  :func:`decode_cache_from_numpy` carries a decode
+cache (``{"periods": {"pos<j>": KVCache | RWKVCache}}``, numpy leaves).
 """
 
 from __future__ import annotations
@@ -67,3 +68,22 @@ def sketch_state_from_numpy(state, device="cuda") -> dict:
                           "a sketch state"))
     state["hash"] = dict(state["hash"])
     return params_from_numpy(state, device)
+
+
+def decode_cache_from_numpy(cache, device="cuda") -> dict:
+    """A decode cache of the port from the JAX package's (``{"periods":
+    {"pos<j>": cache}}``, numpy leaves): each layer cache becomes the
+    port's ``KVCache`` or ``RWKVCache`` of the same name and fields."""
+    from repro_torch.models.attention import KVCache
+    from repro_torch.models.rwkv import RWKVCache
+
+    kinds = {c.__name__: c for c in (KVCache, RWKVCache)}
+    periods = {}
+    for name, layer in _checked(dict(cache), ("periods",),
+                                "a decode cache")["periods"].items():
+        cls = kinds.get(type(layer).__name__)
+        if cls is None or tuple(layer._fields) != cls._fields:
+            raise ValueError(f"{name}: no port cache for "
+                             f"{type(layer).__name__}")
+        periods[name] = cls(*(_leaf(a, device) for a in layer))
+    return {"periods": periods}

@@ -13,8 +13,9 @@ instead (staggered arrivals, every 4th prompt shared, lengths ``gen`` and
 --sketch-head`` serves N per-tenant heads (one shared distillation, a hash
 bank each) through a ``HeadCache``, requests round-robin over tenants.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
-      [--smoke] [--sketch-head [--head-path head.npz]] [--backend fused] \\
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      [--arch {rwkv6-1.6b,gemma2-27b}] [--smoke] \\
+      [--sketch-head [--head-path head.npz]] [--backend fused] \\
       [--quant int8] [--batch 4 --prompt-len 32 --gen 16] [--device cuda] \\
       [--engine --requests 12 --arrival-every 1 --stats-json [--tenants 3]]
 """
@@ -73,7 +74,7 @@ def generate(params: dict, cfg, prompts: torch.Tensor, gen_len: int, *,
                 break
             logits, cache = serve_step(
                 params, cache, nxt[:, None], cfg, head=head,
-                active=~finished if eos_id is not None else None)
+                active=~finished if eos_id is not None else None, pos=p + t)
     return torch.cat(out, dim=1)
 
 
@@ -231,7 +232,8 @@ def main(argv=None) -> None:
     from repro_torch.api.lm import LM, check_device
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="rwkv6-1.6b")
+    ap.add_argument("--arch", default="rwkv6-1.6b",
+                    help="a ported architecture: rwkv6-1.6b or gemma2-27b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)

@@ -15,7 +15,8 @@ def prefill_step(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
                  cache: dict) -> Tuple[torch.Tensor, dict]:
     """The whole (B, P) prompt in one forward pass through the dense head:
     returns the last position's logits (B, V) and the filled cache."""
-    logits, new_cache = forward(params, tokens, cfg, cache=cache)
+    logits, new_cache = forward(params, tokens, cfg, cache=cache,
+                                cache_pos=0)
     return logits[:, -1], new_cache
 
 
@@ -32,15 +33,15 @@ def serve_step(params: dict, cache: dict, tokens: torch.Tensor,
     overrides the head's own params (the per-tenant engine passes the
     ``HeadCache`` bank and slot binding here each tick).  ``active`` (B,)
     bool keeps the cache rows of inactive sequences unchanged.  ``pos``
-    ((B,) tokens cached per slot) is not read by the recurrent rwkv cache;
-    it stays in the signature for the attention families to come.
+    is the number of tokens already cached (an int, or (B,) per slot); the
+    attention kinds need it, rwkv's recurrent state does not.
     """
-    del pos
     if head is None or not head.needs_hidden:
-        logits, new_cache = decode_step(params, cache, tokens, cfg)
+        logits, new_cache = decode_step(params, cache, tokens, cfg,
+                                        cache_pos=pos)
     else:
         hidden, new_cache = decode_step(params, cache, tokens, cfg,
-                                        return_hidden=True)
+                                        cache_pos=pos, return_hidden=True)
         logits = head.apply(head.params if head_params is None
                             else head_params, hidden)
         if cfg.final_logit_softcap:

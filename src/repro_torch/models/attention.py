@@ -1,0 +1,244 @@
+"""Causal self-attention: GQA, sliding window, softcap, RoPE, KV cache.
+
+The JAX package's ``models/attention.py`` without its paged variants and
+cross-attention.  Two regimes:
+
+* **Bulk prefill into a fresh cache, and the cacheless forward**: the
+  attention of the whole prompt is causal attention over its own q, k, v
+  with the layer's window and softcap, so it runs on the ``flash_attn``
+  kernel (``kernels/flash_attn``), GQA not expanded.  The JAX package
+  computes the same function with ``_attend_full``/``_attend_chunked``/
+  ``_attend_banded`` over the fresh cache, whose unwritten keys are masked;
+  the port's tests hold the kernel's plain version against those.
+* **Decode, and bulk writes into a non-fresh cache**: plain PyTorch
+  ``_attend_full``/``_attend_chunked`` over the cache, as the JAX package
+  computes them (outside any Pallas kernel).
+
+The cache is ``(B, S_max, n_kv, head_dim)`` bf16; a sliding-window layer
+keeps a ring of ``min(max_seq, window)`` slots.  A scalar ``cache_pos``
+(tokens already cached) is a host integer here; a per-slot one is a (B,)
+tensor (continuous batching).  Functions never write into their inputs.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels.flash_attn.ops import flash_attention
+from repro_torch.models.config import AttentionConfig
+from repro_torch.models.layers import apply_rope, init_dense, softcap
+
+_CHUNK_THRESHOLD = 8192
+_KV_CHUNK = 1024
+_NEG_INF = -1e30
+_INT32_MAX = 2 ** 31 - 1      # the JAX package's "never written" key position
+
+
+def init_attention(generator: torch.Generator, d_model: int,
+                   cfg: AttentionConfig, lead: tuple = ()) -> dict:
+    q_dim, kv_dim = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    return {
+        "wq": init_dense(generator, (d_model, q_dim), lead=lead),
+        "wk": init_dense(generator, (d_model, kv_dim), lead=lead),
+        "wv": init_dense(generator, (d_model, kv_dim), lead=lead),
+        "wo": init_dense(generator, (q_dim, d_model), lead=lead),
+    }
+
+
+class KVCache(NamedTuple):
+    k: torch.Tensor  # (B, S_max, n_kv, head_dim)
+    v: torch.Tensor  # (B, S_max, n_kv, head_dim)
+
+
+def init_cache(batch: int, max_seq: int, cfg: AttentionConfig,
+               lead: tuple = (), device="cuda",
+               dtype=torch.bfloat16) -> KVCache:
+    """Zero cache; a windowed layer's ring holds ``min(max_seq, window)``."""
+    size = min(max_seq, cfg.window) if cfg.window else max_seq
+    shape = (*lead, batch, size, cfg.n_kv_heads, cfg.head_dim)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
+
+
+def _scores_mask(scores: torch.Tensor, q_pos: torch.Tensor,
+                 k_pos: torch.Tensor, window: Optional[int]) -> torch.Tensor:
+    """Causal (+ window) mask on (..., Sq, Sk) scores, masked as -1e30.
+    Positions are shared ((Sq,), (Sk,)) or per sequence ((B, Sq), (B, Sk)),
+    the scores then (B, n_kv, groups, Sq, Sk)."""
+    if q_pos.dim() == 2 or k_pos.dim() == 2:
+        q2 = q_pos if q_pos.dim() == 2 else q_pos[None]
+        k2 = k_pos if k_pos.dim() == 2 else k_pos[None]
+        keep = q2[:, :, None] >= k2[:, None, :]
+        if window is not None:
+            keep &= (q2[:, :, None] - k2[:, None, :]) < window
+        return torch.where(keep[:, None, None], scores, _NEG_INF)
+    keep = q_pos[:, None] >= k_pos[None, :]
+    if window is not None:
+        keep &= (q_pos[:, None] - k_pos[None, :]) < window
+    return torch.where(keep, scores, _NEG_INF)
+
+
+def _attend_full(q, k, v, q_pos, k_pos, cfg: AttentionConfig):
+    """Masked attention. q (B, Sq, Hq, dh), k/v (B, Sk, Hkv, dh)."""
+    b, sq, hq, dh = q.shape
+    groups = hq // cfg.n_kv_heads
+    qg = q.reshape(b, sq, cfg.n_kv_heads, groups, dh)
+    scores = torch.einsum("bqkgd,bskd->bkgqs",
+                          qg.to(torch.float32) * dh ** -0.5,
+                          k.to(torch.float32))
+    if cfg.logit_softcap:
+        scores = softcap(scores, cfg.logit_softcap)
+    scores = _scores_mask(scores, q_pos, k_pos, cfg.window)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.to(torch.float32))
+    return out.reshape(b, sq, hq, dh).to(q.dtype)
+
+
+def _attend_chunked(q, k, v, q_pos, k_pos, cfg: AttentionConfig,
+                    chunk: int = _KV_CHUNK):
+    """Online-softmax attention over KV chunks (the flash recurrence, the
+    JAX package's ``lax.scan`` as a loop); k_pos is (Sk,)."""
+    b, sq, hq, dh = q.shape
+    sk = k.shape[1]
+    n_kv, groups = cfg.n_kv_heads, hq // cfg.n_kv_heads
+    pad = (-sk) % chunk
+    if pad:
+        zeros = k.new_zeros((b, pad, *k.shape[2:]))
+        k, v = torch.cat([k, zeros], 1), torch.cat([v, zeros.to(v.dtype)], 1)
+        k_pos = torch.cat([k_pos, k_pos.new_full((pad,), _INT32_MAX)])
+    qg = (q.to(torch.float32) * dh ** -0.5).reshape(b, sq, n_kv, groups, dh)
+    m = torch.full((b, n_kv, groups, sq), _NEG_INF, device=q.device)
+    s = torch.zeros((b, n_kv, groups, sq), device=q.device)
+    o = torch.zeros((b, sq, n_kv, groups, dh), device=q.device)
+    for c0 in range(0, k.shape[1], chunk):
+        kb, vb = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
+        scores = torch.einsum("bqkgd,bskd->bkgqs", qg, kb.to(torch.float32))
+        if cfg.logit_softcap:
+            scores = softcap(scores, cfg.logit_softcap)
+        scores = _scores_mask(scores, q_pos, k_pos[c0:c0 + chunk], cfg.window)
+        m_new = torch.maximum(m, scores.amax(dim=-1))
+        p = torch.exp(scores - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        s = s * corr + p.sum(dim=-1)
+        o = o * corr.permute(0, 3, 1, 2)[..., None] + torch.einsum(
+            "bkgqs,bskd->bqkgd", p, vb.to(torch.float32))
+        m = m_new
+    out = o / s.clamp_min(1e-30).permute(0, 3, 1, 2)[..., None]
+    return out.reshape(b, sq, hq, dh).to(q.dtype)
+
+
+def _ring_positions(size: int, cache_pos, device) -> torch.Tensor:
+    """Absolute position each ring slot holds after writing ``cache_pos``
+    (scalar, or (B,) per slot); slots never written hold ``_INT32_MAX``."""
+    i = torch.arange(size, device=device)
+    if torch.is_tensor(cache_pos):
+        i, cache_pos = i[None, :], cache_pos[:, None]
+    slot = cache_pos % size
+    k_pos = torch.where(i <= slot, i + (cache_pos - slot),
+                        i + (cache_pos - slot) - size)
+    return torch.where(k_pos >= 0, k_pos, _INT32_MAX)
+
+
+def attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
+              cfg: AttentionConfig, *, cache: Optional[KVCache] = None,
+              cache_pos=None) -> Tuple[torch.Tensor, Optional[KVCache]]:
+    """The attention block on x (B, S, d): returns (output, updated cache).
+
+    Args:
+      positions: (S,) or, with a per-slot ``cache_pos``, (B, S) absolute
+        token positions (RoPE and the masks).
+      cache: this layer's ``KVCache`` or None (cacheless forward).
+      cache_pos: tokens already cached: an int (or 0-d tensor), or a (B,)
+        tensor for per-slot decode (one token per slot).
+    """
+    b, s, _ = x.shape
+    q = (x @ params["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = (x @ params["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = (x @ params["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+
+    per_slot = torch.is_tensor(cache_pos) and cache_pos.dim() == 1
+    if cache is not None and not per_slot:
+        cache_pos = int(cache_pos)
+    new_cache = None
+    if cache is None:
+        out = flash_attention(q, k, v, window=cfg.window,
+                              softcap=cfg.logit_softcap)
+    elif s > 1 and not per_slot and cfg.window and cfg.window <= cache.k.shape[1]:
+        # Bulk write into a rolling SWA ring: attend over (old ring ∪ new
+        # tokens), then rebuild the ring with the last `size` positions.
+        size = cache.k.shape[1]
+        j = torch.arange(size, device=x.device)
+        if cache_pos == 0:
+            # Every old slot is unwritten (masked): causal attention over
+            # the prompt alone.
+            out = flash_attention(q, k, v, window=cfg.window,
+                                  softcap=cfg.logit_softcap)
+        else:
+            t_old = cache_pos - 1 - ((cache_pos - 1 - j) % size)
+            k_pos = torch.cat([torch.where(t_old >= 0, t_old, _INT32_MAX),
+                               positions])
+            k_cat = torch.cat([cache.k.to(k.dtype), k], 1)
+            v_cat = torch.cat([cache.v.to(v.dtype), v], 1)
+            attend = (_attend_chunked if s > min(_CHUNK_THRESHOLD,
+                                                 cfg.window + _KV_CHUNK)
+                      else _attend_full)
+            out = attend(q, k_cat, v_cat, positions, k_pos, cfg)
+        # After the write, slot j holds the largest t ≡ j (mod size) with
+        # t < cache_pos + s; it keeps its old value where that t is old.
+        t_new = cache_pos + s - 1 - ((cache_pos + s - 1 - j) % size)
+        rel = (t_new - cache_pos).clamp(0, s - 1)
+        is_new = (t_new >= cache_pos)[None, :, None, None]
+        new_cache = KVCache(
+            torch.where(is_new, k[:, rel].to(cache.k.dtype), cache.k),
+            torch.where(is_new, v[:, rel].to(cache.v.dtype), cache.v))
+    elif per_slot:
+        # Per-slot decode (the engine): each row writes at its own position.
+        if s != 1:
+            raise NotImplementedError(
+                "per-slot cache_pos supports single-token decode only; "
+                "prefill into a fresh cache and slot_insert it instead")
+        size = cache.k.shape[1]
+        cache_pos = cache_pos.long()
+        ring = bool(cfg.window) and cfg.window <= size
+        slot = cache_pos % size if ring else cache_pos
+        bi = torch.arange(b, device=x.device)
+        new_cache = KVCache(
+            cache.k.index_put((bi, slot), k[:, 0].to(cache.k.dtype)),
+            cache.v.index_put((bi, slot), v[:, 0].to(cache.v.dtype)))
+        if ring:
+            k_pos = _ring_positions(size, cache_pos, x.device)
+        else:
+            i = torch.arange(size, device=x.device)[None, :]
+            k_pos = torch.where(i < cache_pos[:, None] + 1, i, _INT32_MAX)
+        out = _attend_full(q, new_cache.k, new_cache.v, positions, k_pos, cfg)
+    else:
+        # Scalar decode, or a bulk write into a cache without a ring.
+        size = cache.k.shape[1]
+        ring = bool(cfg.window) and cfg.window <= size
+        slot = cache_pos % size if ring else cache_pos
+        start = max(0, min(slot, size - s))     # dynamic_update_slice clamps
+        # A copy of this layer's rows, written in place (slice_scatter on a
+        # period's view of the stacked cache would copy the whole stack).
+        new_cache = KVCache(cache.k.clone(), cache.v.clone())
+        new_cache.k[:, start:start + s] = k.to(cache.k.dtype)
+        new_cache.v[:, start:start + s] = v.to(cache.v.dtype)
+        if cache_pos == 0 and s > 1:
+            # Fresh cache: keys past the prompt are masked, so this is
+            # causal attention over the prompt alone.
+            out = flash_attention(q, k, v, window=cfg.window,
+                                  softcap=cfg.logit_softcap)
+        else:
+            if ring:
+                k_pos = _ring_positions(size, cache_pos, x.device)
+            else:
+                k_pos = torch.arange(size, device=x.device)
+                k_pos = torch.where(k_pos < cache_pos + s, k_pos, _INT32_MAX)
+            attend = _attend_chunked if s > _CHUNK_THRESHOLD else _attend_full
+            out = attend(q, new_cache.k, new_cache.v, positions, k_pos, cfg)
+    out = out.reshape(b, s, cfg.n_heads * cfg.head_dim)
+    return out @ params["wo"], new_cache

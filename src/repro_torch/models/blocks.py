@@ -1,60 +1,107 @@
-"""Per-layer block: init, decode cache and forward of the ``rwkv`` kind
-(the only kind ported).  A layer is the time-mix followed by the
-channel-mix (rwkv's FFN), pre-norm residual style."""
+"""Per-layer block: init, decode cache and forward of the ported kinds.
+
+A layer is a mixer followed by an FFN, pre-norm residual style: rwkv's
+time-mix and channel-mix (its own FFN), or causal self-attention
+(``attn``, ``attn_local`` with the config's window, ``attn_global``
+without one) followed by a dense SwiGLU FFN."""
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import rwkv as rwkv_mod
-from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import rms_norm
+from repro_torch.models.config import PORTED_KINDS, AttentionConfig, ModelConfig
+from repro_torch.models.layers import init_dense, rms_norm, swiglu
+
+ATTN_KINDS = ("attn", "attn_local", "attn_global")
 
 
 def _check_kind(kind: str) -> None:
-    if kind != "rwkv":
-        raise ValueError(f"block kind {kind!r} is not ported; only 'rwkv' is")
+    if kind not in PORTED_KINDS:
+        raise ValueError(f"block kind {kind!r} is not ported; ported: "
+                         f"{list(PORTED_KINDS)}")
+
+
+def _attn_cfg(cfg: ModelConfig, kind: str) -> AttentionConfig:
+    """The layer's attention config: a global layer drops the window."""
+    a = cfg.attention
+    if kind == "attn_global":
+        return dataclasses.replace(a, window=None)
+    if kind == "attn_local" and a.window is None:
+        raise ValueError("attn_local requires attention.window")
+    return a
 
 
 def init_layer(generator: torch.Generator, cfg: ModelConfig, kind: str,
                lead: tuple = ()) -> dict:
     """Params of one layer (``lead`` stacks layers on leading axes)."""
     _check_kind(kind)
-    zeros = lambda: torch.zeros((*lead, cfg.d_model), dtype=torch.float32,
+    d = cfg.d_model
+    zeros = lambda: torch.zeros((*lead, d), dtype=torch.float32,
                                 device=generator.device)
+    if kind == "rwkv":
+        return {"norm1": zeros(), "norm2": zeros(),
+                "mixer": rwkv_mod.init_rwkv(generator, d, cfg.d_ff,
+                                            lead=lead)}
     return {"norm1": zeros(), "norm2": zeros(),
-            "mixer": rwkv_mod.init_rwkv(generator, cfg.d_model, cfg.d_ff,
-                                        lead=lead)}
+            "mixer": attn_mod.init_attention(generator, d,
+                                             _attn_cfg(cfg, kind), lead=lead),
+            "ffn": {"w_gate": init_dense(generator, (d, cfg.d_ff), lead=lead),
+                    "w_up": init_dense(generator, (d, cfg.d_ff), lead=lead),
+                    "w_down": init_dense(generator, (cfg.d_ff, d),
+                                         lead=lead)}}
 
 
-def init_layer_cache(cfg: ModelConfig, kind: str, batch: int,
-                     lead: tuple = (), device="cuda") -> rwkv_mod.RWKVCache:
+def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
+                     lead: tuple = (), device="cuda"):
+    """Zero decode cache of one layer: rwkv's recurrent state, or a
+    ``KVCache`` of ``max_seq`` (a ring of ``min(max_seq, window)`` on a
+    windowed layer)."""
     _check_kind(kind)
-    return rwkv_mod.init_rwkv_cache(batch, cfg.d_model, lead=lead,
-                                    device=device)
+    if kind == "rwkv":
+        return rwkv_mod.init_rwkv_cache(batch, cfg.d_model, lead=lead,
+                                        device=device)
+    return attn_mod.init_cache(batch, max_seq, _attn_cfg(cfg, kind),
+                               lead=lead, device=device)
 
 
 def apply_layer(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
-                *, cache: Optional[rwkv_mod.RWKVCache] = None
-                ) -> Tuple[torch.Tensor, Optional[rwkv_mod.RWKVCache]]:
-    """One layer on the residual stream x (B, S, d). Returns (x, new cache)."""
+                *, positions: Optional[torch.Tensor] = None, cache=None,
+                cache_pos=None) -> Tuple[torch.Tensor, object]:
+    """One layer on the residual stream x (B, S, d). Returns (x, new cache).
+
+    ``positions`` ((S,) or (B, S); ``arange(S)`` when omitted) and
+    ``cache_pos`` (see ``attention.attention``) are read by the attention
+    kinds only."""
     _check_kind(kind)
     eps = cfg.norm_eps
     h = rms_norm(x, params["norm1"], eps)
-    delta, tm_last, new_state = rwkv_mod.rwkv_time_mix(
-        params["mixer"], h,
-        prev=cache.tm_prev if cache is not None else None,
-        state0=cache.state if cache is not None else None)
+    if kind == "rwkv":
+        delta, tm_last, new_state = rwkv_mod.rwkv_time_mix(
+            params["mixer"], h,
+            prev=cache.tm_prev if cache is not None else None,
+            state0=cache.state if cache is not None else None)
+        x = x + delta
+        h2 = rms_norm(x, params["norm2"], eps)
+        delta2, cm_last = rwkv_mod.rwkv_channel_mix(
+            params["mixer"], h2,
+            prev=cache.cm_prev if cache is not None else None)
+        new_cache = None
+        if cache is not None:
+            new_cache = rwkv_mod.RWKVCache(
+                tm_last.to(cache.tm_prev.dtype), cm_last.to(cache.cm_prev.dtype),
+                new_state.to(cache.state.dtype))
+        return x + delta2, new_cache
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)
+    delta, new_cache = attn_mod.attention(
+        params["mixer"], h, positions, _attn_cfg(cfg, kind), cache=cache,
+        cache_pos=cache_pos)
     x = x + delta
     h2 = rms_norm(x, params["norm2"], eps)
-    delta2, cm_last = rwkv_mod.rwkv_channel_mix(
-        params["mixer"], h2,
-        prev=cache.cm_prev if cache is not None else None)
-    new_cache = None
-    if cache is not None:
-        new_cache = rwkv_mod.RWKVCache(
-            tm_last.to(cache.tm_prev.dtype), cm_last.to(cache.cm_prev.dtype),
-            new_state.to(cache.state.dtype))
-    return x + delta2, new_cache
+    f = params["ffn"]
+    return x + swiglu(h2, f["w_gate"], f["w_up"], f["w_down"]), new_cache

@@ -1,4 +1,5 @@
-"""Model and sketch-head configuration, limited to what the rwkv pattern uses.
+"""Model, attention and sketch-head configuration, limited to the ported
+block kinds (``rwkv``, ``attn``, ``attn_local``, ``attn_global``).
 
 Own copy of the JAX package's ``models/config.py`` dataclasses: the fields,
 names and defaults are the same, so a ``SketchHeadConfig`` round-trips
@@ -9,6 +10,22 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
+
+
+#: The block kinds the port runs: rwkv's time-mix + channel-mix, and causal
+#: self-attention (GQA, optional window and softcap) + a dense SwiGLU FFN.
+PORTED_KINDS = ("rwkv", "attn", "attn_local", "attn_global")
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionConfig:
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    window: Optional[int] = None          # sliding-window size (SWA); None=full
+    logit_softcap: Optional[float] = None  # gemma2-style attn-score softcap
+    rope_theta: float = 10000.0
+    use_rope: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,7 +42,8 @@ class SketchHeadConfig:
 class ModelConfig:
     """A decoder backbone: ``pattern`` repeated ``n_periods`` times.
 
-    Only the ``"rwkv"`` block kind is ported; its channel-mix is its FFN.
+    Only the :data:`PORTED_KINDS` are ported; rwkv's channel-mix is its
+    FFN, the attention kinds are followed by a dense SwiGLU FFN.
     """
     name: str
     n_layers: int
@@ -33,6 +51,7 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     pattern: Tuple[str, ...]
+    attention: Optional[AttentionConfig] = None
     final_logit_softcap: Optional[float] = None
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
@@ -43,10 +62,10 @@ class ModelConfig:
         if self.n_layers % len(self.pattern):
             raise ValueError(f"{self.name}: n_layers={self.n_layers} not "
                              f"divisible by pattern length {len(self.pattern)}")
-        unported = set(self.pattern) - {"rwkv"}
+        unported = set(self.pattern) - set(PORTED_KINDS)
         if unported:
             raise ValueError(f"{self.name}: block kinds {sorted(unported)} "
-                             "are not ported; only 'rwkv' is")
+                             f"are not ported; ported: {list(PORTED_KINDS)}")
 
     @property
     def n_periods(self) -> int:

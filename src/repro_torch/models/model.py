@@ -4,7 +4,8 @@ Parameters keep the JAX package's tree: ``embed``, ``head``,
 ``final_norm``, and ``periods/pos<j>`` holding each pattern position's
 layer params stacked over the ``n_periods`` periods.  The JAX package's
 ``lax.scan`` over periods is a loop over that stacking axis here; decode
-caches are stacked the same way.
+caches are stacked the same way, one NamedTuple (``RWKVCache`` or
+``KVCache``) of (n_periods, B, …) leaves per pattern position.
 """
 
 from __future__ import annotations
@@ -16,7 +17,6 @@ import torch
 from repro_torch.models import blocks
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import embed, init_dense, rms_norm, softcap, unembed
-from repro_torch.models.rwkv import RWKVCache
 
 
 def init_model(cfg: ModelConfig, generator: torch.Generator) -> dict:
@@ -39,11 +39,11 @@ def init_model(cfg: ModelConfig, generator: torch.Generator) -> dict:
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int,
                       device="cuda") -> dict:
-    """Zero decode cache, stacked over periods (``max_seq`` is unused by
-    the recurrent rwkv state; kept for the JAX package's signature)."""
-    del max_seq
+    """Zero decode cache, stacked over periods: rwkv state, or KV caches of
+    ``max_seq`` positions (rings of ``min(max_seq, window)`` on windowed
+    layers)."""
     return {"periods": {
-        f"pos{j}": blocks.init_layer_cache(cfg, kind, batch,
+        f"pos{j}": blocks.init_layer_cache(cfg, kind, batch, max_seq,
                                            lead=(cfg.n_periods,),
                                            device=device)
         for j, kind in enumerate(cfg.pattern)}}
@@ -53,9 +53,18 @@ def _index(tree, i: int):
     """Period ``i`` of a stacked param dict or cache."""
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
-    if isinstance(tree, RWKVCache):
-        return RWKVCache(*(t[i] for t in tree))
+    if isinstance(tree, tuple):
+        return type(tree)(*(t[i] for t in tree))
     return tree[i]
+
+
+def _map_caches(fn, *caches) -> dict:
+    """``fn`` over the (n_periods, B, …) leaves of one or more decode
+    caches, leaf by leaf (any cache NamedTuple)."""
+    return {"periods": {
+        name: type(c0)(*(fn(*leaves) for leaves in zip(
+            *(c["periods"][name] for c in caches))))
+        for name, c0 in caches[0]["periods"].items()}}
 
 
 def mask_cache_update(cache: dict, new_cache: dict,
@@ -65,19 +74,7 @@ def mask_cache_update(cache: dict, new_cache: dict,
     def pick(old, new):
         mask = active.reshape(1, -1, *([1] * (new.dim() - 2)))
         return torch.where(mask, new, old)
-    return {"periods": {
-        name: RWKVCache(*(pick(o, n) for o, n in zip(cache["periods"][name],
-                                                     new_cache["periods"][name])))
-        for name in new_cache["periods"]}}
-
-
-def _map_caches(fn, *caches) -> dict:
-    """``fn`` over the (n_periods, B, …) leaves of one or more decode
-    caches, leaf by leaf."""
-    return {"periods": {
-        name: RWKVCache(*(fn(*leaves) for leaves in zip(
-            *(c["periods"][name] for c in caches))))
-        for name in caches[0]["periods"]}}
+    return _map_caches(pick, cache, new_cache)
 
 
 def _slot_index(slots, device) -> torch.Tensor:
@@ -118,13 +115,32 @@ def cache_slot_reset(cfg: ModelConfig, pool: dict, slots) -> dict:
         pool)
 
 
+def _positions(s: int, cache_pos, device):
+    """(positions, cache_pos) as the JAX package's ``forward`` derives them:
+    ``arange(S)`` and 0 without ``cache_pos``; ``cache_pos + arange(S)``
+    for a scalar; (B, S) rows ``cache_pos[b] + arange(S)`` per slot."""
+    ar = torch.arange(s, device=device)
+    if cache_pos is None:
+        return ar, 0
+    if torch.is_tensor(cache_pos) and cache_pos.dim() == 1:
+        return cache_pos.long()[:, None] + ar[None, :], cache_pos
+    cache_pos = int(cache_pos)
+    return cache_pos + ar, cache_pos
+
+
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
-            cache: Optional[dict] = None, return_hidden: bool = False
+            cache: Optional[dict] = None, cache_pos=None,
+            return_hidden: bool = False
             ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Run the backbone on tokens (B, S). Returns (logits (B, S, V) f32 or,
-    with ``return_hidden``, final hiddens (B, S, d) f32; new cache)."""
+    with ``return_hidden``, final hiddens (B, S, d) f32; new cache).
+
+    ``cache_pos`` is the number of tokens already cached: None (0), an int,
+    or a (B,) tensor of per-slot counters (the engine's decode)."""
     x = embed(tokens, params["embed"]) * torch.tensor(
         cfg.d_model ** 0.5, dtype=torch.bfloat16, device=tokens.device)
+    positions, cache_pos = _positions(tokens.shape[1], cache_pos,
+                                      tokens.device)
     new_periods = {}
     for j, kind in enumerate(cfg.pattern):
         name = f"pos{j}"
@@ -134,10 +150,11 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
             layer_cache = (None if cache is None
                            else _index(cache["periods"][name], i))
             x, nc = blocks.apply_layer(_index(stacked, i), x, cfg, kind,
-                                       cache=layer_cache)
+                                       positions=positions, cache=layer_cache,
+                                       cache_pos=cache_pos)
             layer_caches.append(nc)
         if cache is not None:
-            new_periods[name] = RWKVCache(
+            new_periods[name] = type(layer_caches[0])(
                 *(torch.stack(leaf) for leaf in zip(*layer_caches)))
     new_cache = {"periods": new_periods} if cache is not None else None
 
@@ -152,11 +169,15 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
 
 
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
-                cfg: ModelConfig, *, return_hidden: bool = False
-                ) -> Tuple[torch.Tensor, dict]:
+                cfg: ModelConfig, *, cache_pos=None,
+                return_hidden: bool = False) -> Tuple[torch.Tensor, dict]:
     """One decode step on the newest tokens (B, 1): returns (logits (B, V)
     — or the (B, d) final hidden with ``return_hidden`` — and the updated
-    cache)."""
+    cache).  ``cache_pos`` (tokens already cached: an int, or (B,) per
+    slot) is required by the attention kinds; rwkv's state needs none."""
+    if cache_pos is None and any(k in blocks.ATTN_KINDS for k in cfg.pattern):
+        raise ValueError(f"{cfg.name}: decode_step needs cache_pos (tokens "
+                         "already cached) for its attention layers")
     out, new_cache = forward(params, tokens, cfg, cache=cache,
-                             return_hidden=return_hidden)
+                             cache_pos=cache_pos, return_hidden=return_hidden)
     return out[:, -1], new_cache

@@ -23,7 +23,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import init_dense
+from repro_torch.models.layers import init_dense, sigmoid, silu
 
 _CHUNK = 32
 _HEAD_DIM = 64
@@ -76,13 +76,6 @@ def init_rwkv_cache(batch: int, d_model: int, lead: tuple = (),
     zeros = lambda *s: torch.zeros((*lead, *s), dtype=dtype, device=device)
     return RWKVCache(zeros(batch, d_model), zeros(batch, d_model),
                      zeros(batch, h, _HEAD_DIM, _HEAD_DIM))
-
-
-def _sigmoid(x: torch.Tensor) -> torch.Tensor:
-    """``1 / (1 + exp(-x))`` with one rounding to x's dtype per step: the
-    JAX package's bf16 sigmoid as XLA lowers it, so the two agree bit for
-    bit where ``torch.sigmoid``'s single rounding would differ by an ulp."""
-    return 1.0 / (1.0 + torch.exp(-x))
 
 
 def _token_shift(x: torch.Tensor, prev: Optional[torch.Tensor]) -> torch.Tensor:
@@ -157,7 +150,7 @@ def rwkv_time_mix(params: dict, x: torch.Tensor, *,
     k = to_heads(xk @ params["w_k"])
     v = to_heads(xv @ params["w_v"])
     xg = xg @ params["w_g"]
-    g = xg * _sigmoid(xg)                      # silu, as the JAX package rounds it
+    g = silu(xg)                               # as the JAX package rounds it
 
     # Finch data-dependent decay: logw = −exp(w0 + LoRA(x_w)) ∈ (−∞, 0).
     lora = torch.tanh(xw @ params["w_lora_a"]) @ params["w_lora_b"]
@@ -187,5 +180,5 @@ def rwkv_channel_mix(params: dict, x: torch.Tensor, *,
     xr = (x32 * mu_cm[1] + sh32 * (1 - mu_cm[1])).to(x.dtype)
     kk = torch.square(F.relu(xk @ params["cm_k"]))
     cm = kk @ params["cm_v"]
-    rr = _sigmoid(xr @ params["cm_r"])
+    rr = sigmoid(xr @ params["cm_r"])
     return rr * cm, x[:, -1]

@@ -20,6 +20,17 @@
   1-Lipschitz in the max-norm over the g means, and its midpoint
   ``(lo + hi)·0.5`` adds one rounding on each side, ``2u·max_g |mean|``;
   :func:`race_query_tol` is the sum, per (query, class).
+* Attention (``flash_attn``): two f32 evaluations of causal softmax
+  attention, in any summation order and online or not, differ per output
+  element by at most ``(2·ε + e^{2E} − 1)·Σ_k w_k·|v_k|`` (w the softmax
+  weights).  E bounds the two score evaluations' difference over the row's
+  live keys: ``2·γ_dh·Σ_d |q_d·k_d|`` for the dot products, plus the
+  softcap's division, tanh (2 ulps) and product on each side.  ε is one
+  evaluation's own relative error: exp (2 ulps, and u·|s − m| from the
+  subtraction), the n-term sums of the denominator and of p·v (γ_n each),
+  two products per 32-key tile of the online rescaling, and the final
+  division.  A bf16 output adds one bf16 ulp for the two roundings
+  (:func:`flash_attn_tol`).
 * The bf16 backbone against another implementation of it (the JAX
   package's compiled forward, or the same model on another device): bf16
   keeps 8 bits (one ulp is 2⁻⁸ relative), each layer rounds a dozen times,
@@ -124,6 +135,70 @@ def race_query_tol(sketch: torch.Tensor, idx: torch.Tensor,
     mag = grouped.abs().sum(dim=-1) / m                       # (B, C, g)
     return (2.0 * (_gamma(m) + 2.0 * U32) * mag.amax(dim=-1)
             + 2.0 * U32 * grouped.mean(dim=-1).abs().amax(dim=-1))
+
+
+def flash_attn_tol(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   window: Optional[int] = None,
+                   softcap: Optional[float] = None, tile: int = 32,
+                   chunk: int = 512) -> torch.Tensor:
+    """(B, S, H, dh) float64 bound on the difference of two f32 evaluations
+    of ``flash_attention(q, k, v, window=, softcap=)`` (the rule above),
+    before any rounding to the output dtype.  ``tile`` is the kernel's key
+    tile (one online rescaling per tile); queries go ``chunk`` rows at a
+    time to bound the float64 temporaries."""
+    b, s, h, dh = q.shape
+    hkv = k.shape[2]
+    # Both sides round q·dh^-0.5 to f32 the same way.
+    qs = (q.to(torch.float32) * dh ** -0.5).to(torch.float64).reshape(
+        b, s, hkv, h // hkv, dh)
+    k64, v64 = k.to(torch.float64), v.to(torch.float64)
+    pos = torch.arange(s, device=q.device)
+    out = torch.empty((b, s, hkv, h // hkv, dh), dtype=torch.float64,
+                      device=q.device)
+    for q0 in range(0, s, chunk):
+        qc = qs[:, q0:q0 + chunk]
+        sc = torch.einsum("bqkgd,bskd->bkgqs", qc, k64)
+        err = 2.0 * _gamma(dh) * torch.einsum("bqkgd,bskd->bkgqs", qc.abs(),
+                                              k64.abs())
+        if softcap:
+            sc = softcap * torch.tanh(sc / softcap)
+            err = err + 2.0 * 6.0 * U32 * sc.abs()
+        qp = pos[q0:q0 + chunk, None]
+        live = qp >= pos[None, :]
+        if window is not None:
+            live &= (qp - pos[None, :]) < window
+        sc = sc.masked_fill(~live, float("-inf"))
+        w = torch.softmax(sc, dim=-1)
+        e_max = err.masked_fill(~live, 0.0).amax(dim=-1)
+        span = (sc.amax(dim=-1, keepdim=True) - sc).masked_fill(
+            ~live, 0.0).amax(dim=-1)
+        n = live.sum(dim=-1).to(torch.float64)                  # (q,)
+        tiles = torch.ceil(n / tile)
+        eps = ((4.0 + span) * U32 + 2.0 * n * U32 / (1.0 - n * U32)
+               + 2.0 * U32 * tiles + U32)
+        rel = 2.0 * eps + torch.expm1(2.0 * e_max)              # (b, kv, g, q)
+        mass = torch.einsum("bkgqs,bskd->bqkgd", w, v64.abs())
+        out[:, q0:q0 + chunk] = rel.permute(0, 3, 1, 2)[..., None] * mass
+    return out.reshape(b, s, h, dh)
+
+
+def assert_flash_attn_close(got: torch.Tensor, want: torch.Tensor,
+                            tol: torch.Tensor) -> float:
+    """Raise unless ``|got − want| <= tol`` (+ one bf16 ulp of the larger
+    magnitude for bf16 outputs) everywhere; returns the largest error."""
+    g64, w64 = got.to(torch.float64), want.to(torch.float64)
+    err = (g64 - w64).abs()
+    if got.dtype == torch.bfloat16:
+        big = torch.maximum(g64.abs(), w64.abs()).clamp_min(1e-30)
+        tol = tol + torch.exp2(torch.floor(torch.log2(big)) - 7)
+    bad = err > tol
+    if bool(bad.any()):
+        i = tuple(int(x) for x in bad.nonzero()[0])
+        raise AssertionError(
+            f"flash_attn: {int(bad.sum())} elements beyond the bound; first "
+            f"at {i}: got {float(g64[i])}, want {float(w64[i])}, bound "
+            f"{float(tol[i])}; largest error {float(err.max())}")
+    return float(err.max())
 
 
 BF16_NORM_TOL = 2.0 ** -5

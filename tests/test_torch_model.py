@@ -49,19 +49,25 @@ def _f32(a):
     return np.asarray(jnp.asarray(a).astype(jnp.float32))
 
 
+@pytest.mark.parametrize("arch", [ARCH, "gemma2-27b"])
 @pytest.mark.parametrize("smoke", [False, True])
-def test_config_matches_jax(smoke):
-    cfg, jcfg = get_config(ARCH, smoke=smoke), jax_config(ARCH, smoke=smoke)
+def test_config_matches_jax(smoke, arch):
+    """Field by field; the port's own dataclasses (``AttentionConfig``)
+    compare by their fields."""
+    cfg, jcfg = get_config(arch, smoke=smoke), jax_config(arch, smoke=smoke)
     for f in dataclasses.fields(cfg):
-        assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
+        ours, theirs = getattr(cfg, f.name), getattr(jcfg, f.name)
+        if dataclasses.is_dataclass(ours):
+            ours, theirs = dataclasses.asdict(ours), dataclasses.asdict(theirs)
+        assert ours == theirs, f.name
     assert cfg.n_periods == jcfg.n_periods
     assert dataclasses.asdict(SketchHeadConfig()) == dataclasses.asdict(
         JaxSketchHeadConfig())
 
 
 def test_unported_arch_names_what_is_ported():
-    with pytest.raises(KeyError, match="rwkv6-1.6b"):
-        get_config("gemma2-27b")
+    with pytest.raises(KeyError, match="rwkv6-1.6b.*gemma2-27b"):
+        get_config("jamba-v0.1-52b")
 
 
 def test_convert_carries_bf16_bits(setup):
