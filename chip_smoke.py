@@ -69,13 +69,17 @@
    bf16, softcap 50) at the main path's prefill (B=4, S=32) and the long
    prefill (B=1, S=4160), window 4096 and none, plus softcap-free twins;
    ragged S=200 with window 64 (the band starts mid-tile, f32); S=256,
-   window 32, softcap 30 (f32); dh=160, Hkv=8, S=1000 (bf16).  Every
-   element within ``repro_torch.parity.flash_attn_tol`` (plus one bf16 ulp
-   for bf16), two launches bit for bit equal; timed
+   window 32, softcap 30 (f32); dh=160, Hkv=8, S=1000 (bf16, stablelm's
+   heads); dh=64, MHA, S=1000 (bf16, musicgen's).  Every element within
+   ``repro_torch.parity.flash_attn_tol`` (bf16: the kernel on the tensor
+   cores, plus one bf16 ulp), two launches bit for bit equal; timed
    beside the plain version and one PyTorch call computing the same
    function: ``scaled_dot_product_attention`` without a softcap (GQA; a
    boolean mask for a window), compiled ``flex_attention`` with one (the
    softcap as its score_mod, the causal or window block mask, GQA).
+   ``bound_ms`` prices bf16 cases' products at the bf16 tensor-core peak
+   (989 TFLOP/s) and f32 cases' at the f32 CUDA-core peak (67 TFLOP/s);
+   ``f32_core_bound_ms`` is the latter for every case.
 11. gemma2-27b main path (after freeing the rwkv6 model): full width and
    depth (46 layers, d_model 4608, vocab 256000, 27.2 B random bf16 params
    from seed 0) with the serve head frozen at V=256000; ``LM.generate`` of
@@ -97,7 +101,8 @@
    refresh path, race_query's from the paper phase, flash_attn's from the
    gemma2 main path with its record at the main path's global-layer
    prefill, flex_attention as its library call, softcap-free kernel and
-   SDPA times beside it), the card line,
+   SDPA times beside it, and the long prefill's global case under
+   ``long_prefill_*``), the card line,
    and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the exit code is non-zero and the last line
@@ -133,7 +138,8 @@ from repro_torch.kernels.race_update.ops import (race_update, race_update_counts
                                                  race_update_counts_ref, race_update_ref)
 from repro_torch.parity import (BF16_MAX_TOL, BF16_NORM_TOL, assert_bf16_backbone_close,
                                 assert_flash_attn_close, bf16_backbone_errors,
-                                check_hash_indices, flash_attn_tol, gather_atol,
+                                check_hash_indices, flash_attn_tol,
+                                flash_attn_tol_ratio, gather_atol,
                                 race_query_tol, race_update_tol)
 from repro_torch.kernels.sketch_head.ops import (dequantize_sketch_ref,
                                                  sketch_head_logits,
@@ -148,6 +154,7 @@ from repro_torch.models.layers import apply_rope, embed, rms_norm, softcap
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
+BF16_TC_FLOP_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
 D_MODEL, VOCAB = 2048, 65536
 SERVE_HEAD = SketchHeadConfig(n_rows=128, n_buckets=16, k=1, proj_dim=32,
                               bandwidth=2.0)
@@ -173,7 +180,6 @@ REFRESH_PROMPTS = 8                 # x PROMPT tokens = M = 256 refresh points
 GEMMA = "gemma2-27b"
 GEMMA_LONG = 4160                   # past the 4096 window: the local rings wrap
 GEMMA_STAGGERED = 6                 # staggered requests over TENANT_SLOTS slots
-BF16_TC_FLOP_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
 
 
 def card_line() -> str:
@@ -225,8 +231,8 @@ def count_bytes(store: torch.Tensor, idx: torch.Tensor, quant) -> int:
     return int(key.numel()) * store.shape[2] * store.element_size()
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple:
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_FLOP_PER_S
+def bound(n_bytes: float, n_ops: float, flop_per_s: float = F32_FLOP_PER_S) -> tuple:
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / flop_per_s
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -1131,8 +1137,9 @@ def live_pairs(s, window):
 def flash_cases():
     """(label, B, S, H, Hkv, dh, dtype, window, softcap) of the flash phase:
     gemma2-27b's heads at the main path's and the long prefill's shapes
-    (each layer kind, and softcap-free for the library yardstick), and
-    ragged, f32 and dh=160 cases."""
+    (each layer kind, and softcap-free for the library yardstick), ragged
+    and f32 cases, and the heads of stablelm-12b (dh=160, GQA 4) and
+    musicgen-large (dh=64, MHA)."""
     bf16, f32 = torch.bfloat16, torch.float32
     g = (32, 16, 128)
     cases = []
@@ -1143,7 +1150,8 @@ def flash_cases():
     return cases + [
         ("ragged S=200, window 64 (band starts mid-tile)", 2, 200, 8, 4, 128, f32, 64, None),
         ("S=256, window 32, softcap 30", 2, 256, 8, 4, 128, f32, 32, 30.0),
-        ("dh=160, Hkv=8, S=1000", 2, 1000, 32, 8, 160, bf16, None, None)]
+        ("dh=160, Hkv=8, S=1000", 2, 1000, 32, 8, 160, bf16, None, None),
+        ("dh=64, MHA, S=1000", 2, 1000, 32, 32, 64, bf16, None, None)]
 
 
 def flex_call(qt, kt, vt, window, cap):
@@ -1168,12 +1176,15 @@ def flex_call(qt, kt, vt, window, cap):
 
 def check_flash(timer, gen, b, s, h, hkv, dh, dtype, window, cap):
     """flash_attention against flash_attention_ref on random inputs, every
-    element within ``flash_attn_tol`` (the f32 bound of two evaluations,
-    plus one bf16 ulp for bf16 outputs), two launches bit for bit equal;
-    timed beside the plain version and one PyTorch call computing the same
-    function: ``scaled_dot_product_attention`` without a softcap (GQA,
-    causal or a boolean window mask), compiled ``flex_attention`` with
-    one; returns the record."""
+    element within ``flash_attn_tol`` (the bound of two evaluations, for
+    bf16 with the kernel on the tensor cores, plus one bf16 ulp for bf16
+    outputs; ``tol_ratio`` is the largest error over that bound,
+    ``f32_tol_ratio`` over the f32 bound of PR 15), two launches bit for
+    bit equal; timed beside the plain version
+    and one PyTorch call computing the same function:
+    ``scaled_dot_product_attention`` without a softcap (GQA, causal or a
+    boolean window mask), compiled ``flex_attention`` with one; returns the
+    record."""
     dev = gen.device
     q = torch.randn((b, s, h, dh), generator=gen, device=dev).to(dtype)
     k, v = (torch.randn((b, s, hkv, dh), generator=gen, device=dev).to(dtype)
@@ -1184,8 +1195,14 @@ def check_flash(timer, gen, b, s, h, hkv, dh, dtype, window, cap):
     torch.cuda.synchronize()
     if not torch.equal(got, again):
         raise AssertionError("flash_attn: two launches gave different bits")
-    err = assert_flash_attn_close(got, want, flash_attn_tol(q, k, v, window, cap))
-    rec = dict(max_abs_err=err,
+    bf16 = dtype == torch.bfloat16
+    tol = flash_attn_tol(q, k, v, window, cap)
+    err = assert_flash_attn_close(got, want, tol)
+    tol_ratio = flash_attn_tol_ratio(got, want, tol)
+    del tol
+    f32_tol_ratio = flash_attn_tol_ratio(
+        got, want, flash_attn_tol(q, k, v, window, cap, tensor_cores=False))
+    rec = dict(max_abs_err=err, tol_ratio=tol_ratio, f32_tol_ratio=f32_tol_ratio,
                ms=timer.ms(lambda: flash_attention(q, k, v, window=window, softcap=cap)),
                plain_ms=timer.ms(lambda: flash_attention_ref(q, k, v, window=window,
                                                              softcap=cap)))
@@ -1215,8 +1232,14 @@ def check_flash(timer, gen, b, s, h, hkv, dh, dtype, window, cap):
     pairs = b * h * live_pairs(s, window)
     rec["bytes"] = size * (2 * q.numel() + k.numel() + v.numel())
     rec["ops"] = 4 * dh * pairs
-    rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], rec["ops"])
+    # bf16 inputs: their products at the tensor cores' bf16 peak (the
+    # kernel's path); f32 inputs: at the CUDA cores' f32 peak.
+    rec["bound_ms"], rec["bound_by"] = bound(
+        rec["bytes"], rec["ops"], BF16_TC_FLOP_PER_S if bf16 else F32_FLOP_PER_S)
+    rec["f32_core_bound_ms"] = bound(rec["bytes"], rec["ops"])[0]
     rec["bf16_tensor_core_ms"] = rec["ops"] / BF16_TC_FLOP_PER_S * 1e3
+    if bf16:    # the kernel's own products: q.k once, p.v in three bf16 terms
+        rec["kernel_tensor_core_ms"] = 2 * rec["bf16_tensor_core_ms"]
     return rec
 
 
@@ -1492,10 +1515,14 @@ def main() -> None:
     free_card()
     timed("gemma2 long prefill", gemma_long_prefill, glm)
     print(f"phase seconds: {phase_seconds}")
+    long = flash["long prefill, global"]
     recs["flash_attn"] = dict(flash["main prefill, global"],
                               ms_softcap_free=flash["main prefill, softcap-free"]["ms"],
                               library_ms_softcap_free=flash["main prefill, softcap-free"][
-                                  "library_ms"])
+                                  "library_ms"],
+                              **{f"long_prefill_{k}": long[k] for k in (
+                                  "ms", "bound_ms", "f32_core_bound_ms",
+                                  "bf16_tensor_core_ms", "library_ms")})
 
     line = []
     for name, (_, source, replaces) in KERNELS.items():
@@ -1513,8 +1540,8 @@ def main() -> None:
                          launches=launches, max_abs_err=rec["max_abs_err"], ms=rec["ms"],
                          plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
                          bound_by=rec["bound_by"], library_ms=rec["library_ms"],
-                         **{k: rec[k] for k in ("ms_softcap_free", "library_ms_softcap_free")
-                            if k in rec}))
+                         **{k: v for k, v in rec.items()
+                            if k.endswith("softcap_free") or k.startswith("long_prefill_")}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))
     print(card_line())

@@ -7,7 +7,8 @@ plain version.
 layout, q (B, S, H, dh) and k, v (B, S, Hkv, dh), with query head h reading
 KV head ``h // (H // Hkv)`` (``Hkv == H`` is the TPU kernel's own
 signature).  Tiling is the kernel's business: there is no
-``block_q``/``block_k``.
+``block_q``/``block_k``.  The kernel runs f32 inputs on the CUDA cores and
+bf16 inputs on the tensor cores.
 """
 
 from __future__ import annotations
@@ -87,7 +88,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
       softcap: the score softcap, or None (0 is none, as in JAX).
 
     On the card the kernel takes contiguous tensors with dh a multiple of 16
-    up to 256, and raises on anything else.
+    up to 256 (bf16 also 16-byte-aligned data, as its TMA loads need), and
+    raises on anything else.
     """
     _check_args(q, k, v, window)
     if q.device.type == "cpu":
@@ -105,6 +107,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     check_operand("q", q, dev, q.dtype, (b, s, h, dh))
     check_operand("k", k, dev, q.dtype, (b, s, hkv, dh))
     check_operand("v", v, dev, q.dtype, (b, s, hkv, dh))
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the flash_attn kernel's bf16 path loads q, k, v with "
+                         "TMA, which needs 16-byte-aligned data")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

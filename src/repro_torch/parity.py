@@ -31,6 +31,33 @@
   two products per 32-key tile of the online rescaling, and the final
   division.  A bf16 output adds one bf16 ulp for the two roundings
   (:func:`flash_attn_tol`).
+* The same, where the kernel runs on the tensor cores (bf16 inputs).  Its
+  products are exact (bf16 by bf16; p·v against the three bf16 terms of
+  p·2¹⁶, whose sum is p exactly), but the wgmma's f32 accumulation is not
+  IEEE: the model taken here is the coarsest reported for NVIDIA tensor
+  cores (Fasi, Higham, Mikaitis & Pranesh, "Numerical behavior of NVIDIA
+  tensor cores", PeerJ CS 2021): each block of g ≥ 4 products is added to
+  the accumulator by aligning all g + 1 addends to the largest exponent
+  with no guard bits, each cut toward zero, and cutting the normalised
+  sum toward zero.  The g smaller addends lose under 2u·max each and the
+  sum under 2u·|sum|, so a block is off by under δ = 2(g + 1)u of the sum
+  of its addends' magnitudes, per product the most at g = 4: δ = 10u, four
+  blocks per 16-product k-step, and a chain of N blocks within
+  ``(1 + δ)^N − 1`` of the sum of the products' magnitudes.  The kernel's
+  score is ``RN(dh^-0.5 · Σ_d q_d·k_d)`` (dh/4 blocks), where the reference
+  rounds each ``q_d·dh^-0.5`` to f32 first: against the exact
+  ``Σ_d qs_d·k_d`` it is off by ``((1 + u)·τ + 2u)/(1 − u)·Σ_d |qs_d·k_d|``
+  with ``τ = (1 + δ)^{dh/4} − 1``, and the reference by ``γ_dh`` of the
+  same sum.  With a softcap the kernel goes to s/softcap in one product,
+  ``RN(Σ_d q_d·k_d · RN(dh^-0.5/softcap))``: the same two roundings as
+  scaling and then dividing, which the score's and the softcap's terms
+  count.  Its p·v adds three terms per live key, so the k-steps that hold
+  the n live keys of a row, at most ⌈n/16⌉ + 1, make ``12·(⌈n/16⌉ + 1)``
+  blocks over magnitudes at most ``(1 + 2⁻⁶)·Σ p·|v|``; the denominator
+  stays an f32 sum on the CUDA cores (γ_n), and the rescaling counts two
+  products per 16 keys (+ one).  The two evaluations' ε then differ, and
+  the bound adds them.  Like the rest of these bounds it assumes no
+  underflow or overflow.
 * The bf16 backbone against another implementation of it (the JAX
   package's compiled forward, or the same model on another device): bf16
   keeps 8 bits (one ulp is 2⁻⁸ relative), each layer rounds a dozen times,
@@ -44,12 +71,14 @@
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 U32 = 2.0 ** -24          # unit roundoff of f32
+_TC_BLOCK = 10.0 * U32    # δ: one tensor-core accumulation block (g = 4)
 
 
 def _gamma(n: int) -> float:
@@ -140,26 +169,35 @@ def race_query_tol(sketch: torch.Tensor, idx: torch.Tensor,
 def flash_attn_tol(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    window: Optional[int] = None,
                    softcap: Optional[float] = None, tile: int = 32,
-                   chunk: int = 512) -> torch.Tensor:
+                   chunk: int = 512,
+                   tensor_cores: Optional[bool] = None) -> torch.Tensor:
     """(B, S, H, dh) float64 bound on the difference of two f32 evaluations
     of ``flash_attention(q, k, v, window=, softcap=)`` (the rule above),
     before any rounding to the output dtype.  ``tile`` is the kernel's key
     tile (one online rescaling per tile); queries go ``chunk`` rows at a
-    time to bound the float64 temporaries."""
+    time to bound the float64 temporaries.  ``tensor_cores``: one of the
+    two is the kernel's tensor-core path, under the accumulation model
+    above; by default where the kernel takes that path, for bf16 CUDA
+    tensors (on the CPU the wrapper runs the plain version)."""
+    if tensor_cores is None:
+        tensor_cores = q.is_cuda and q.dtype == torch.bfloat16
     b, s, h, dh = q.shape
     hkv = k.shape[2]
     # Both sides round q·dh^-0.5 to f32 the same way.
     qs = (q.to(torch.float32) * dh ** -0.5).to(torch.float64).reshape(
         b, s, hkv, h // hkv, dh)
     k64, v64 = k.to(torch.float64), v.to(torch.float64)
+    dot = 2.0 * _gamma(dh)
+    if tensor_cores:
+        tau = math.expm1(dh / 4 * math.log1p(_TC_BLOCK))
+        dot = _gamma(dh) + ((1.0 + U32) * tau + 2.0 * U32) / (1.0 - U32)
     pos = torch.arange(s, device=q.device)
     out = torch.empty((b, s, hkv, h // hkv, dh), dtype=torch.float64,
                       device=q.device)
     for q0 in range(0, s, chunk):
         qc = qs[:, q0:q0 + chunk]
         sc = torch.einsum("bqkgd,bskd->bkgqs", qc, k64)
-        err = 2.0 * _gamma(dh) * torch.einsum("bqkgd,bskd->bkgqs", qc.abs(),
-                                              k64.abs())
+        err = dot * torch.einsum("bqkgd,bskd->bkgqs", qc.abs(), k64.abs())
         if softcap:
             sc = softcap * torch.tanh(sc / softcap)
             err = err + 2.0 * 6.0 * U32 * sc.abs()
@@ -174,12 +212,37 @@ def flash_attn_tol(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             ~live, 0.0).amax(dim=-1)
         n = live.sum(dim=-1).to(torch.float64)                  # (q,)
         tiles = torch.ceil(n / tile)
-        eps = ((4.0 + span) * U32 + 2.0 * n * U32 / (1.0 - n * U32)
-               + 2.0 * U32 * tiles + U32)
+        gamma_n = n * U32 / (1.0 - n * U32)
+        eps = (4.0 + span) * U32 + 2.0 * gamma_n + 2.0 * U32 * tiles + U32
         rel = 2.0 * eps + torch.expm1(2.0 * e_max)              # (b, kv, g, q)
+        if tensor_cores:
+            steps = torch.ceil(n / 16) + 1
+            pv = (1.0 + 2.0 ** -6) * torch.expm1(12.0 * steps
+                                                  * math.log1p(_TC_BLOCK))
+            eps_tc = ((4.0 + span) * U32 + gamma_n + pv + 2.0 * U32 * steps
+                      + U32)
+            rel = eps + eps_tc + torch.expm1(2.0 * e_max)
         mass = torch.einsum("bkgqs,bskd->bqkgd", w, v64.abs())
         out[:, q0:q0 + chunk] = rel.permute(0, 3, 1, 2)[..., None] * mass
     return out.reshape(b, s, h, dh)
+
+
+def _flash_out_err(got: torch.Tensor, want: torch.Tensor, tol: torch.Tensor):
+    """``(|got − want|, tol + one bf16 ulp of the larger magnitude for bf16
+    outputs)`` in float64."""
+    g64, w64 = got.to(torch.float64), want.to(torch.float64)
+    if got.dtype == torch.bfloat16:
+        big = torch.maximum(g64.abs(), w64.abs()).clamp_min(1e-30)
+        tol = tol + torch.exp2(torch.floor(torch.log2(big)) - 7)
+    return (g64 - w64).abs(), tol
+
+
+def flash_attn_tol_ratio(got: torch.Tensor, want: torch.Tensor,
+                         tol: torch.Tensor) -> float:
+    """The largest ``|got − want|`` over its bound, as
+    :func:`assert_flash_attn_close` holds it (at most 1 where it passes)."""
+    err, tol = _flash_out_err(got, want, tol)
+    return float((err / tol).max())
 
 
 def assert_flash_attn_close(got: torch.Tensor, want: torch.Tensor,
@@ -187,10 +250,7 @@ def assert_flash_attn_close(got: torch.Tensor, want: torch.Tensor,
     """Raise unless ``|got − want| <= tol`` (+ one bf16 ulp of the larger
     magnitude for bf16 outputs) everywhere; returns the largest error."""
     g64, w64 = got.to(torch.float64), want.to(torch.float64)
-    err = (g64 - w64).abs()
-    if got.dtype == torch.bfloat16:
-        big = torch.maximum(g64.abs(), w64.abs()).clamp_min(1e-30)
-        tol = tol + torch.exp2(torch.floor(torch.log2(big)) - 7)
+    err, tol = _flash_out_err(got, want, tol)
     bad = err > tol
     if bool(bad.any()):
         i = tuple(int(x) for x in bad.nonzero()[0])

@@ -24,8 +24,11 @@ Tolerances:
   as an archive).
 
 The ``cuda`` case holds the CUDA kernel against its plain version within
-``repro_torch.parity.flash_attn_tol`` and skips without a card; JAX is imported inside fixtures, so it also runs
-where JAX is not installed (``python -m pytest --noconftest -m cuda``).
+``repro_torch.parity.flash_attn_tol`` (bf16 inputs run on the tensor cores
+and take its ``tensor_cores`` form) and skips without a card; JAX is
+imported inside fixtures, so it also runs where JAX is not installed
+(``python -m pytest --noconftest -m cuda``).  On the CPU, the tensor-core
+path's premise is checked directly: the bf16 split of p is exact.
 """
 
 import numpy as np
@@ -36,7 +39,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.api import LM, SketchHead
 from repro_torch.configs import get_config
 from repro_torch.convert import decode_cache_from_numpy, params_from_numpy
-from repro_torch.kernels.flash_attn.ops import flash_attention, flash_attention_ref
+from repro_torch.kernels.flash_attn.ops import (flash_attention,
+                                                flash_attention_ref)
 from repro_torch.launch import serve
 from repro_torch.launch.steps import prefill_step, serve_step
 from repro_torch.models import attention as attn
@@ -176,6 +180,69 @@ def test_flash_window_band_starts_mid_tile():
             np.testing.assert_allclose(got[0, i, h],
                                        p @ v64[0, lo:i + 1, 0] / p.sum(),
                                        rtol=F32_TOL, atol=F32_TOL)
+
+
+def _f32_at_every_exponent(rng, exp_fields, n=64):
+    """f32 values with each biased exponent field in ``exp_fields`` (0:
+    subnormal), random sign and significand plus its ends (all zeros, all
+    ones)."""
+    e = np.repeat(np.asarray(exp_fields, np.uint32), n)
+    frac = rng.integers(0, 1 << 23, e.size, dtype=np.uint32)
+    frac[::n], frac[1::n] = 0, (1 << 23) - 1
+    sign = rng.integers(0, 2, e.size, dtype=np.uint32) << 31
+    return torch.from_numpy((sign | (e << 23) | frac).view(np.float32))
+
+
+def split_bf16(x: torch.Tensor):
+    """``(hi, mid, lo)``, the bf16 terms the kernel's tensor-core path
+    (``split3`` in ``csrc/flash_attn.cu``) splits f32 ``x`` into:
+    ``hi = bf16(x)``, ``mid = bf16(x - hi)``, ``lo = bf16(x - hi - mid)``,
+    each residual exact in f32."""
+    hi = x.to(torch.bfloat16)
+    r = x - hi.to(x.dtype)
+    mid = r.to(torch.bfloat16)
+    return hi, mid, (r - mid.to(x.dtype)).to(torch.bfloat16)
+
+
+def _split_sum(x):
+    return sum(t.to(torch.float64) for t in split_bf16(x))
+
+
+@pytest.mark.parametrize("case", ["p_scaled", "above_2^-110"])
+def test_flash_bf16_split_is_exact(case):
+    """The tensor-core path's p·v premise, in plain torch: hi + mid + lo of
+    ``split_bf16`` equals x exactly.  ``p_scaled``: x = p·2¹⁶ for f32 p in
+    [0, 1] of every exponent down to f32's least subnormal (what the kernel
+    splits; unscaled, p = 2⁻¹⁴⁹ would split to 0).  ``above_2^-110``: every
+    binade from 2⁻¹¹⁰ up to bf16's largest finite value (above it hi
+    overflows), where mid and lo may be bf16 subnormals."""
+    rng = np.random.default_rng(16)
+    if case == "p_scaled":
+        p = _f32_at_every_exponent(rng, range(0, 127)).abs()
+        p = torch.cat([p, torch.tensor([0.0, 1.0, 2.0 ** -149])])
+        x = p * 2.0 ** 16
+        assert torch.equal(x.to(torch.float64), p.to(torch.float64) * 2.0 ** 16)
+        tiny = torch.tensor([2.0 ** -149])
+        assert float(_split_sum(tiny)) != float(tiny)     # why it scales
+    else:
+        x = _f32_at_every_exponent(rng, range(127 - 110, 255))
+        x = x[x.abs() <= torch.finfo(torch.bfloat16).max]
+    hi, mid, lo = split_bf16(x)
+    assert bool(((mid.float() != 0) & (mid.float().abs() < 2.0 ** -126)).any())
+    assert torch.equal(_split_sum(x), x.to(torch.float64))
+
+
+def test_flash_tensor_core_bound_covers_the_f32_one():
+    """``flash_attn_tol(tensor_cores=True)`` (the wgmma accumulation model)
+    is finite and at least the f32 bound everywhere, at the dh the tests
+    and the card use."""
+    for dh, window, cap in ((16, None, 50.0), (64, 20, None), (160, None, None)):
+        q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+                   for a in _qkv(dh, 1, 70, 4, 2, dh))
+        f32 = flash_attn_tol(q, k, v, window, cap)
+        tc = flash_attn_tol(q, k, v, window, cap, tensor_cores=True)
+        assert bool(tc.isfinite().all()) and bool((tc >= f32).all())
+        assert float((tc / f32).max()) < 16.0
 
 
 # ------------------------------------------------- the _attend functions
@@ -592,13 +659,21 @@ def cuda():
 @pytest.mark.parametrize("s,h,hkv,dh,window,cap", [
     (96, 2, 2, 16, None, None), (200, 4, 2, 16, 64, None),
     (256, 4, 1, 32, 32, 30.0), (150, 2, 1, 160, 45, 50.0),
-    (70, 2, 2, 256, None, 50.0)])
+    (70, 2, 2, 256, None, 50.0), (32, 4, 2, 128, None, 50.0),
+    (100, 8, 2, 64, None, None), (130, 4, 4, 64, 40, None),
+    (77, 6, 2, 96, 30, None), (300, 4, 1, 256, 100, 20.0)] + [
+    (130, 4, 2, dh, 40, cap) for dh in range(16, 257, 16) for cap in (None, 30.0)])
 def test_cuda_flash_kernel_matches_plain(cuda, dtype, s, h, hkv, dh, window,
                                          cap):
     """The kernel against its plain version on the card, every element
     within ``flash_attn_tol`` (plus one bf16 ulp for bf16: the outputs of
     cancelling sums sit near zero, where one bf16 ulp of the value is below
-    the f32 error of the sum); two launches give the same bits."""
+    the f32 error of the sum; bf16 runs on the tensor cores, under their
+    accumulation model); two launches give the same bits.  The bf16 path's
+    edges: S below one query tile (32) and not a multiple of the key tile,
+    GQA groups of 1, 2, 3 and 4, window bands that start mid-tile, and
+    every dh it instantiates (16 to 256 by 16: each its own swizzle, key
+    tile and register budget) at one shape, softcap on and off."""
     g = torch.Generator(cuda).manual_seed(s)
     q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype)
                for shape in ((2, s, h, dh), (2, s, hkv, dh), (2, s, hkv, dh)))
@@ -610,3 +685,17 @@ def test_cuda_flash_kernel_matches_plain(cuda, dtype, s, h, hkv, dh, window,
     assert flash_attention.launches == before + 2
     assert torch.equal(got, again)
     assert_flash_attn_close(got, want, flash_attn_tol(q, k, v, window, cap))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_bf16_needs_aligned_tensors(cuda):
+    """The tensor-core path's TMA loads need 16-byte-aligned q, k, v: the
+    wrapper raises on a contiguous view that starts 2 bytes in, and
+    launches nothing."""
+    flat = torch.zeros(2 * 32 * 2 * 64 + 1, dtype=torch.bfloat16, device=cuda)
+    q = flat[1:].view(2, 32, 2, 64)
+    k = torch.zeros((2, 32, 1, 64), dtype=torch.bfloat16, device=cuda)
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        flash_attention(q, k, k)
+    assert flash_attention.launches == before
