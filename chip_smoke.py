@@ -15,10 +15,13 @@
    boundary rule and logits the gather bound of
    ``repro_torch.parity``; one ``kernel_case`` JSON line each, with
    CUDA-event times (median of 20 runs after warm-up, L2 flushed before
-   each run).  Then race_update against its plain version for M in {32,
+   each run).  Then race_update against its plain versions for M in {32,
    256, 1024}, both heads' L, both V, through both entries ((L, R, V) and
-   (C, L, R)): within ``race_update_tol``, two launches bit for bit equal,
-   timed beside the one-call ``baddbmm``/``addmm`` yardstick.
+   (C, L, R)), and a (C, L, R) sketch with C=50021, L=100, M=77: equal to
+   ``race_update_ordered_ref`` bit for bit, within ``race_update_tol`` of
+   the einsum version, two launches bit for bit equal, timed beside the
+   one-call ``baddbmm``/``addmm`` yardstick (``library_factor``: the
+   kernel's time over it; the slowest case is printed).
 3. Backbone check: the rwkv6 smoke model on the card against the same
    model on the CPU, teacher-forced (bf16 tolerance of
    tests/test_torch_model.py).
@@ -135,7 +138,8 @@ from repro_torch.kernels.fused_decode.ops import fused_decode_logits, fused_deco
 from repro_torch.kernels.lsh_hash.ops import lsh_hash, lsh_hash_ref
 from repro_torch.kernels.race_query.ops import race_query, race_query_ref
 from repro_torch.kernels.race_update.ops import (race_update, race_update_counts,
-                                                 race_update_counts_ref, race_update_ref)
+                                                 race_update_counts_ref,
+                                                 race_update_ordered_ref, race_update_ref)
 from repro_torch.parity import (BF16_MAX_TOL, BF16_NORM_TOL, assert_bf16_backbone_close,
                                 assert_flash_attn_close, bf16_backbone_errors,
                                 check_hash_indices, flash_attn_tol,
@@ -559,14 +563,18 @@ def race_work(counts, idx, alphas):
 
 
 def check_race(timer, counts, idx, alphas, entry, library=True):
-    """race_update against its plain version: every element within
-    ``race_update_tol``, two launches bit for bit equal, and the library
-    call within twice that bound; returns the timed record."""
+    """race_update against its plain versions: equal to
+    ``race_update_ordered_ref`` bit for bit, every element within
+    ``race_update_tol`` of the einsum one, two launches bit for bit equal,
+    and the library call within twice that bound; returns the timed record,
+    with the kernel's time over the library call's (``library_factor``)."""
     fn, plain, lib, axis = race_inputs(counts, idx, alphas, entry)
     got, again, want = fn(), fn(), plain()
     torch.cuda.synchronize()
     if not torch.equal(got, again):
         raise AssertionError(f"race_update ({entry}): two launches gave different bits")
+    if not torch.equal(got, race_update_ordered_ref(counts, idx, alphas, axis)):
+        raise AssertionError(f"race_update ({entry}): not race_update_ordered_ref bit for bit")
     tol = race_update_tol(counts, alphas, axis)
     err = (got - want).abs()
     if not bool((err.double() <= tol).all()):
@@ -578,16 +586,28 @@ def check_race(timer, counts, idx, alphas, entry, library=True):
         if not bool(((lib() - want).abs().double() <= 2 * tol).all()):
             raise AssertionError(f"race_update ({entry}): the library call disagrees")
         rec["library_ms"] = timer.ms(lib)
+        rec["library_factor"] = rec["ms"] / rec["library_ms"]
     rec["bytes"], rec["ops"] = race_work(counts, idx, alphas)
     rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], rec["ops"])
     return rec
 
 
 def race_phase(dev, timer):
-    """race_update against race_update_ref at M in {32, 256, 1024}, the serve
-    head (L=128) and SketchHeadConfig() (L=64), R=16, V=65536 and a ragged
-    65519, through both entries."""
+    """race_update against its plain versions at M in {32, 256, 1024}, the
+    serve head (L=128) and SketchHeadConfig() (L=64), R=16, V=65536 and a
+    ragged 65519, through both entries; then a (C, L, R) sketch with C,
+    L and M all off the kernel's tiles (C=50021, L=100, M=77).  Prints the
+    slowest case's time over its one-call twin's."""
     gen = torch.Generator(dev).manual_seed(2)
+    worst = (0.0, None)
+
+    def case(arr, idx, alphas, entry, **shape):
+        nonlocal worst
+        rec = check_race(timer, arr, idx, alphas, entry)
+        print("kernel_case " + json.dumps(dict(kernel="race_update", entry=entry, **shape,
+                                               **rec)), flush=True)
+        worst = max(worst, (rec["library_factor"], f"{entry} {shape}"))
+
     for cfg in (SERVE_HEAD, DEFAULT_HEAD):
         for v in (VOCAB, VOCAB - 17):
             counts = torch.randn((cfg.n_rows, cfg.n_buckets, v), generator=gen, device=dev)
@@ -597,11 +617,16 @@ def race_phase(dev, timer):
                 alphas = torch.randn((m, v), generator=gen, device=dev) * 0.1
                 for entry in ("counts", "sketch"):
                     arr = counts if entry == "counts" else counts.permute(2, 0, 1).contiguous()
-                    rec = check_race(timer, arr, idx, alphas, entry)
-                    print("kernel_case " + json.dumps(dict(
-                        kernel="race_update", entry=entry, M=m, L=cfg.n_rows,
-                        R=cfg.n_buckets, V=v, **rec)), flush=True)
+                    case(arr, idx, alphas, entry, M=m, L=cfg.n_rows, R=cfg.n_buckets, V=v)
                     del arr
+    c, n_rows, m = 50021, 100, 77
+    sketch = torch.randn((c, n_rows, DEFAULT_HEAD.n_buckets), generator=gen, device=dev)
+    idx = torch.randint(-1, DEFAULT_HEAD.n_buckets + 1, (m, n_rows), generator=gen,
+                        device=dev, dtype=torch.int32)
+    case(sketch, idx, torch.randn((m, c), generator=gen, device=dev) * 0.1, "sketch",
+         M=m, L=n_rows, R=DEFAULT_HEAD.n_buckets, C=c)
+    print(f"race_update: slowest case against its one-call twin {worst[0]:.3f}x ({worst[1]})",
+          flush=True)
 
 
 def run_engine(lm, stream, n_slots, *, tenants=None, head_cache=None):

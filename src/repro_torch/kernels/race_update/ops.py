@@ -10,6 +10,12 @@ their plain versions on CPU tensors:
   count layout with (M, V) weights, which ``refresh_head`` calls without
   moving V to the front and back.
 
+The launcher picks the kernel by shape: few classes (C ≤ 32, R ≤ 256, the
+paper's freezes) take ``race_update_rows``, a lane per row; the rest take
+``race_update_cols``, classes in registers, its epilogue ordered for the
+layout's contiguous axis.  Both sum in the order of
+:func:`race_update_ordered_ref`, which is their exact function.
+
 Both return ``sketch + delta`` in a fresh tensor, or in ``out=`` when the
 caller passes one it owns (``out`` may be the input itself: the kernel
 reads each count once before its owner writes it).  ``race_update.launches``
@@ -54,6 +60,36 @@ def race_update_counts_ref(counts: torch.Tensor, idx: torch.Tensor,
     onehot = _onehot(idx, counts.shape[1])
     return counts + torch.einsum("mlr,mv->lrv", onehot,
                                  alphas.to(torch.float32))
+
+
+def race_update_ordered_ref(counts: torch.Tensor, idx: torch.Tensor,
+                            alphas: torch.Tensor, class_axis: int
+                            ) -> torch.Tensor:
+    """The kernel's exact function, in either layout: ``counts + delta``
+    with each element's delta summed over m in increasing order from 0 in
+    f32, then added to its count once.
+
+    ``class_axis`` is 0 for a (C, L, R) sketch and -1 for a head's
+    (L, R, V) counts, as in ``parity.race_update_tol``.  Step m adds α[m]
+    at ``[arange(L), idx[m]]``; an index outside [0, R) goes to a spare
+    bucket that is dropped.  No element is hit twice in one step, so each
+    step is one rounding per element.  The tests and ``chip_smoke.py`` hold
+    the kernel to it bit for bit; no served path calls it.
+    """
+    if class_axis not in (0, -1):
+        raise ValueError(f"class_axis is 0 or -1, got {class_axis}")
+    lrc = counts if class_axis == -1 else counts.permute(1, 2, 0)
+    n_rows, n_buckets, n_cols = lrc.shape
+    delta = torch.zeros((n_rows, n_buckets + 1, n_cols), dtype=torch.float32,
+                        device=counts.device)
+    rows = torch.arange(n_rows, device=counts.device)
+    idx = idx.long()
+    bucket = torch.where((idx >= 0) & (idx < n_buckets), idx, n_buckets)
+    alphas = alphas.to(torch.float32)
+    for m in range(idx.shape[0]):
+        delta[rows, bucket[m]] += alphas[m]
+    res = lrc + delta[:, :n_buckets]
+    return res if class_axis == -1 else res.permute(2, 0, 1).contiguous()
 
 
 @functools.lru_cache(maxsize=None)

@@ -27,6 +27,7 @@ from repro_torch.kernels.lsh_hash.ops import lsh_hash, lsh_hash_ref
 from repro_torch.kernels.race_update.ops import (race_update,
                                                  race_update_counts,
                                                  race_update_counts_ref,
+                                                 race_update_ordered_ref,
                                                  race_update_ref)
 from repro_torch.parity import (check_hash_indices, gather_atol,
                                 race_update_tol)
@@ -230,23 +231,39 @@ def _race_case(seed, m, n_rows, r, c):
             (rng.standard_normal((m, c)) * 0.1).astype(np.float32))
 
 
+# The paper's freezes have C in {1, 2} and R in {30, 50, 64, 100}; M on
+# either side of 64 (the kernels' point groups divide it) and past one
+# 256-point Pallas block.
+_FEW_CLASS_CASES = [(m, 6, r, c) for c in (1, 2) for r in (30, 50, 100)
+                    for m in (63, 64, 65, 512)]
+
+
 @pytest.mark.parametrize("m,n_rows,r,c", [(1, 3, 4, 5), (37, 5, 7, 203),
-                                          (300, 9, 16, 64)])
+                                          (300, 9, 16, 64)]
+                         + _FEW_CLASS_CASES)
 def test_race_update_matches_jax(jx, m, n_rows, r, c):
-    """Both entries, (C, L, R) and the head's (L, R, V), against JAX's
-    race_update (pallas in interpret mode, 256-point blocks, and ref) on
-    the same indices and weights, within race_update_tol."""
+    """Both entries, (C, L, R) and the head's (L, R, V), and the ordered
+    plain version in both layouts, against JAX's race_update (pallas in
+    interpret mode, 256-point blocks, and ref) on the same indices and
+    weights, within race_update_tol; the ordered version also against the
+    einsum one, and its two layouts against each other bit for bit."""
     sketch, idx, alphas = _race_case(m, m, n_rows, r, c)
     got = race_update(_t(sketch), _t(idx), _t(alphas))
     lrv = race_update_counts(_t(sketch).permute(1, 2, 0).contiguous(),
                              _t(idx), _t(alphas))
+    ordered = race_update_ordered_ref(_t(sketch), _t(idx), _t(alphas), 0)
+    ordered_lrv = race_update_ordered_ref(
+        _t(sketch).permute(1, 2, 0).contiguous(), _t(idx), _t(alphas), -1)
     assert got.shape == (c, n_rows, r) and lrv.shape == (n_rows, r, c)
+    assert torch.equal(ordered_lrv.permute(2, 0, 1), ordered)
     tol = race_update_tol(_t(sketch), _t(alphas), 0).numpy()
+    assert (np.abs(ordered.double() - got.double()).numpy() <= tol).all()
     for backend in ("pallas", "ref"):
         want = np.asarray(jx["race"](jx["jnp"].asarray(sketch), idx, alphas,
                                      backend=backend), np.float64)
         assert (np.abs(got.numpy() - want) <= tol).all()
         assert (np.abs(lrv.numpy().transpose(2, 0, 1) - want) <= tol).all()
+        assert (np.abs(ordered.numpy() - want) <= tol).all()
 
 
 def test_race_update_out_in_place():
@@ -333,21 +350,27 @@ def test_cuda_fused_decode_kernel(cuda, shape, quant):
                                rtol=0, atol=atol)
 
 
-_RACE_SHAPES = [  # (m, n_rows, r, v)
+_RACE_SHAPES = [  # (m, n_rows, r, v): v classes, the (L, R, V) entry's V
     (256, 128, 16, 65536),      # the refresh of the serve.py rwkv6 head
     (1024, 64, 16, 65519),      # SketchHeadConfig(), ragged V
     (37, 5, 7, 203),            # odd everything
     (100, 19, 40, 333),         # R > 16: several bucket passes
     (0, 3, 4, 5),               # no points: out = counts
+    (512, 4000, 64, 1),         # the paper's freeze of abalone / yearmsd
+    (512, 2000, 100, 2),        # the paper's freeze of susy
+    (300, 70, 16, 5),           # few classes, L and M off the tiles
+    (32, 64, 16, 65519),        # many classes, ragged C through (C, L, R)
+    (99, 61, 16, 4099),         # ragged V, M off the chunk and off 4
 ]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", _RACE_SHAPES)
 def test_cuda_race_update_kernel(cuda, shape):
-    """Both entries against their plain versions within race_update_tol,
-    two launches bit for bit equal, the in-place fold equal to the fresh
-    one, and one launch counted per call."""
+    """Both entries equal to race_update_ordered_ref bit for bit and to
+    their einsum plain versions within race_update_tol, two launches bit
+    for bit equal, the in-place fold equal to the fresh one, and one
+    launch counted per call."""
     m, n_rows, r, v = shape
     g = torch.Generator(cuda).manual_seed(m)
     counts = torch.randn((n_rows, r, v), generator=g, device=cuda)
@@ -362,6 +385,8 @@ def test_cuda_race_update_kernel(cuda, shape):
     clr = race_update(sketch, idx, alphas)
     torch.cuda.synchronize()
     assert race_update.launches == 4
+    assert torch.equal(got, race_update_ordered_ref(counts, idx, alphas, -1))
+    assert torch.equal(clr, race_update_ordered_ref(sketch, idx, alphas, 0))
     want = race_update_counts_ref(counts, idx, alphas)
     assert bool(((got - want).abs().double()
                  <= race_update_tol(counts, alphas, -1)).all())
