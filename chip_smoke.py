@@ -13,9 +13,11 @@
    d'=64, r=4), B in {1, 2, 4, 64, 256} (2 is the per-tenant engine's
    batch, 256 the refresh's), f32/int8/int4 counts.  Indices obey the
    boundary rule and logits the gather bound of
-   ``repro_torch.parity``; one ``kernel_case`` JSON line each, with
-   CUDA-event times (median of 20 runs after warm-up, L2 flushed before
-   each run).  Then race_update against its plain versions for M in {32,
+   ``repro_torch.parity``; fused_decode's logits equal sketch_head's
+   kernel at fused_decode's own indices bit for bit; one ``kernel_case``
+   JSON line each, with CUDA-event times (median of 20 runs after warm-up,
+   L2 flushed before each run; fused_decode's ``gather_ms`` is
+   sketch_head's time at its indices, the gather without the transform).  Then race_update against its plain versions for M in {32,
    256, 1024}, both heads' L, both V, through both entries ((L, R, V) and
    (C, L, R)), and a (C, L, R) sketch with C=50021, L=100, M=77: equal to
    ``race_update_ordered_ref`` bit for bit, within ``race_update_tol`` of
@@ -37,7 +39,8 @@
    flight in a per-tenant engine, then ``engine.refresh`` of M = 256 live
    hiddens with the dense logits as targets (launch counts zeroed before,
    read after: race_update, lsh_hash and fused_decode once each); the
-   residual's fused_decode at B=256 against fused_decode_ref and the
+   residual's fused_decode at B=256 against fused_decode_ref (and timed)
+   and the
    shadow against a plain fold of the same points; the bank row and the
    in-flight streams bitwise unchanged until ``publish``; after it, new
    requests equal a fresh engine loaded with the published head.
@@ -51,8 +54,9 @@
    at each tabular dataset's FULL-budget query shape (B = its test set,
    L = 2000 or 4000, R = 30-100 or 64, C = 2 or 1, g = 8), g in {5, 1},
    L % g != 0, a ragged B, a bf16 sketch, tied means and the [1, 2, 3, 10]
-   even-g median: every estimate within ``race_query_tol``, two launches
-   bit for bit equal, timed beside its plain version and its bound.
+   even-g median: bit for bit ``race_query_ordered_ref``, every estimate
+   within ``race_query_tol`` of ``race_query_ref``, two launches bit for
+   bit equal, timed beside its plain version and its bound.
 8. Paper phase: ``repro_torch.launch.paper_repro.run_dataset`` on all six
    datasets at the FULL budget (teacher → distill → freeze → query), with
    the launch counts zeroed before and read after each (lsh_hash 2,
@@ -136,7 +140,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attn.ops import flash_attention, flash_attention_ref
 from repro_torch.kernels.fused_decode.ops import fused_decode_logits, fused_decode_ref
 from repro_torch.kernels.lsh_hash.ops import lsh_hash, lsh_hash_ref
-from repro_torch.kernels.race_query.ops import race_query, race_query_ref
+from repro_torch.kernels.race_query.ops import (race_query, race_query_ordered_ref,
+                                                race_query_ref)
 from repro_torch.kernels.race_update.ops import (race_update, race_update_counts,
                                                  race_update_counts_ref,
                                                  race_update_ordered_ref, race_update_ref)
@@ -273,10 +278,12 @@ def random_head(gen, cfg, v, quant):
 
 def check_fused(cfg, head, hidden, quant):
     """fused_decode against its plain version on (hidden, head): indices
-    under the boundary rule, logits against the plain gather at the
-    kernel's own indices and, where the indices agree, against the plain
-    version, both within the gather bound.  Returns the kernel's logits
-    (``got``), the error, the mismatch count and the plain indices."""
+    under the boundary rule, logits equal to sketch_head's kernel at the
+    fused kernel's own indices bit for bit (the same sum in the same
+    order), against the plain gather at those indices and, where the
+    indices agree, against the plain version, both within the gather
+    bound.  Returns the kernel's logits (``got``), the error, the mismatch
+    count, the plain indices and the kernel's (``kidx``)."""
     store, scale = head["array"], head.get("scale")
     deq = store if quant is None else dequantize_sketch_ref(store, scale, quant)
     atol = gather_atol(cfg.n_rows, float(deq.abs().max()))
@@ -289,12 +296,15 @@ def check_fused(cfg, head, hidden, quant):
     want = fused_decode_ref(*args, r, nb, scale, quant, ref_idx)
     torch.cuda.synchronize()
     mism = check_hash_indices(idx, ref_idx, hidden, head["w"], head["b"], r, proj=head["proj"])
+    if not torch.equal(got, sketch_head_logits(store, idx, scale=scale, quant=quant)):
+        raise AssertionError("fused_decode logits are not sketch_head's at its own indices, "
+                             "bit for bit")
     torch.testing.assert_close(got, sketch_head_ref(store, idx, scale, quant), rtol=0, atol=atol)
     same = (idx == ref_idx).all(dim=1)
     err = float((got[same] - want[same]).abs().max()) if bool(same.any()) else 0.0
     if err > atol:
         raise AssertionError(f"fused_decode logits off by {err} > {atol}")
-    return dict(got=got, max_abs_err=err, idx_mismatches=mism, atol=atol, idx=ref_idx)
+    return dict(got=got, max_abs_err=err, idx_mismatches=mism, atol=atol, idx=ref_idx, kidx=idx)
 
 
 def check_and_time(timer, cfg, head, hidden, quant, library: bool):
@@ -309,8 +319,12 @@ def check_and_time(timer, cfg, head, hidden, quant, library: bool):
     out = {}
 
     chk = check_fused(cfg, head, hidden, quant)
+    # gather_ms: sketch_head at the fused kernel's own indices, the gather
+    # alone; the rest of the fused time is the transform and the hash.
     out["fused_decode"] = dict(
         ms=timer.ms(lambda: fused_decode_logits(*args, **kw)),
+        gather_ms=timer.ms(lambda: sketch_head_logits(store, chk["kidx"], scale=scale,
+                                                      quant=quant)),
         plain_ms=timer.ms(lambda: fused_decode_ref(*args, r, nb, scale, quant)),
         max_abs_err=chk["max_abs_err"], idx_mismatches=chk["idx_mismatches"], atol=atol,
         idx=chk["idx"], library_ms=None)
@@ -930,9 +944,14 @@ def refresh_phase(dev, timer, lm, kparams, quant):
                                                 SERVE_HEAD.n_buckets),
                               q, row32["w"], row32["b"], SERVE_HEAD.bandwidth)
     pred_chk = check_fused(SERVE_HEAD, row32, hidden, None)
+    pred_ms = timer.ms(lambda: fused_decode_logits(
+        hidden, row32["proj"], row32["w"], row32["b"], row32["array"],
+        bandwidth=SERVE_HEAD.bandwidth, n_buckets=SERVE_HEAD.n_buckets))
+    pred_bytes, pred_ops = kernel_work("fused_decode", hidden, row32, pred_chk["idx"], None)
     print("kernel_case " + json.dumps(dict(
         kernel="fused_decode", entry=f"refresh pred ({'f32' if quant is None else quant} bank)",
         B=hidden.shape[0], L=SERVE_HEAD.n_rows, R=SERVE_HEAD.n_buckets, V=cfg.vocab_size,
+        ms=pred_ms, bound_ms=bound(pred_bytes, pred_ops)[0],
         **{k: pred_chk[k] for k in ("max_abs_err", "idx_mismatches", "atol")})))
     alphas = targets - pred_chk["got"]
     want = race_update_counts_ref(row32["array"], idx, alphas)
@@ -998,8 +1017,9 @@ def query_work(sketch, idx):
 
 
 def check_query(timer, sketch, idx, n_groups):
-    """race_query against race_query_ref: every estimate within
-    ``race_query_tol`` (NaN where both are NaN), two launches bit for bit
+    """race_query against its plain versions: bit for bit
+    ``race_query_ordered_ref``, every estimate within ``race_query_tol`` of
+    ``race_query_ref`` (NaN where both are NaN), two launches bit for bit
     equal; returns the timed record."""
     got = race_query(sketch, idx, n_groups=n_groups)
     again = race_query(sketch, idx, n_groups=n_groups)
@@ -1007,6 +1027,9 @@ def check_query(timer, sketch, idx, n_groups):
     torch.cuda.synchronize()
     if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
         raise AssertionError("race_query: two launches gave different bits")
+    ordered = race_query_ordered_ref(sketch, idx, n_groups)
+    if not torch.equal(got.view(torch.int32), ordered.view(torch.int32)):
+        raise AssertionError("race_query: not race_query_ordered_ref bit for bit")
     tol = race_query_tol(sketch, idx, n_groups)
     both_nan = got.isnan() & want.isnan()
     err = (got.double() - want.double()).abs()

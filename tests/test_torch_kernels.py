@@ -333,21 +333,93 @@ def test_cuda_sketch_head_kernel(cuda, shape, quant):
     torch.testing.assert_close(got, want, rtol=0, atol=atol)
 
 
+def _check_fused(dev, shape, quant):
+    """fused_decode on the card: its indices under the boundary rule, its
+    logits equal to sketch_head's kernel at those indices bit for bit (the
+    same sum in the same order) and within the gather bound of the plain
+    gather, two launches bit for bit equal, one launch each."""
+    hid, proj, w, bias, store, scale, bw, r, atol = _cuda_case(dev, shape, quant)
+    idx = torch.empty((hid.shape[0], shape[3]), dtype=torch.int32, device=dev)
+    fused_decode_logits.launches = 0
+    got = fused_decode_logits(hid, proj, w, bias, store, bandwidth=bw,
+                              n_buckets=r, scale=scale, quant=quant,
+                              idx_out=idx)
+    again = fused_decode_logits(hid, proj, w, bias, store, bandwidth=bw,
+                                n_buckets=r, scale=scale, quant=quant)
+    torch.cuda.synchronize()
+    assert fused_decode_logits.launches == 2
+    ref_idx = lsh_hash_ref(hid @ proj, w, bias, bw, r)
+    check_hash_indices(idx, ref_idx, hid, w, bias, bw, proj=proj)
+    assert torch.equal(got, again)
+    assert torch.equal(got, sketch_head_logits(store, idx, scale=scale,
+                                               quant=quant))
+    torch.testing.assert_close(got, sketch_head_ref(store, idx, scale, quant),
+                               rtol=0, atol=atol)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("quant", [None, "int8", "int4"])
 @pytest.mark.parametrize("shape", _CUDA_SHAPES)
 def test_cuda_fused_decode_kernel(cuda, shape, quant):
-    hid, proj, w, bias, store, scale, bw, r, atol = _cuda_case(cuda, shape, quant)
-    idx = torch.empty((hid.shape[0], shape[3]), dtype=torch.int32, device=cuda)
-    got = fused_decode_logits(hid, proj, w, bias, store, bandwidth=bw,
-                              n_buckets=r, scale=scale, quant=quant,
-                              idx_out=idx)
+    _check_fused(cuda, shape, quant)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [None, "int8", "int4"])
+@pytest.mark.parametrize("v", [65536, 65519])
+@pytest.mark.parametrize("b", [1, 2, 4, 8, 64, 256])
+def test_cuda_fused_decode_batches(cuda, b, v, quant):
+    """The rwkv6 serve head (d 2048, L 128, R 16, d' 32) at the batches its
+    paths give the kernel: 1-2 rows a tenant in the engine, 4 in generate,
+    256 at the refresh; V even and ragged."""
+    _check_fused(cuda, (b, 2048, 32, 128, 1, 16, v, 2.0), quant)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [None, "int8"])
+def test_cuda_fused_decode_gemma_width(cuda, quant):
+    """gemma2-27b's width: d 4608, V 256000 (2.1 GB of f32 counts)."""
+    _check_fused(cuda, (4, 4608, 32, 128, 1, 16, 256000, 2.0), quant)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 4, 9])
+def test_cuda_fused_decode_hash_is_lsh_hash(cuda, b):
+    """With A the identity (d = d'), q = h exactly, and the fused kernel's
+    indices equal lsh_hash's kernel (lsh::hash_rows) bit for bit: the
+    fused kernel's own hash does the same arithmetic."""
+    hid, _, w, bias, store, _, bw, r, _ = _cuda_case(
+        cuda, (b, 64, 64, 64, 2, 16, 700, 4.0), None)
+    hid = hid[:, :64].contiguous()
+    idx = torch.empty((b, 64), dtype=torch.int32, device=cuda)
+    fused_decode_logits(hid, torch.eye(64, device=cuda), w, bias, store,
+                        bandwidth=bw, n_buckets=r, idx_out=idx)
+    want = lsh_hash(hid, w, bias, bandwidth=bw, n_buckets=r)
     torch.cuda.synchronize()
-    ref_idx = torch.empty_like(idx)
-    fused_decode_ref(hid, proj, w, bias, store, bw, r, scale, quant, ref_idx)
-    check_hash_indices(idx, ref_idx, hid, w, bias, bw, proj=proj)
-    torch.testing.assert_close(got, sketch_head_ref(store, idx, scale, quant),
-                               rtol=0, atol=atol)
+    assert torch.equal(idx, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [None, "int4"])
+def test_cuda_fused_decode_tenants(cuda, quant):
+    """The per-tenant path: one launch per bank row, and row b bit for bit
+    the single-tenant kernel's row b on bank row tenant_ids[b]."""
+    shape = (5, 2048, 32, 128, 1, 16, 65519, 2.0)
+    heads = [_cuda_case(cuda, shape, quant, seed=t) for t in range(3)]
+    hid, bw, r = heads[0][0], heads[0][6], heads[0][7]
+    bank = [torch.stack([h[i] for h in heads]) for i in range(1, 5)]
+    scale = None if quant is None else torch.stack([h[5] for h in heads])
+    tenant_ids = torch.tensor([2, 0, 2, 1, 0], dtype=torch.int32, device=cuda)
+    fused_decode_logits.launches = 0
+    got = fused_decode_logits(hid, *bank, bandwidth=bw, n_buckets=r,
+                              scale=scale, quant=quant, tenant_ids=tenant_ids)
+    torch.cuda.synchronize()
+    assert fused_decode_logits.launches == 3
+    for row, t in enumerate(tenant_ids.tolist()):
+        want = fused_decode_logits(hid, *heads[t][1:5], bandwidth=bw,
+                                   n_buckets=r, scale=heads[t][5],
+                                   quant=quant)
+        assert torch.equal(got[row], want[row])
 
 
 _RACE_SHAPES = [  # (m, n_rows, r, v): v classes, the (L, R, V) entry's V

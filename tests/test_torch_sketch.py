@@ -24,8 +24,10 @@ Tolerances (``repro_torch.parity``):
   transcendental functions), raised to the K-th power.
 * ``make_dataset`` and the theory formulas: equal.
 
-The ``cuda`` cases hold the ``race_query`` kernel against its plain version
-on the card and skip without one; they import no JAX (``python -m pytest
+``race_query_ordered_ref`` (the kernel's summation order in plain PyTorch)
+is held to the same tolerances here.  The ``cuda`` cases hold the
+``race_query`` kernel equal to it bit for bit, and within ``race_query_tol``
+of its plain version, on the card and skip without one; they import no JAX (``python -m pytest
 --noconftest -m cuda tests/test_torch_sketch.py``).
 """
 
@@ -41,7 +43,10 @@ from repro_torch.core.lsh import (AchlioptasL2LSH, L2LSH, LSHConfig, SRPLSH,
 from repro_torch.core.sketch import (RepresenterSketch, SketchConfig,
                                      mom_estimate)
 from repro_torch.data.tabular import DATASETS, make_dataset
-from repro_torch.kernels.race_query.ops import race_query, race_query_ref
+from repro_torch.kernels.race_query.ops import (race_query,
+                                                race_query_ordered_ref,
+                                                race_query_ref)
+from repro_torch.launch.paper_repro import FULL
 from repro_torch.parity import (U32, _gamma, check_hash_indices,
                                 race_query_tol, race_update_tol)
 
@@ -160,6 +165,8 @@ def test_race_query_even_median_is_midpoint(jx, means, g, want):
     idx = np.zeros((3, g), np.int32)
     got = race_query(_t(sketch), _t(idx), n_groups=g)
     assert torch.equal(got, torch.full((3, 1), want))
+    assert torch.equal(race_query_ordered_ref(_t(sketch), _t(idx), g),
+                       torch.full((3, 1), want))
     for backend in ("pallas", "ref"):
         j = jx["race_query"](jnp.asarray(sketch), jnp.asarray(idx),
                              n_groups=g, backend=backend)
@@ -177,6 +184,81 @@ def test_race_query_fewer_rows_than_groups_is_nan(jx):
     want = jx["race_query"](jnp.asarray(sketch), jnp.asarray(idx),
                             n_groups=8, backend="ref")
     assert bool(torch.isnan(got).all()) and bool(np.isnan(want).all())
+    assert bool(torch.isnan(race_query_ordered_ref(_t(sketch), _t(idx),
+                                                   8)).all())
+
+
+def _zero_bucket(sketch, idx):
+    """(sketch, idx) with an all-zero bucket R appended and every index
+    outside [0, R) sent to it: the plain version of a zero read."""
+    c, n_rows, r = sketch.shape
+    padded = torch.cat([sketch, torch.zeros((c, n_rows, 1))], dim=-1)
+    return padded, torch.where((idx >= 0) & (idx < r), idx, r)
+
+
+@pytest.mark.parametrize("b,c,l,r,g", _SHAPES)
+def test_race_query_ordered_matches_jax(jx, b, c, l, r, g):
+    """The kernel's order in plain PyTorch against JAX's race_query
+    (pallas in interpret mode, and ref) and against race_query_ref, within
+    race_query_tol; a bf16 sketch gives the bits of its f32 cast."""
+    jnp = jx["jnp"]
+    rng = np.random.default_rng(b * 37 + l)
+    sketch = rng.standard_normal((c, l, r)).astype(np.float32)
+    idx = rng.integers(0, r, (b, l)).astype(np.int32)
+    got = race_query_ordered_ref(_t(sketch), _t(idx), g)
+    assert got.dtype == torch.float32 and got.shape == (b, c)
+    for backend in ("pallas", "ref"):
+        want = jx["race_query"](jnp.asarray(sketch), jnp.asarray(idx),
+                                n_groups=g, block_b=16, backend=backend)
+        _assert_query_close(got, np.asarray(want), _t(sketch), _t(idx), g)
+    _assert_query_close(got, race_query_ref(_t(sketch), _t(idx), g).numpy(),
+                        _t(sketch), _t(idx), g)
+    bf = _t(sketch).to(torch.bfloat16)
+    assert torch.equal(race_query_ordered_ref(bf, _t(idx), g),
+                       race_query_ordered_ref(bf.float(), _t(idx), g))
+
+
+def _paper_query_shape(name):
+    """(C, L, R) of a dataset's query at the FULL budget (run_dataset's
+    sizing)."""
+    spec = DATASETS[name]
+    regression = spec.task == "regression"
+    return (1 if regression else 2, FULL["rows"] * (2 if regression else 1),
+            64 if regression else max(spec.rs_R // 10, 16))
+
+
+@pytest.mark.parametrize("name", sorted(DATASETS))
+def test_race_query_ordered_paper_shapes(name):
+    """Each dataset's FULL-budget query shape (g = 8, B cut to 48):
+    within race_query_tol of race_query_ref."""
+    c, l, r = _paper_query_shape(name)
+    rng = np.random.default_rng(len(name))
+    sketch = _t(rng.standard_normal((c, l, r)).astype(np.float32))
+    idx = _t(rng.integers(0, r, (48, l)).astype(np.int32))
+    got = race_query_ordered_ref(sketch, idx, 8)
+    _assert_query_close(got, race_query_ref(sketch, idx, 8).numpy(), sketch,
+                        idx, 8)
+
+
+@pytest.mark.parametrize("g", [1, 5, 8])
+def test_race_query_ordered_out_of_range_reads_zero(jx, g):
+    """L % g != 0 and indices outside [0, R): such an index reads a zero
+    count, as JAX's Pallas kernel's one-hot does (its ref backend fills
+    with NaN instead), and as race_query_ref does on a sketch with a zero
+    bucket in their place."""
+    jnp = jx["jnp"]
+    b, c, l, r = 21, 2, 83, 9
+    rng = np.random.default_rng(g)
+    sketch = rng.standard_normal((c, l, r)).astype(np.float32)
+    idx = rng.integers(-2, r + 2, (b, l)).astype(np.int32)
+    got = race_query_ordered_ref(_t(sketch), _t(idx), g)
+    padded, zidx = _zero_bucket(_t(sketch), _t(idx))
+    assert torch.equal(got, race_query_ordered_ref(padded, zidx, g))
+    _assert_query_close(got, race_query_ref(padded, zidx, g).numpy(), padded,
+                        zidx, g)
+    want = jx["race_query"](jnp.asarray(sketch), jnp.asarray(idx),
+                            n_groups=g, block_b=16, backend="pallas")
+    _assert_query_close(got, np.asarray(want), padded, zidx, g)
 
 
 @pytest.mark.parametrize("g", [1, 2, 5, 8])
@@ -446,15 +528,24 @@ def test_make_dataset_equals_jax_in_process(jx, name):
 
 # -- on the card ------------------------------------------------------------------
 
+def _same_bits(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,c,l,r,g", [(5000, 2, 2000, 50, 8),   # adult FULL
                                        (800, 1, 4000, 64, 8),    # abalone
+                                       (5000, 2, 2000, 100, 8),  # susy
                                        (777, 2, 2003, 30, 5),
                                        (64, 3, 40, 16, 1),
-                                       (33, 5, 100, 20, 64)])
+                                       (33, 5, 100, 20, 64),
+                                       (300, 2, 2000, 50, 1),    # slice > smem
+                                       (9, 1, 5, 16, 8),         # L < g: NaN
+                                       (40, 2, 30000, 16, 1)])   # general path
 def test_cuda_race_query_kernel(cuda, b, c, l, r, g):
-    """The kernel against its plain version on the card within
-    race_query_tol, two launches bit for bit equal, one launch each."""
+    """The kernel equal to race_query_ordered_ref bit for bit and within
+    race_query_tol of its plain version, two launches bit for bit equal,
+    one launch each."""
     gen = torch.Generator(cuda).manual_seed(b + l)
     sketch = torch.randn((c, l, r), generator=gen, device=cuda)
     idx = torch.randint(0, r, (b, l), generator=gen, device=cuda,
@@ -465,13 +556,30 @@ def test_cuda_race_query_kernel(cuda, b, c, l, r, g):
     want = race_query_ref(sketch, idx, g)
     torch.cuda.synchronize()
     assert race_query.launches == 2
-    assert torch.equal(got, again)
+    assert _same_bits(got, again)
+    assert _same_bits(got, race_query_ordered_ref(sketch, idx, g))
+    nan = want.isnan()
+    assert torch.equal(got.isnan(), nan)
     err = (got - want).abs().double()
-    assert bool((err <= race_query_tol(sketch, idx, g)).all())
+    assert bool((err <= race_query_tol(sketch, idx, g))[~nan].all())
     bf = race_query(sketch.to(torch.bfloat16), idx, n_groups=g)
     torch.cuda.synchronize()
-    assert torch.equal(bf, race_query(sketch.to(torch.bfloat16).float(), idx,
-                                      n_groups=g))
+    assert _same_bits(bf, race_query(sketch.to(torch.bfloat16).float(), idx,
+                                     n_groups=g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 5, 8])
+def test_cuda_race_query_out_of_range_reads_zero(cuda, g):
+    """Indices outside [0, R) read a zero count on the card too: the kernel
+    equals race_query_ordered_ref bit for bit."""
+    gen = torch.Generator(cuda).manual_seed(g)
+    sketch = torch.randn((2, 2003, 50), generator=gen, device=cuda)
+    idx = torch.randint(-3, 53, (1000, 2003), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    got = race_query(sketch, idx, n_groups=g)
+    torch.cuda.synchronize()
+    assert _same_bits(got, race_query_ordered_ref(sketch, idx, g))
 
 
 @pytest.mark.cuda
