@@ -1,7 +1,13 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port runs on an NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # every phase, the result line last
+    python3 chip_smoke.py --kernels        # the kernel and hash phases only
+    python3 chip_smoke.py --kernels --csrc OTHER/src/repro_torch/kernels/csrc
+
+``--csrc`` builds the kernels from another checkout's sources (the C
+interfaces are unchanged), so that one call times two versions of the
+kernels through the same wrappers and checks.
 
 1. Prints the card (nvidia-smi name and power limit), torch and CUDA
    versions, and builds the CUDA kernels from ``src/repro_torch/kernels/
@@ -11,14 +17,21 @@
    V=65519), for the head ``launch/serve.py`` freezes for rwkv6 (L=128,
    R=16, K=1, d'=32, r=2) and ``SketchHeadConfig()`` (L=64, R=16, K=2,
    d'=64, r=4), B in {1, 2, 4, 64, 256} (2 is the per-tenant engine's
-   batch, 256 the refresh's), f32/int8/int4 counts.  Indices obey the
+   batch, 256 the refresh's), f32/int8/int4 counts, and the serve head at
+   gemma2-27b's width (d 4608, V 256000; f32, int8).  Indices obey the
    boundary rule and logits the gather bound of
-   ``repro_torch.parity``; fused_decode's logits equal sketch_head's
-   kernel at fused_decode's own indices bit for bit; one ``kernel_case``
-   JSON line each, with CUDA-event times (median of 20 runs after warm-up,
-   L2 flushed before each run; fused_decode's ``gather_ms`` is
-   sketch_head's time at its indices, the gather without the transform).  Then race_update against its plain versions for M in {32,
-   256, 1024}, both heads' L, both V, through both entries ((L, R, V) and
+   ``repro_torch.parity``; sketch_head's logits equal
+   ``sketch_head_ordered_ref`` bit for bit, and fused_decode's equal
+   sketch_head's kernel at fused_decode's own indices bit for bit; one
+   ``kernel_case`` JSON line each, with CUDA-event times (median of 20 runs
+   after warm-up, L2 flushed before each run; fused_decode's ``gather_ms``
+   is sketch_head's time at its indices, the gather without the transform;
+   f32 gathers beside ``F.embedding_bag(mode="mean")`` as ``library_ms``).
+   Then lsh_hash at each dataset's FULL query and freeze shape and at the
+   refresh's B=256 (``hash_phase``), beside its plain version, its bound
+   and the f32 projection alone.  Then race_update against its plain
+   versions for M in {32, 256, 1024}, both heads' L, both V, through both
+   entries ((L, R, V) and
    (C, L, R)), and a (C, L, R) sketch with C=50021, L=100, M=77: equal to
    ``race_update_ordered_ref`` bit for bit, within ``race_update_tol`` of
    the einsum version, two launches bit for bit equal, timed beside the
@@ -116,6 +129,7 @@ Any failed check raises, so the exit code is non-zero and the last line
 is not printed.  Without a CUDA device it exits non-zero at once.
 """
 
+import argparse
 import contextlib
 import gc
 import io
@@ -152,6 +166,7 @@ from repro_torch.parity import (BF16_MAX_TOL, BF16_NORM_TOL, assert_bf16_backbon
                                 race_query_tol, race_update_tol)
 from repro_torch.kernels.sketch_head.ops import (dequantize_sketch_ref,
                                                  sketch_head_logits,
+                                                 sketch_head_ordered_ref,
                                                  sketch_head_ref)
 from repro_torch.data.tabular import DATASETS
 from repro_torch.launch import paper_repro, serve
@@ -261,13 +276,21 @@ def kernel_work(name, hidden, head, idx, quant):
         return (4 * b * d + 4 * d * dp + small + scale + sketch + 4 * b * v,
                 2 * b * d * dp + hash_ops + gather_ops)
     if name == "lsh_hash":
-        return 4 * b * dp + small + 4 * b * n_rows, hash_ops
+        return hash_work(b, n_rows, k, dp)
     return 4 * b * n_rows + scale + sketch + 4 * b * v, gather_ops
 
 
-def random_head(gen, cfg, v, quant):
+def hash_work(b, n_rows, k, dp):
+    """(bytes, operations) of lsh_hash on (B, d') queries and an (L, K, d')
+    bank: x, w and b read once, the (B, L) int32 indices written once; the
+    B·L·K·d' multiply-adds count 2."""
+    return (4 * (b * dp + n_rows * k * dp + n_rows * k + b * n_rows),
+            2 * b * n_rows * k * dp)
+
+
+def random_head(gen, cfg, v, quant, d=D_MODEL):
     dev = gen.device
-    head = {"proj": torch.randn((D_MODEL, cfg.proj_dim), generator=gen, device=dev) / D_MODEL ** 0.5,
+    head = {"proj": torch.randn((d, cfg.proj_dim), generator=gen, device=dev) / d ** 0.5,
             "w": torch.randn((cfg.n_rows, cfg.k, cfg.proj_dim), generator=gen, device=dev),
             "b": torch.rand((cfg.n_rows, cfg.k), generator=gen, device=dev) * cfg.bandwidth,
             "array": torch.randn((cfg.n_rows, cfg.n_buckets, v), generator=gen, device=dev)}
@@ -307,7 +330,7 @@ def check_fused(cfg, head, hidden, quant):
     return dict(got=got, max_abs_err=err, idx_mismatches=mism, atol=atol, idx=ref_idx, kidx=idx)
 
 
-def check_and_time(timer, cfg, head, hidden, quant, library: bool):
+def check_and_time(timer, cfg, head, hidden, quant):
     """Every kernel against its plain version on (hidden, head); returns
     {name: record}."""
     store, scale = head["array"], head.get("scale")
@@ -343,11 +366,13 @@ def check_and_time(timer, cfg, head, hidden, quant, library: bool):
     got = sketch_head_logits(store, want_idx, scale=scale, quant=quant)
     want = sketch_head_ref(store, want_idx, scale, quant)
     torch.cuda.synchronize()
+    if not torch.equal(got, sketch_head_ordered_ref(store, want_idx, scale, quant)):
+        raise AssertionError("sketch_head logits are not sketch_head_ordered_ref's bit for bit")
     err = float((got - want).abs().max())
     if not err <= atol:
         raise AssertionError(f"sketch_head logits off by {err} > {atol}")
     lib = None
-    if library and quant is None:
+    if quant is None:
         # One PyTorch call computing the same mean of gathered rows (the
         # index offsets l·R are set up outside the timing).
         flat = (want_idx.long() + torch.arange(cfg.n_rows, device=q.device) * cfg.n_buckets)
@@ -369,16 +394,64 @@ def check_and_time(timer, cfg, head, hidden, quant, library: bool):
 
 def kernel_phase(dev, timer):
     gen = torch.Generator(dev).manual_seed(1)
-    cases = [(cfg, b, VOCAB, quant) for cfg in (SERVE_HEAD, DEFAULT_HEAD)
+    cases = [(cfg, b, D_MODEL, VOCAB, quant) for cfg in (SERVE_HEAD, DEFAULT_HEAD)
              for b in (1, 2, 4, 64, 256) for quant in (None, "int8", "int4")]
-    cases += [(SERVE_HEAD, 4, VOCAB - 17, quant) for quant in (None, "int8", "int4")]
-    for cfg, b, v, quant in cases:
-        head = random_head(gen, cfg, v, quant)
-        hidden = torch.randn((b, D_MODEL), generator=gen, device=dev)
-        for name, rec in check_and_time(timer, cfg, head, hidden, quant, False).items():
+    cases += [(SERVE_HEAD, 4, D_MODEL, VOCAB - 17, quant) for quant in (None, "int8", "int4")]
+    # gemma2-27b's width (d 4608, V 256000) on random inputs.
+    cases += [(SERVE_HEAD, 4, 4608, 256000, quant) for quant in (None, "int8")]
+    for cfg, b, d, v, quant in cases:
+        head = random_head(gen, cfg, v, quant, d)
+        hidden = torch.randn((b, d), generator=gen, device=dev)
+        for name, rec in check_and_time(timer, cfg, head, hidden, quant).items():
             print("kernel_case " + json.dumps(dict(
                 kernel=name, L=cfg.n_rows, R=cfg.n_buckets, K=cfg.k, d_proj=cfg.proj_dim,
-                r=cfg.bandwidth, B=b, V=v, quant=quant or "f32", **rec)), flush=True)
+                r=cfg.bandwidth, B=b, d=d, V=v, quant=quant or "f32", **rec)), flush=True)
+        del head
+    free_card()
+
+
+def hash_cases():
+    """(label, B, L, K, d', R) of lsh_hash's launches off the serving step:
+    each dataset's FULL-budget query and its freeze of the M anchors
+    (run_dataset's sizing: d' = min(max(features // 2, 4), 32), r = 2), and
+    the refresh of M = 256 live hiddens at the serve head."""
+    out = []
+    for name, spec in DATASETS.items():
+        b, _, n_rows, nb = paper_shape(name)
+        dp = min(max(spec.n_features // 2, 4), 32)
+        out.append((f"paper {name} query", b, n_rows, spec.rs_K, dp, nb))
+        out.append((f"paper {name} freeze", paper_repro.FULL["n_points"], n_rows, spec.rs_K,
+                    dp, nb))
+    out.append(("refresh", REFRESH_PROMPTS * PROMPT, SERVE_HEAD.n_rows, SERVE_HEAD.k,
+                SERVE_HEAD.proj_dim, SERVE_HEAD.n_buckets))
+    return out
+
+
+def hash_phase(dev, timer):
+    """lsh_hash at the paper's and the refresh's shapes (hash_cases) on
+    seeded random inputs, r = 2: indices under the boundary rule against
+    the plain version, timed beside it, its bound, and the projection
+    alone (``x @ w.reshape(L·K, d').T`` in f32, not the function: what the
+    card's f32 product takes for the kernel's multiply-adds)."""
+    gen = torch.Generator(dev).manual_seed(4)
+    for label, b, n_rows, k, dp, nb in hash_cases():
+        x = torch.randn((b, dp), generator=gen, device=dev)
+        w = torch.randn((n_rows, k, dp), generator=gen, device=dev)
+        bias = torch.rand((n_rows, k), generator=gen, device=dev) * 2.0
+        got = lsh_hash(x, w, bias, bandwidth=2.0, n_buckets=nb)
+        want = lsh_hash_ref(x, w, bias, 2.0, nb)
+        torch.cuda.synchronize()
+        mism = check_hash_indices(got, want, x, w, bias, 2.0)
+        wt = w.reshape(n_rows * k, dp).t()
+        rec = dict(ms=timer.ms(lambda: lsh_hash(x, w, bias, bandwidth=2.0, n_buckets=nb)),
+                   plain_ms=timer.ms(lambda: lsh_hash_ref(x, w, bias, 2.0, nb)),
+                   projection_alone_ms=timer.ms(lambda: x @ wt),
+                   max_abs_err=float((got - want).abs().max()), idx_mismatches=mism,
+                   library_ms=None)
+        rec["bytes"], rec["ops"] = hash_work(b, n_rows, k, dp)
+        rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], rec["ops"])
+        print("kernel_case " + json.dumps(dict(kernel="lsh_hash", entry=label, B=b, L=n_rows,
+                                               K=k, d_proj=dp, R=nb, r=2.0, **rec)), flush=True)
 
 
 def backbone_phase(dev):
@@ -469,7 +542,7 @@ def main_path(dev, timer):
     print(f"teacher-forced decode step: fused vs two_kernel {mism} index mismatches "
           f"(all at floor boundaries), logits within {atol:.3g} on {int(same.sum())}/{BATCH} rows")
 
-    recs = check_and_time(timer, SERVE_HEAD, frozen, hidden, None, True)
+    recs = check_and_time(timer, SERVE_HEAD, frozen, hidden, None)
     return runs, recs, lm, frozen, kparams
 
 
@@ -1372,7 +1445,7 @@ def gemma_main_path(dev, timer):
     del cache
     if hidden.shape != (BATCH, cfg.d_model) or not bool(hidden.isfinite().all()):
         raise AssertionError(f"{cfg.name} decode hidden not finite or mis-shaped")
-    for name, rec in check_and_time(timer, SERVE_HEAD, frozen, hidden, None, True).items():
+    for name, rec in check_and_time(timer, SERVE_HEAD, frozen, hidden, None).items():
         print("kernel_case " + json.dumps(dict(
             kernel=name, arch=cfg.name, entry="teacher-forced decode hidden",
             L=SERVE_HEAD.n_rows, R=SERVE_HEAD.n_buckets, K=SERVE_HEAD.k,
@@ -1507,8 +1580,18 @@ def leaves(tree):
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels", action="store_true",
+                    help="build the kernels and run the kernel and hash phases only "
+                         "(kernel_case lines, no result line)")
+    ap.add_argument("--csrc", type=Path, default=None,
+                    help="build the kernels from this csrc directory (another "
+                         "checkout's, to time its kernels through these wrappers)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is false)")
+    if args.csrc is not None:
+        _build.CSRC = args.csrc.resolve()
     if os.environ.get("PYTHONHASHSEED") != "0":
         # The tabular datasets are seeded with hash(name): pin it.
         os.execve(sys.executable, [sys.executable, *sys.argv],
@@ -1528,7 +1611,8 @@ def main() -> None:
     t0 = time.perf_counter()
     logs = _build.build_all()
     seconds = time.perf_counter() - t0
-    print(f"kernel build: {seconds:.2f} s for {', '.join(_build.sources())}")
+    print(f"kernel build: {seconds:.2f} s for {', '.join(_build.sources())}"
+          + (f" (from {args.csrc})" if args.csrc is not None else ""))
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -1544,6 +1628,11 @@ def main() -> None:
         return out
 
     timed("kernels", kernel_phase, dev, timer)
+    timed("lsh_hash", hash_phase, dev, timer)
+    if args.kernels:
+        print(f"phase seconds: {phase_seconds}")
+        print(card_line())
+        return
     timed("race_update", race_phase, dev, timer)
     flash = timed("flash_attn", flash_phase, dev, timer)
     timed("backbone", backbone_phase, dev)

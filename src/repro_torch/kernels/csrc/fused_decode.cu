@@ -27,27 +27,15 @@
 //      blocks, and writes them into every block of the cluster through
 //      distributed shared memory; after a cluster barrier each block adds
 //      the eight.  q, and with it every index, has the same bits in every
-//      block, launch and cluster size.  The hash is lsh::hash_rows'
+//      block, launch and cluster size.  The hash is lsh_hash.cu's
 //      arithmetic on a transposed shared-memory copy of the bank.
-//   2. For each step of G sketch rows the block lists the distinct (storage
-//      row, bucket) pairs its batch rows hit (for int4 the storage row is
-//      l >> 1; __match_any_sync over a step's (l, row) items): batch rows
-//      that share a bucket read its segment once.
-//   3. A ring of n_stages shared-memory stages of ~36 KB, one step each.
-//      The producer warp copies a step's segments of the current V tile
-//      with cp.async.bulk (1-D TMA: one request a segment, since a request
-//      has a fixed issue cost whatever its size), completing on the stage's
-//      full mbarrier, and refills a stage when its empty mbarrier says the
-//      consumer warps have read it.  Int8 and int4 counts are decoded from
-//      shared memory a word at a time.
-// Each output column sums its L terms in increasing l in f32 (acc += t, or
-// acc += __fmul_rn(scale, t) for int8/int4), then acc * (1/L): the order
-// and the operations of lsh::gather_tile, so the logits equal
-// sketch_head.cu's at the same indices bit for bit.  A tile's logits are
-// written after its last count read, and no block splits a sum with
-// another: no atomics, and two launches give the same bits.
-#include "bulk_copy.cuh"
-#include "lsh_common.cuh"
+//   2-3. The gather of gather_ring.cuh: per step of G sketch rows the
+//      distinct (storage row, bucket) pairs the block's batch rows hit, and
+//      a ring of shared-memory stages that a producer warp fills by
+//      cp.async.bulk, read by the 16 consumer warps.  sketch_head.cu runs
+//      the same code on indices from device memory, so the logits equal
+//      sketch_head's at the same indices bit for bit.
+#include "gather_ring.cuh"
 
 #include <cooperative_groups.h>
 
@@ -55,41 +43,19 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr int kConsumers = 16;                          // warps that sum
-constexpr int kThreads = (kConsumers + 1) * 32;         // + the producer warp
+using ring::kBarBytes;
+using ring::kMaxStages;
+using ring::kMinRange;
+using ring::kStageCap;
+using ring::kThreads;
 constexpr int kChunk = 256;                             // rows of d a chunk
 constexpr int kParts = 8;                               // partials of q
 constexpr int kRowsPerPart = kChunk / kParts;           // 32
-constexpr int kMaxStages = 6;
-constexpr int kStageCap = 36 * 1024;                    // bytes a stage at most
-constexpr int kBarBytes = 128;                          // 2 x kMaxStages + 1 mbarriers
-constexpr int kSplitAlign = 16;                         // V ranges start at multiples
-constexpr int kMinRange = 256;                          // fewest columns a range
-constexpr unsigned kFull = 0xFFFFFFFFu;
 
-// A consumer thread sums kWords 32-bit words of each count-row segment (one
-// f32 column or four int8 / int4 columns a word), so that its kWords x (1
-// or 4) x BT sums stay within 16 registers; a segment is at most kCols
-// columns (4 KB, or 2 KB for int8 / int4 at BT >= 4).
-template <int QUANT, int BT>
-struct Tiles {
-  static constexpr bool kF32 = QUANT == lsh::kF32;
-  static constexpr int kWords = kF32 || BT <= 2 ? 2 : 1;
-  static constexpr int kPerWord = kF32 ? 1 : 4;
-  static constexpr int kElt = kF32 ? 4 : 1;                       // bytes a count
-  static constexpr int kCols = kWords * 4 * kConsumers * 32 / kElt;
-  // Sketch rows a thread reads ahead in a step (a step has G = slots / BT
-  // of them: one for f32 at BT = 8, two for int8 / int4).
-  static constexpr int kU = BT < 8 ? 4 : kF32 ? 1 : 2;
-};
-
-// Host-side geometry of a launch.
+// Host-side geometry of a launch: the gather's, and the transform's.
 struct Plan {
-  int n_split, cs, n_stages;
-  int tile_cols;     // columns of a V tile (a multiple of 16, <= kCols)
-  int slot_bytes;    // a segment's slot: tile_cols counts + the 16-byte widening
-  int n_slots;       // segments a stage: 8, 16 or 32
-  int G;             // sketch rows a step: n_slots / BT
+  ring::Geometry g;
+  int cs;            // blocks a cluster (along V)
   int region;        // bytes of the ring (the prologue's scratch aliases it)
   int rchunks;       // chunks of d staged a round of the transform
   int bank_stride;   // words between the transposed bank's rows (odd)
@@ -99,34 +65,9 @@ struct Plan {
 __host__ __device__ __forceinline__ int round4(int x) { return (x + 3) & ~3; }
 
 // Per-block tables after the ring, in words: parts_s (kParts, BT, dp); q_s
-// (BT, dp); idx_s, scale_s (BT, L); sel_s (L, BT); key_s (n_groups,
-// n_slots), at most BT * L + 32 words; nseg_s (n_groups <= L).
+// (BT, dp); then the gather's (ring::table_words).
 __host__ __device__ __forceinline__ int table_words(int BT, int L, int dp) {
-  return 4 * BT * L + 32 + L + (kParts + 1) * BT * dp;
-}
-
-// Start of V range s of n (multiples of kSplitAlign; range n ends at V).
-__host__ __device__ __forceinline__ int64_t split_start(int64_t V, int s, int n) {
-  return s >= n ? V : V * s / n / kSplitAlign * kSplitAlign;
-}
-
-// Bytes [off, off + 4) of shared memory as a word (off need not be aligned).
-__device__ __forceinline__ uint32_t load_word(const unsigned char* base, int off) {
-  const uint32_t* p = reinterpret_cast<const uint32_t*>(base + (off & ~3));
-  return __funnelshift_r(p[0], p[1], (off & 3) * 8);
-}
-
-// Count c (0..3) of a word of four count bytes, as read_count reads it:
-// the signed byte, or the sign-extended low or high nibble (int4 row 2i or
-// 2i + 1).
-template <int QUANT>
-__device__ __forceinline__ float word_count(uint32_t w, int c, bool high) {
-  if constexpr (QUANT == lsh::kInt8) {
-    return static_cast<float>(static_cast<int>(w << (24 - 8 * c)) >> 24);
-  } else {
-    return static_cast<float>(high ? static_cast<int>(w << (24 - 8 * c)) >> 28
-                                   : static_cast<int>(w << (28 - 8 * c)) >> 28);
-  }
+  return ring::table_words(BT, L) + (kParts + 1) * BT * dp;
 }
 
 __device__ __forceinline__ void cluster_arrive() {
@@ -144,22 +85,17 @@ fused_decode_kernel(const float* __restrict__ h, const float* __restrict__ A,
                     const float* __restrict__ scale, float* __restrict__ out,
                     int* __restrict__ idx_out, int B, int d, int dp, int L,
                     int K, int R, int64_t V, float r, float inv_l, Plan pl) {
-  using T = Tiles<QUANT, BT>;
-  const int G = pl.G;
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);   // stage landed
   uint64_t* empty = full + kMaxStages;                  // stage read by all consumers
   uint64_t* pro_bar = empty + kMaxStages;               // the transform's copies
-  unsigned char* ring = smem + kBarBytes;
-  const int n_groups = (L + G - 1) / G;
-  float* parts_s = reinterpret_cast<float*>(ring + pl.region);  // 16-byte aligned
+  unsigned char* ring_s = smem + kBarBytes;
+  float* parts_s = reinterpret_cast<float*>(ring_s + pl.region);  // 16-byte aligned
   float* q_s = parts_s + kParts * BT * dp;
-  int* idx_s = reinterpret_cast<int*>(q_s + BT * dp);
-  float* scale_s = reinterpret_cast<float*>(idx_s + BT * L);
-  int* sel_s = reinterpret_cast<int*>(scale_s + BT * L);
-  int* key_s = sel_s + BT * L;
-  int* nseg_s = key_s + n_groups * pl.n_slots;
+  const ring::Tables tab =
+      ring::carve(reinterpret_cast<int*>(q_s + BT * dp), BT, L, pl.g.n_slots, pl.g.G);
+  int* idx_s = tab.idx_s;
   const int64_t b0 = static_cast<int64_t>(blockIdx.x) * BT;
   const int nb = min(BT, static_cast<int>(B - b0));
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -167,10 +103,7 @@ fused_decode_kernel(const float* __restrict__ h, const float* __restrict__ A,
   const int n_own = kParts / cs, part0 = rank * n_own;  // this block's partials
 
   if (tid == 0) {
-    for (int s = 0; s < pl.n_stages; ++s) {
-      bulk::mbar_init(&full[s], 1);
-      bulk::mbar_init(&empty[s], kConsumers);
-    }
+    ring::init_barriers(full, empty, pl.g.n_stages);
     bulk::mbar_init(pro_bar, 1);
     bulk::mbar_fence_init();
   }
@@ -186,7 +119,7 @@ fused_decode_kernel(const float* __restrict__ h, const float* __restrict__ A,
   // its size); h's 128-byte rows and unaligned pieces by cp.async; rows
   // past d or the batch are zero.
   const int LK = L * K;
-  float* wt_s = reinterpret_cast<float*>(ring);
+  float* wt_s = reinterpret_cast<float*>(ring_s);
   float* bias_s = wt_s + round4(dp * pl.bank_stride);
   float* wc_s = bias_s + round4(LK);
   float* a_s = wc_s + round4(LK * dp);
@@ -301,10 +234,10 @@ fused_decode_kernel(const float* __restrict__ h, const float* __restrict__ A,
     q_s[o] = s;
   }
   __syncthreads();
-  // The hash: lsh::hash_rows' arithmetic item for item (the dot in order
-  // j = 0..dp-1, subhash_code, mix_step, the fold mod R), reading the bank
-  // transposed, so that the threads of neighbouring rows l read neighbouring
-  // words (hash_rows' own layout puts them dp words apart: one bank).
+  // The hash: lsh_hash.cu's arithmetic item for item (the fmaf chain in
+  // order j = 0..dp-1 from +0, subhash_code, mix_step, the fold mod R),
+  // reading the bank transposed, so that the threads of neighbouring rows l
+  // read neighbouring words.
   for (int item = tid; item < nb * L; item += kThreads) {
     const int bb = item / L, l = item % L;
     const float* q = q_s + bb * dp;
@@ -323,139 +256,15 @@ fused_decode_kernel(const float* __restrict__ h, const float* __restrict__ A,
     // Rows past the batch repeat its last row (their sums are dropped).
     const int idx = idx_s[(bb < nb ? bb : nb - 1) * L + l];
     if (bb >= nb) idx_s[i] = idx;
-    if constexpr (QUANT != lsh::kF32) scale_s[i] = scale[l * R + idx];
+    if constexpr (QUANT != lsh::kF32) tab.scale_s[i] = scale[l * R + idx];
     if (idx_out != nullptr && blockIdx.y == 0 && bb < nb) idx_out[b0 * L + i] = idx;
   }
   __syncthreads();
 
-  // 2. Items (l, bb), numbered l * BT + bb; step g holds items [g * kSlots,
-  // (g + 1) * kSlots), keyed by (storage row, bucket).  A key's first item
-  // leads, and the leaders take the step's slots in item order.  sel: the
-  // stage byte of an item's count at a tile's first column (tile starts are
-  // multiples of 16 bytes from the row start, so the offset within the
-  // widened copy is the row start's, mod 16).
-  const uintptr_t base = reinterpret_cast<uintptr_t>(sketch);
-  if (warp < kConsumers) {
-    for (int first = warp * 32; first < n_groups * pl.n_slots; first += kConsumers * 32) {
-      const int item = first + lane, l = item / BT;
-      const bool valid = item < BT * L;
-      const int key = valid ? (QUANT == lsh::kInt4 ? l >> 1 : l) * R + idx_s[(item % BT) * L + l]
-                            : -1 - lane;
-      const unsigned step_lanes =
-          pl.n_slots == 32 ? kFull : ((1u << pl.n_slots) - 1) << (lane & ~(pl.n_slots - 1));
-      const unsigned same = __match_any_sync(kFull, key) & step_lanes;
-      const int leader = __ffs(same) - 1;
-      const unsigned leaders = __ballot_sync(kFull, valid && leader == lane) & step_lanes;
-      const int slot = __popc(leaders & ((1u << leader) - 1));
-      if (valid) {
-        sel_s[item] = slot * pl.slot_bytes +
-                      static_cast<int>((base + static_cast<uint64_t>(key) * V * T::kElt) & 15);
-        if (leader == lane) key_s[item / pl.n_slots * pl.n_slots + slot] = key;
-      }
-      if ((lane & (pl.n_slots - 1)) == 0 && item / pl.n_slots < n_groups)
-        nseg_s[item / pl.n_slots] = __popc(leaders);
-    }
-  }
-  bulk::fence_proxy_async();    // the scratch's generic accesses before TMA's writes
-  __syncthreads();
-
-  // 3. The ring.  Step k = (tile k / n_groups, group k % n_groups).
-  const int64_t vb = split_start(V, blockIdx.y, pl.n_split);
-  const int64_t ve = split_start(V, blockIdx.y + 1, pl.n_split);
-  const int n_tiles = ve > vb ? static_cast<int>((ve - vb + pl.tile_cols - 1) / pl.tile_cols) : 0;
-  const int n_steps = n_tiles * n_groups;
-  const int stage_bytes = pl.n_slots * pl.slot_bytes;
-  if (warp == kConsumers) {        // the producer
-    for (int k = 0, s = 0, grp = 0, tile = 0; k < n_steps; ++k) {
-      if (k >= pl.n_stages) bulk::mbar_wait(&empty[s], (k / pl.n_stages - 1) & 1);
-      const int64_t v0 = vb + static_cast<int64_t>(tile) * pl.tile_cols;
-      const int64_t cols = ve - v0 < pl.tile_cols ? ve - v0 : pl.tile_cols;
-      const int nseg = nseg_s[grp];
-      bulk::Span span{nullptr, 0};
-      if (lane < nseg)
-        span = bulk::bulk_span(static_cast<const unsigned char*>(sketch) +
-                                   (static_cast<int64_t>(key_s[grp * pl.n_slots + lane]) * V + v0) *
-                                       T::kElt,
-                               static_cast<uint32_t>(cols * T::kElt));
-      const uint32_t total = __reduce_add_sync(kFull, span.bytes);
-      if (lane == 0) bulk::mbar_arrive_expect_tx(&full[s], total);
-      __syncwarp();
-      if (lane < nseg)
-        bulk::load(ring + s * stage_bytes + lane * pl.slot_bytes, span, &full[s]);
-      if (++s == pl.n_stages) s = 0;
-      if (++grp == n_groups) grp = 0, ++tile;
-    }
-    return;
-  }
-
-  float acc[T::kWords][T::kPerWord][BT];
-#pragma unroll
-  for (int v = 0; v < T::kWords; ++v)
-#pragma unroll
-    for (int c = 0; c < T::kPerWord; ++c)
-#pragma unroll
-      for (int bb = 0; bb < BT; ++bb) acc[v][c][bb] = 0.f;
-  // Word v of this thread: bytes [4 * wi, 4 * wi + 4) of a segment, wi =
-  // tid + kConsumers * 32 * v; words past the tile's bytes are skipped.
-  for (int k = 0, s = 0, grp = 0, tile = 0; k < n_steps; ++k) {
-    bulk::mbar_wait(&full[s], (k / pl.n_stages) & 1);
-    const unsigned char* stage = ring + s * stage_bytes;
-    const int64_t v0 = vb + static_cast<int64_t>(tile) * pl.tile_cols;
-    const int tile_bytes =
-        static_cast<int>((ve - v0 < pl.tile_cols ? ve - v0 : pl.tile_cols) * T::kElt);
-    // kU sketch rows at a time, branch-free so that their loads issue
-    // together: rows past the step's (L % G) read row L - 1 and add +0,
-    // which leaves a sum unchanged (a sum of counts from +0 is never -0).
-    const int n_u = min(G, L - grp * G);
-    for (int u0 = 0; u0 < n_u; u0 += T::kU) {
-      int sel[T::kU][BT];
-      float sc[T::kU][BT];
-#pragma unroll
-      for (int uu = 0; uu < T::kU; ++uu) {
-        const int l = min(grp * G + u0 + uu, L - 1);
-#pragma unroll
-        for (int bb = 0; bb < BT; ++bb) {
-          sel[uu][bb] = sel_s[l * BT + bb];
-          sc[uu][bb] = u0 + uu < n_u ? (T::kF32 ? 1.f : scale_s[bb * L + l]) : 0.f;
-        }
-      }
-#pragma unroll
-      for (int uu = 0; uu < T::kU; ++uu)
-#pragma unroll
-        for (int bb = 0; bb < BT; ++bb)
-#pragma unroll
-          for (int v = 0; v < T::kWords; ++v) {
-            const int wi = tid + kConsumers * 32 * v;
-            if (4 * wi >= tile_bytes) continue;
-            if constexpr (T::kF32) {
-              const float x = *reinterpret_cast<const float*>(stage + sel[uu][bb] + 4 * wi);
-              acc[v][0][bb] += sc[uu][bb] != 0.f ? x : 0.f;
-            } else {
-              const uint32_t word = load_word(stage, sel[uu][bb] + 4 * wi);
-#pragma unroll
-              for (int c = 0; c < 4; ++c)
-                acc[v][c][bb] += __fmul_rn(sc[uu][bb], word_count<QUANT>(word, c, (u0 + uu) & 1));
-            }
-          }
-    }
-    __syncwarp();
-    if (lane == 0) bulk::mbar_arrive(&empty[s]);
-    if (grp == n_groups - 1) {     // the tile's last rows: write its logits
-#pragma unroll
-      for (int v = 0; v < T::kWords; ++v)
-#pragma unroll
-        for (int c = 0; c < T::kPerWord; ++c) {
-          const int64_t col = v0 + (tid + kConsumers * 32 * v) * T::kPerWord + c;
-#pragma unroll
-          for (int bb = 0; bb < BT; ++bb) {
-            if (bb < nb && col < ve) out[(b0 + bb) * V + col] = acc[v][c][bb] * inv_l;
-            acc[v][c][bb] = 0.f;
-          }
-        }
-    }
-    if (++s == pl.n_stages) s = 0;
-    if (++grp == n_groups) grp = 0, ++tile;
-  }
+  // 2-3. The lists and the ring.
+  ring::list_segments<QUANT, BT>(sketch, L, R, V, pl.g, tab);
+  ring::run<QUANT, BT>(sketch, L, V, pl.g, full, empty, ring_s, tab, nb, 0u, inv_l, out, b0,
+                       blockIdx.y);
 }
 
 // The shape a plan was made for.
@@ -470,7 +279,6 @@ struct Shape {
 
 template <int QUANT, int BT>
 cudaError_t make_plan(const Shape& sh, Plan* out) {
-  using T = Tiles<QUANT, BT>;
   const int B = sh.B, d = sh.d, dp = sh.dp, L = sh.L, K = sh.K;
   const int64_t V = sh.V;
   int max_smem = 0;
@@ -480,8 +288,8 @@ cudaError_t make_plan(const Shape& sh, Plan* out) {
   Plan pl;
   const int64_t fixed = kBarBytes + 4 * static_cast<int64_t>(table_words(BT, L, dp));
   const int64_t stages = (max_smem - fixed) / kStageCap;
-  pl.n_stages = static_cast<int>(stages < kMaxStages ? stages : kMaxStages);
-  pl.region = pl.n_stages * kStageCap;
+  pl.g.n_stages = static_cast<int>(stages < kMaxStages ? stages : kMaxStages);
+  pl.region = pl.g.n_stages * kStageCap;
   // The transform's round: as many chunks of d as the ring holds beside the
   // bank, for the most partials a block computes (all eight).
   pl.bank_stride = L * K | 1;
@@ -492,7 +300,7 @@ cudaError_t make_plan(const Shape& sh, Plan* out) {
   if (rchunks > n_chunks) rchunks = n_chunks;
   pl.rchunks = static_cast<int>(rchunks);
   pl.smem = static_cast<int>(fixed + pl.region);
-  if (pl.n_stages < 2 || rchunks < 1 || fixed + pl.region > max_smem)
+  if (pl.g.n_stages < 2 || rchunks < 1 || fixed + pl.region > max_smem)
     return cudaErrorInvalidValue;
   err = cudaFuncSetAttribute(fused_decode_kernel<QUANT, BT>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
@@ -502,7 +310,7 @@ cudaError_t make_plan(const Shape& sh, Plan* out) {
   const int row_tiles = (B + BT - 1) / BT;
   const int64_t most = V / kMinRange > 1 ? V / kMinRange : 1;
   pl.cs = 1;
-  pl.n_split = 1;
+  pl.g.n_split = 1;
   int64_t best = 0;
   for (int cs = kParts; cs >= 1; cs /= 2) {
     if (cs > most) continue;
@@ -525,21 +333,11 @@ cudaError_t make_plan(const Shape& sh, Plan* out) {
     if (cs * per * row_tiles > best) {
       best = cs * per * row_tiles;
       pl.cs = cs;
-      pl.n_split = static_cast<int>(cs * per);
+      pl.g.n_split = static_cast<int>(cs * per);
     }
   }
-  // Tiles: the widest range split into equal tiles of at most kCols; a
-  // stage of the most slots (a power of two up to 32) that fit kStageCap,
-  // keeping a step's sketch rows even for int4's row pairs.
-  const int64_t range = (V + pl.n_split - 1) / pl.n_split + kSplitAlign;
-  const int64_t per_range = (range + T::kCols - 1) / T::kCols;
-  pl.tile_cols = static_cast<int>(((range + per_range - 1) / per_range + 15) / 16 * 16);
-  pl.slot_bytes = pl.tile_cols * T::kElt + 32;
-  const int min_slots = QUANT == lsh::kInt4 ? 2 * BT : BT;
-  pl.n_slots = 32;
-  while (pl.n_slots > min_slots && pl.n_slots * pl.slot_bytes > kStageCap) pl.n_slots /= 2;
-  pl.G = pl.n_slots / BT;
-  if (pl.n_slots * pl.slot_bytes > kStageCap) return cudaErrorInvalidValue;
+  err = ring::plan_tiles<QUANT, BT>(V, &pl.g);
+  if (err != cudaSuccess) return err;
   *out = pl;
   return cudaSuccess;
 }
@@ -568,7 +366,7 @@ int launch(const float* h, const float* A, const float* w, const float* bias,
   attr.val.clusterDim.y = pl.cs;
   attr.val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((B + BT - 1) / BT, pl.n_split);
+  cfg.gridDim = dim3((B + BT - 1) / BT, pl.g.n_split);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = pl.smem;
   cfg.stream = stream;

@@ -51,7 +51,7 @@ def lsh_hash(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
     check_operand("w", w, x.device, torch.float32, (n_rows, k, dp))
     check_operand("b", b, x.device, torch.float32, (n_rows, k))
     out = torch.empty((n_batch, n_rows), dtype=torch.int32, device=x.device)
-    if n_batch == 0:
+    if n_batch == 0 or n_rows == 0:
         return out
     with torch.cuda.device(x.device):
         rc = _launcher()(x.data_ptr(), w.data_ptr(), b.data_ptr(),

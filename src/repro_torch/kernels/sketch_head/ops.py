@@ -41,6 +41,36 @@ def sketch_head_ref(sketch: torch.Tensor, idx: torch.Tensor,
     return reads.mean(dim=1)
 
 
+def sketch_head_ordered_ref(sketch: torch.Tensor, idx: torch.Tensor,
+                            scale: Optional[torch.Tensor] = None,
+                            quant: Optional[str] = None) -> torch.Tensor:
+    """The kernel's exact function: from acc = 0, for l = 0..L-1 in order
+    ``acc = acc + t`` (f32) or ``acc = acc + (scale * t)`` (int8 / int4),
+    each a separate op so that nothing contracts, then ``acc * (1/L)`` with
+    1/L rounded in f32.  A row with an index outside [0, R) is NaN.  The
+    tests and ``chip_smoke.py`` hold the kernel to it bit for bit; no
+    served path calls it."""
+    n_rows = idx.shape[1]
+    n_buckets = sketch.shape[1]
+    if quant == "int4":
+        sketch = unpack_int4_rows(sketch, n_rows)
+    idx = idx.long()
+    ok = (idx >= 0) & (idx < n_buckets)
+    bad = ~ok.all(dim=1)
+    idx = torch.where(ok, idx, 0)
+    acc = torch.zeros((idx.shape[0], sketch.shape[2]), dtype=torch.float32,
+                      device=sketch.device)
+    for l in range(n_rows):
+        t = sketch[l, idx[:, l]].to(torch.float32)      # (B, V)
+        if quant is not None:
+            t = scale[l, idx[:, l]][:, None] * t
+        acc = acc + t
+    inv_l = (torch.ones((), dtype=torch.float32)
+             / torch.tensor(float(n_rows), dtype=torch.float32))
+    out = acc * inv_l.to(acc.device)
+    return out.masked_fill(bad[:, None], float("nan"))
+
+
 def _check_quant_args(scale, quant) -> None:
     if quant not in QUANT_CODES:
         raise ValueError(f"unknown quant mode {quant!r}; expected one of "

@@ -33,6 +33,7 @@ from repro_torch.parity import (check_hash_indices, gather_atol,
                                 race_update_tol)
 from repro_torch.kernels.sketch_head.ops import (dequantize_sketch_ref,
                                                  sketch_head_logits,
+                                                 sketch_head_ordered_ref,
                                                  sketch_head_ref)
 
 
@@ -185,6 +186,54 @@ def test_sketch_head_matches_jax(jx, b, quant):
 
 
 @pytest.mark.parametrize("b", [1, 3, 8])
+@pytest.mark.parametrize("quant", [None, "int8", "int4"])
+def test_sketch_head_ordered_matches_jax(jx, b, quant):
+    """The kernel's order in plain PyTorch against JAX's plain gather
+    (repro.kernels.sketch_head.ref) and the port's sketch_head_ref, within
+    gather_atol: both are means of the same L terms (dequantized counts
+    for int8 / int4), summed in other orders."""
+    h = _head(21, n_rows=7)
+    idx = np.random.default_rng(b).integers(0, h["r"], (b, 7)).astype(np.int32)
+    store, scale, jstore, jscale, amax = _storage(jx, h["array"], quant)
+    got = sketch_head_ordered_ref(store, _t(idx), scale, quant)
+    assert got.dtype == torch.float32 and got.shape == (b, 203)
+    atol = gather_atol(7, amax)
+    want = jx["gather_ref"](jstore, jx["jnp"].asarray(idx), jscale, quant)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=atol)
+    torch.testing.assert_close(got, sketch_head_ref(store, _t(idx), scale,
+                                                    quant), rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("quant", [None, "int8", "int4"])
+def test_sketch_head_ordered_is_the_ordered_sum(quant):
+    """Its definition written out with numpy f32 scalars: from 0, add the
+    (scaled) count of l = 0..L-1 in order, then multiply by f32(1/L); a
+    row with an index outside [0, R) is NaN, the others unchanged."""
+    h = _head(22, n_rows=6)
+    rng = np.random.default_rng(5)
+    idx = rng.integers(0, h["r"], (4, 6)).astype(np.int32)
+    store, scale = ((_t(h["array"]), None) if quant is None
+                    else quantize_counts(_t(h["array"]), quant))
+    counts = (store if quant != "int4" else unpack_int4_rows(store, 6)).numpy()
+    got = sketch_head_ordered_ref(store, _t(idx), scale, quant).numpy()
+    inv_l = np.float32(1) / np.float32(6)
+    for b in range(4):
+        acc = np.zeros(203, np.float32)
+        for l in range(6):
+            t = counts[l, idx[b, l]].astype(np.float32)
+            if quant is not None:
+                t = scale.numpy()[l, idx[b, l]] * t
+            acc = acc + t
+        np.testing.assert_array_equal(got[b], acc * inv_l)
+    bad = idx.copy()
+    bad[1, 3], bad[2, 0] = h["r"], -1
+    out = sketch_head_ordered_ref(store, _t(bad), scale, quant).numpy()
+    assert np.isnan(out[[1, 2]]).all()
+    np.testing.assert_array_equal(out[[0, 3]], got[[0, 3]])
+
+
+@pytest.mark.parametrize("b", [1, 3, 8])
 @pytest.mark.parametrize("k", [1, 2])
 @pytest.mark.parametrize("quant", [None, "int8", "int4"])
 def test_fused_decode_matches_jax(jx, b, k, quant):
@@ -320,17 +369,128 @@ def test_cuda_lsh_hash_kernel(cuda, shape):
     check_hash_indices(got, lsh_hash_ref(q, w, bias, bw, r), q, w, bias, bw)
 
 
+# The paper's hashes (B, L, K, d', R) at the FULL budget: each dataset's
+# query (adult, phishing, skin, susy, abalone, yearmsd), the freeze of 512
+# anchors, and a ragged B and L.
+_PAPER_HASHES = [(5000, 2000, 1, 32, 50), (2000, 2000, 3, 32, 30),
+                 (5000, 2000, 3, 4, 30), (5000, 2000, 2, 9, 100),
+                 (800, 4000, 1, 4, 64), (5000, 4000, 3, 32, 64),
+                 (512, 4000, 3, 32, 64), (777, 2003, 2, 9, 100)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n_rows,k,dp,r", _PAPER_HASHES)
+def test_cuda_lsh_hash_paper_shapes(cuda, b, n_rows, k, dp, r):
+    """The boundary rule against lsh_hash_ref at r = 2 (the paper's; a
+    product by 1/r in the kernel) and r = 1.5 (a division), one launch
+    each."""
+    g = torch.Generator(cuda).manual_seed(b + n_rows + k)
+    x = torch.randn((b, dp), generator=g, device=cuda)
+    w = torch.randn((n_rows, k, dp), generator=g, device=cuda)
+    for bw in (2.0, 1.5):
+        bias = torch.rand((n_rows, k), generator=g, device=cuda) * bw
+        lsh_hash.launches = 0
+        got = lsh_hash(x, w, bias, bandwidth=bw, n_buckets=r)
+        torch.cuda.synchronize()
+        assert lsh_hash.launches == 1
+        check_hash_indices(got, lsh_hash_ref(x, w, bias, bw, r), x, w, bias,
+                           bw)
+
+
+def _check_gather(dev, shape, quant, idx=None):
+    """sketch_head's kernel equal to sketch_head_ordered_ref bit for bit,
+    within gather_atol of sketch_head_ref, two launches bit for bit
+    equal, one launch each; returns (kernel logits, idx, store, scale)."""
+    hid, _, _, _, store, scale, _, r, atol = _cuda_case(dev, shape, quant)
+    if idx is None:
+        idx = torch.randint(0, r, (hid.shape[0], shape[3]), device=dev,
+                            dtype=torch.int32)
+    sketch_head_logits.launches = 0
+    got = sketch_head_logits(store, idx, scale=scale, quant=quant)
+    again = sketch_head_logits(store, idx, scale=scale, quant=quant)
+    torch.cuda.synchronize()
+    assert sketch_head_logits.launches == 2
+    assert torch.equal(got, again)
+    assert torch.equal(got, sketch_head_ordered_ref(store, idx, scale, quant))
+    torch.testing.assert_close(got, sketch_head_ref(store, idx, scale, quant),
+                               rtol=0, atol=atol)
+    return got, idx, store, scale
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("quant", [None, "int8", "int4"])
 @pytest.mark.parametrize("shape", _CUDA_SHAPES)
 def test_cuda_sketch_head_kernel(cuda, shape, quant):
-    hid, _, _, _, store, scale, _, r, atol = _cuda_case(cuda, shape, quant)
-    idx = torch.randint(0, r, (hid.shape[0], shape[3]), device=cuda,
+    _check_gather(cuda, shape, quant)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [None, "int8", "int4"])
+@pytest.mark.parametrize("v", [65536, 65519])
+@pytest.mark.parametrize("b", [1, 2, 4, 8, 64, 256])
+def test_cuda_sketch_head_batches(cuda, b, v, quant):
+    """The rwkv6 serve head (L 128, R 16) at the batches the two-kernel
+    paths give the gather; V even and ragged."""
+    _check_gather(cuda, (b, 32, 32, 128, 1, 16, v, 2.0), quant)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [None, "int8"])
+def test_cuda_sketch_head_gemma_width(cuda, quant):
+    """gemma2-27b's vocabulary (V 256000), and a head L long enough that
+    a block takes fewer rows than the batch asks (the tables' room)."""
+    _check_gather(cuda, (4, 32, 32, 128, 1, 16, 256000, 2.0), quant)
+    _check_gather(cuda, (8, 32, 32, 1500, 1, 16, 4099, 2.0), quant)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [None, "int8", "int4"])
+@pytest.mark.parametrize("b,bad", [(6, [1, 4]), (1, [0]), (5, [2])])
+def test_cuda_sketch_head_out_of_range_is_nan(cuda, b, bad, quant):
+    """An index outside [0, R) makes its row NaN (no copy or load reads
+    from it) and leaves the other rows sketch_head_ordered_ref's: B=6 on
+    the ring, B=1 (f32, int8) on the tile kernel, B=5 at gemma2's V."""
+    v = 256000 if b == 5 else 65519
+    shape = (b, 32, 32, 128, 1, 16, v, 2.0)
+    g = torch.Generator(cuda).manual_seed(7 + b)
+    idx = torch.randint(0, 16, (b, 128), generator=g, device=cuda,
                         dtype=torch.int32)
+    for i, row in enumerate(bad):
+        idx[row, 5 + 60 * i] = (16, -1, 1 << 30)[i % 3]
+    idx[bad[-1], 127] = -(1 << 30)
+    hid, _, _, _, store, scale, _, _, atol = _cuda_case(cuda, shape, quant)
     got = sketch_head_logits(store, idx, scale=scale, quant=quant)
     torch.cuda.synchronize()
-    want = sketch_head_ref(store, idx, scale, quant)
-    torch.testing.assert_close(got, want, rtol=0, atol=atol)
+    assert bool(got[bad].isnan().all())
+    ok = [row for row in range(b) if row not in bad]
+    assert not bool(got[ok].isnan().any())
+    want = sketch_head_ordered_ref(store, idx, scale, quant)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got[ok], want[ok])
+    if ok:
+        torch.testing.assert_close(got[ok], sketch_head_ref(
+            store, idx[ok], scale, quant), rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [None, "int4"])
+def test_cuda_sketch_head_tenants(cuda, quant):
+    """The per-tenant gather: one launch per bank row, and row b bit for
+    bit the single-tenant kernel's row b on bank row tenant_ids[b]."""
+    shape = (5, 32, 32, 128, 1, 16, 65519, 2.0)
+    heads = [_cuda_case(cuda, shape, quant, seed=t) for t in range(3)]
+    store = torch.stack([h[4] for h in heads])
+    scale = None if quant is None else torch.stack([h[5] for h in heads])
+    idx = torch.randint(0, 16, (3, 5, 128), device=cuda, dtype=torch.int32)
+    tenant_ids = torch.tensor([2, 0, 2, 1, 0], dtype=torch.int32, device=cuda)
+    sketch_head_logits.launches = 0
+    got = sketch_head_logits(store, idx, scale=scale, quant=quant,
+                             tenant_ids=tenant_ids)
+    torch.cuda.synchronize()
+    assert sketch_head_logits.launches == 3
+    for row, t in enumerate(tenant_ids.tolist()):
+        want = sketch_head_ordered_ref(heads[t][4], idx[t], heads[t][5], quant)
+        assert torch.equal(got[row], want[row])
 
 
 def _check_fused(dev, shape, quant):
@@ -383,16 +543,21 @@ def test_cuda_fused_decode_gemma_width(cuda, quant):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b", [1, 4, 9])
-def test_cuda_fused_decode_hash_is_lsh_hash(cuda, b):
+@pytest.mark.parametrize("head", [(32, 128, 1, 16, 2.0), (64, 64, 2, 16, 4.0),
+                                  (9, 40, 3, 7, 1.5)],
+                         ids=["serve", "default", "odd"])
+@pytest.mark.parametrize("b", [1, 4, 9, 256])
+def test_cuda_fused_decode_hash_is_lsh_hash(cuda, b, head):
     """With A the identity (d = d'), q = h exactly, and the fused kernel's
-    indices equal lsh_hash's kernel (lsh::hash_rows) bit for bit: the
-    fused kernel's own hash does the same arithmetic."""
+    indices equal lsh_hash's kernel bit for bit: both run the fmaf chain
+    over j in order from +0 and lsh_common.cuh's code and fold (for r a
+    power of two lsh_hash multiplies by the exact 1/r: the same
+    quotient)."""
+    dp, n_rows, k, r, bw = head
     hid, _, w, bias, store, _, bw, r, _ = _cuda_case(
-        cuda, (b, 64, 64, 64, 2, 16, 700, 4.0), None)
-    hid = hid[:, :64].contiguous()
-    idx = torch.empty((b, 64), dtype=torch.int32, device=cuda)
-    fused_decode_logits(hid, torch.eye(64, device=cuda), w, bias, store,
+        cuda, (b, dp, dp, n_rows, k, r, 700, bw), None)
+    idx = torch.empty((b, n_rows), dtype=torch.int32, device=cuda)
+    fused_decode_logits(hid, torch.eye(dp, device=cuda), w, bias, store,
                         bandwidth=bw, n_buckets=r, idx_out=idx)
     want = lsh_hash(hid, w, bias, bandwidth=bw, n_buckets=r)
     torch.cuda.synchronize()

@@ -43,6 +43,7 @@ from repro_torch.core.lsh import (AchlioptasL2LSH, L2LSH, LSHConfig, SRPLSH,
 from repro_torch.core.sketch import (RepresenterSketch, SketchConfig,
                                      mom_estimate)
 from repro_torch.data.tabular import DATASETS, make_dataset
+from repro_torch.kernels.lsh_hash.ops import lsh_hash_ref
 from repro_torch.kernels.race_query.ops import (race_query,
                                                 race_query_ordered_ref,
                                                 race_query_ref)
@@ -63,9 +64,10 @@ def jx():
     from repro.core import sketch as jsketch
     from repro.core import theory as jtheory
     from repro.data import tabular as jtab
+    from repro.kernels.lsh_hash.ops import lsh_hash as jhash
     from repro.kernels.race_query.ops import race_query as jrq
     return dict(jax=jax, jnp=jnp, lsh=jlsh, sketch=jsketch, theory=jtheory,
-                tab=jtab, race_query=jrq)
+                tab=jtab, race_query=jrq, hash=jhash)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -314,6 +316,30 @@ def test_make_lsh_hash_matches_jax(jx, kind):
         check_hash_indices(got, want, _t(x), tparams["w"], tparams["b"], 1.5)
     with pytest.raises(ValueError, match="unknown LSH kind"):
         make_lsh("cosine", _LSH)
+
+
+@pytest.mark.parametrize("k,dp", [(1, 32), (3, 32), (3, 4), (2, 9)])
+def test_lsh_hash_ref_paper_pairs_match_jax(jx, k, dp):
+    """The paper's (K, d') pairs (adult; phishing and yearmsd; skin; susy)
+    at small B and L, r = 2: lsh_hash_ref against JAX's L2LSH.hash and its
+    lsh_hash op (pallas in interpret mode, and ref) under the boundary
+    rule."""
+    n_rows, n_buckets, bw = 37, 50, 2.0
+    rng = np.random.default_rng(k * 100 + dp)
+    x = rng.standard_normal((45, dp)).astype(np.float32)
+    w = rng.standard_normal((n_rows, k, dp)).astype(np.float32)
+    b = (rng.random((n_rows, k)) * bw).astype(np.float32)
+    got = lsh_hash_ref(_t(x), _t(w), _t(b), bw, n_buckets)
+    assert got.dtype == torch.int32 and got.shape == (45, n_rows)
+    jl = jx["lsh"].L2LSH(jx["lsh"].LSHConfig(n_rows=n_rows,
+                                             n_buckets=n_buckets, k=k, dim=dp,
+                                             bandwidth=bw))
+    wants = [jl.hash({"w": w, "b": b}, jx["jnp"].asarray(x))]
+    wants += [jx["hash"](jx["jnp"].asarray(x), w, b, bandwidth=bw,
+                         n_buckets=n_buckets, backend=backend)
+              for backend in ("pallas", "ref")]
+    for want in wants:
+        check_hash_indices(got, _t(np.asarray(want)), _t(x), _t(w), _t(b), bw)
 
 
 def test_srp_folds_when_bits_exceed_buckets(jx):
