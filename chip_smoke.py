@@ -44,10 +44,16 @@ kernels through the same wrappers and checks.
    random bf16 weights from a seed) serves 4 prompts of 32 tokens for 16
    new tokens through ``LM.generate`` three times — dense head, sketched
    head on ``fused``, on ``two_kernel`` — with the launch counts set to 0
-   before and read after each run.  Then one decode step's hidden,
-   teacher-forced, holds fused against two-kernel, and the three kernels
-   are timed on that step's real inputs beside their plain versions, the
-   one-call PyTorch equivalent where one exists, and their bound.
+   before and read after each run; the eager decode step's profile,
+   functional (``serve_step``) and in place (``serve_step_``).  Then one
+   decode step's hidden, teacher-forced, holds fused against two-kernel,
+   and the three kernels are timed on that step's real inputs beside their
+   plain versions, the one-call PyTorch equivalent where one exists, and
+   their bound.  Then the decode loop: ``LM.generate`` through each head
+   at decode_chunk 1, 4 and 16 (the decode step captured once as a CUDA
+   graph and replayed), launch counts asserted, every stream equal to the
+   eager one; the captured step's ms/step by decode_chunk, its kernel time
+   and busy share over 15 replays, and each wrapper's launches a replay.
 5. Refresh path, on an f32 and an int8 bank: two tenant-0 requests in
    flight in a per-tenant engine, then ``engine.refresh`` of M = 256 live
    hiddens with the dense logits as targets (launch counts zeroed before,
@@ -60,9 +66,11 @@ kernels through the same wrappers and checks.
 6. Engine path: ``LM.engine`` with the dense and the fused head (requests
    arriving together equal ``LM.generate`` of the same batch; every step
    of the staggered ``serve --engine`` stream against a solo run
-   teacher-forced on the engine's tokens, see ``check_staggered``), and
-   three tenants over a capacity-2 ``HeadCache`` against single-tenant
-   engines, with fused_decode launched once per bank row per tick.
+   teacher-forced on the engine's tokens, see ``check_staggered``; the
+   same stream at decode_chunk 4 equal to decode_chunk 1 stream for
+   stream), and three tenants over a capacity-2 ``HeadCache`` against
+   single-tenant engines, with fused_decode launched once per bank row per
+   tick.
 7. race_query kernel phase: the CUDA kernel against ``race_query_ref``
    at each tabular dataset's FULL-budget query shape (B = its test set,
    L = 2000 or 4000, R = 30-100 or 64, C = 2 or 1, g = 8), g in {5, 1},
@@ -82,8 +90,10 @@ kernels through the same wrappers and checks.
    datasets are seeded with Python's salted ``hash(name)``.
 9. LM distill phase: the serve CLI's own ``--sketch-head`` without
    ``--head-path`` on full-width rwkv6-1.6b (in-process ``distill_head``,
-   300 steps, 1024 hiddens, 256 anchors; freeze; ``generate``), then
-   ``--engine --tenants 3`` over 2 slots, launch counts asserted.
+   300 steps, 1024 hiddens, 256 anchors; freeze; ``generate`` at
+   ``--decode-chunk 16``), then ``--engine --tenants 3 --decode-chunk 4``
+   over 2 slots, launch counts asserted (the capture's warm-up steps
+   included).
 10. flash_attn kernel phase (after race_update's): the CUDA kernel against
    ``flash_attention_ref`` with gemma2-27b's heads (H=32, Hkv=16, dh=128,
    bf16, softcap 50) at the main path's prefill (B=4, S=32) and the long
@@ -109,14 +119,23 @@ kernels through the same wrappers and checks.
    last hidden against the prompt fed token by token through decode steps
    without flash, bf16 backbone rule); one teacher-forced decode step's
    hidden (B=4, cache_pos 32) with fused_decode, lsh_hash and sketch_head
-   held against their plain versions and timed at gemma2's width.
+   held against their plain versions and timed at gemma2's width; then
+   the decode loop as for rwkv6 (dense and fused), with the peak memory
+   and the captured graphs' pools.
 12. gemma2-27b engine, dense and fused: four requests arriving together
    over four slots equal ``LM.generate``; six staggered requests over two
    slots under ``check_staggered``; flash_attn 46 per prefill batch.
-13. gemma2-27b long prefill: B=1, a 4160-token prompt: flash_attn 46
-   launches, the first local layer's ring (4096 slots, 64 wrapped) equal
-   to its keys recomputed, wall time and flash_attn's share of the kernel
-   time under torch.profiler, then 4 new tokens through ``LM.generate``.
+13. gemma2-27b long prefill: B=1, a 4160-token prompt (only the last
+   position unembedded; peak memory): flash_attn 46 launches, the first
+   local layer's ring (4096 slots, 64 wrapped) equal to its keys
+   recomputed, a decode step at that context functional against in place
+   (the functional step's two cache copies timed alone), wall time and
+   flash_attn's share of the kernel time under torch.profiler, then 4 new
+   tokens through ``LM.generate``.  Then granite-8b, stablelm-12b and
+   musicgen-large at full width and command-r-35b at 32 of its 40 layers:
+   ``LM.generate`` dense and fused at decode_chunk 1 and 16, equal
+   streams, launch counts, new tok/s, init and generate peak memory, the
+   phase's seconds.
 14. Prints the ``{"kernels": [...]}`` line (race_update's launches from the
    refresh path, race_query's from the paper phase, flash_attn's from the
    gemma2 main path with its record at the main path's global-layer
@@ -148,6 +167,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.api import LM, DenseHead, HeadCache, SketchHead
+from repro_torch.configs import get_config
 from repro_torch.core.sketch_lm_head import (dequantize_head, freeze_head, quantize_counts,
                                              quantize_head)
 from repro_torch.kernels import _build
@@ -170,11 +190,13 @@ from repro_torch.kernels.sketch_head.ops import (dequantize_sketch_ref,
                                                  sketch_head_ref)
 from repro_torch.data.tabular import DATASETS
 from repro_torch.launch import paper_repro, serve
+from repro_torch.launch.decode_loop import WARMUP_STEPS
 from repro_torch.launch.serve import engine_stream
-from repro_torch.launch.steps import prefill_step, serve_step
+from repro_torch.launch.steps import prefill_step, serve_step, serve_step_
 from repro_torch.models import model
+from repro_torch.models.attention import KVCache
 from repro_torch.models.config import SketchHeadConfig
-from repro_torch.models.layers import apply_rope, embed, rms_norm, softcap
+from repro_torch.models.layers import apply_rope, embed_scaled, rms_norm, softcap
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
@@ -204,6 +226,14 @@ REFRESH_PROMPTS = 8                 # x PROMPT tokens = M = 256 refresh points
 GEMMA = "gemma2-27b"
 GEMMA_LONG = 4160                   # past the 4096 window: the local rings wrap
 GEMMA_STAGGERED = 6                 # staggered requests over TENANT_SLOTS slots
+DECODE_CHUNKS = (1, 4, 16)          # generate's megastep sizes
+ENGINE_CHUNK = 4                    # the engine's megastep size
+# The plain-attention archs at full width, and the depth each runs at:
+# command-r-35b's init draws each layer stack as one f32 tensor, and at
+# 40 layers its FFN stacks' draw peaks near 90 GB beside the resident
+# weights; 32 layers peak near 73 GB.
+PLAIN_ARCHS = (("granite-8b", None), ("stablelm-12b", None),
+               ("musicgen-large", None), ("command-r-35b", 32))
 
 
 def card_line() -> str:
@@ -472,15 +502,19 @@ def backbone_phase(dev):
     assert_bf16_backbone_close(got.cpu().numpy(), want.numpy())
 
 
-def build_served(arch, dev):
-    """Full-width ``arch`` from seed 0 on the card, and the serve head
-    (SERVE_HEAD) frozen from random kernel params over 256 anchors at the
-    arch's vocabulary; returns (lm, kernel params, frozen head, the
-    generator, for the prompts)."""
+def build_served(arch, dev, n_layers=None):
+    """Full-width ``arch`` from seed 0 on the card (``n_layers`` deep when
+    given, else at full depth), and the serve head (SERVE_HEAD) frozen from
+    random kernel params over 256 anchors at the arch's vocabulary; returns
+    (lm, kernel params, frozen head, the generator, for the prompts)."""
     gen = torch.Generator(dev).manual_seed(0)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    lm = LM.from_config(arch, device=dev, generator=gen)
+    if n_layers is None:
+        lm = LM.from_config(arch, device=dev, generator=gen)
+    else:
+        cfg = get_config(arch).scaled(n_layers=n_layers)
+        lm = LM(model.init_model(cfg, gen), cfg, DenseHead(), dev)
     cfg = lm.cfg
     m = 256
     kparams = {"points": torch.randn((m, SERVE_HEAD.proj_dim), generator=gen, device=dev),
@@ -490,7 +524,9 @@ def build_served(arch, dev):
     frozen = freeze_head(gen, kparams, SERVE_HEAD)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in leaves(lm.params))
-    print(f"main path: {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
+    depth = (f"{cfg.n_layers} layers" if n_layers is None else
+             f"{cfg.n_layers} of {get_config(arch).n_layers} layers")
+    print(f"main path: {cfg.name} {depth} d_model {cfg.d_model} "
           f"vocab {cfg.vocab_size}, {n_params / 1e9:.3f} B params, built and head "
           f"frozen in {time.perf_counter() - t0:.2f} s; "
           f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB allocated (peak "
@@ -505,13 +541,15 @@ def main_path(dev, timer):
              "fused": SketchHead(cfg=SERVE_HEAD, backend="fused", params=frozen),
              "two_kernel": SketchHead(cfg=SERVE_HEAD, backend="two_kernel", params=frozen)}
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device=dev)
-    runs = generate_runs(lm, heads, prompts, {
-        "dense": {}, "fused": {"fused_decode": GEN - 1},
-        "two_kernel": {"lsh_hash": GEN - 1, "sketch_head": GEN - 1}})
+    want = {"dense": {}, "fused": {"fused_decode": GEN - 1},
+            "two_kernel": {"lsh_hash": GEN - 1, "sketch_head": GEN - 1}}
+    runs = generate_runs(lm, heads, prompts, want)
     agree = float((runs["fused"][-1]["tokens"][:, PROMPT:]
                    == runs["two_kernel"][-1]["tokens"][:, PROMPT:]).float().mean())
     print(f"free-running fused vs two_kernel token agreement (reported, not gated): {agree:.3f}")
-    step_profile(lm, heads, prompts, runs["fused"][-1]["tokens"])
+    steps = step_profile(lm, heads, prompts, runs["fused"][-1]["tokens"])
+    loop_args = (lm, heads, prompts, want, {n: r[-1]["tokens"] for n, r in runs.items()},
+                 steps)
 
     # Teacher-forced: the dense prefill, then one decode step's hidden
     # through both sketched backends.
@@ -543,7 +581,7 @@ def main_path(dev, timer):
           f"(all at floor boundaries), logits within {atol:.3g} on {int(same.sum())}/{BATCH} rows")
 
     recs = check_and_time(timer, SERVE_HEAD, frozen, hidden, None)
-    return runs, recs, lm, frozen, kparams
+    return runs, recs, lm, frozen, kparams, loop_args
 
 
 def generate_runs(lm, heads, prompts, want_launches):
@@ -581,43 +619,175 @@ def generate_runs(lm, heads, prompts, want_launches):
     return runs
 
 
-def step_profile(lm, heads, prompts, tokens):
-    """One decode step per head: median wall time of 5 synchronized steps,
-    then one step under torch.profiler for the device's kernel time (busy
-    share = kernel time / unprofiled step time) and the top kernels."""
+def profile_kernels(fn, n_steps=1):
+    """``fn`` once under torch.profiler: (kernel ms, kernel launches, the
+    top six kernels by time), each per step of ``n_steps``; kernel ms is
+    None when the profiler saw no device events."""
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy = (sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / n_steps
+            if kernels else None)
+    top = {}
+    for e in kernels:
+        top[e.name] = top.get(e.name, 0.0) + e.time_range.elapsed_us() / n_steps
+    return busy, len(kernels) / n_steps, sorted(top.items(), key=lambda kv: -kv[1])[:6]
+
+
+def busy_text(busy, launches, wall):
+    if busy is None:
+        return "not measured (the profiler saw no device events)"
+    return (f"{busy:.3f} ms of kernels in {launches:g} launches, busy share "
+            f"{busy / wall:.3f}")
+
+
+def step_profile(lm, heads, prompts, tokens):
+    """One eager decode step per head, functional (``serve_step``: copies
+    the cache) and in place (``serve_step_``, what ``generate`` and the
+    engine run at decode_chunk 1): median wall time of 5 synchronized
+    steps, then one step under torch.profiler for the device's kernel time
+    (busy share = kernel time / unprofiled step time) and the top kernels.
+    Returns {head: {"functional"/"in place": (wall ms, kernel ms,
+    launches)}}."""
     cfg, dev = lm.cfg, prompts.device
+    out = {}
     with torch.inference_mode():
         cache = model.init_decode_cache(cfg, BATCH, PROMPT + GEN, device=dev)
         _, cache = prefill_step(lm.params, prompts, cfg, cache)
         tok = tokens[:, PROMPT:PROMPT + 1]
         for name, head in heads.items():
             head = head.to(dev)
-            walls = []
-            for _ in range(6):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                serve_step(lm.params, cache, tok, cfg, head=head, pos=PROMPT)
-                torch.cuda.synchronize()
-                walls.append((time.perf_counter() - t0) * 1e3)
-            wall = float(np.median(walls[1:]))
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                serve_step(lm.params, cache, tok, cfg, head=head, pos=PROMPT)
-                torch.cuda.synchronize()
-            kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
-            busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 if kernels else None
-            top = {}
-            for e in kernels:
-                top[e.name] = top.get(e.name, 0.0) + e.time_range.elapsed_us()
-            top = sorted(top.items(), key=lambda kv: -kv[1])[:6]
-            busy_txt = ("not measured (the profiler saw no device events)" if busy is None
-                        else f"{busy:.3f} ms of kernels in {len(kernels)} launches, busy share "
-                             f"{busy / wall:.3f}")
-            print(f"decode step {cfg.name} head={name}: {wall:.3f} ms wall (median of 5); "
-                  f"{busy_txt}")
-            for kname, us in top:
-                print(f"    {us / 1e3:8.4f} ms  {kname[:90]}")
+            for label, step in (("functional", serve_step), ("in place", serve_step_)):
+                def run():
+                    step(lm.params, cache, tok, cfg, head=head, pos=PROMPT)
+                walls = []
+                for _ in range(6):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    run()
+                    torch.cuda.synchronize()
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                wall = float(np.median(walls[1:]))
+                busy, launches, top = profile_kernels(run)
+                out.setdefault(name, {})[label] = (wall, busy, launches)
+                print(f"decode step {cfg.name} head={name} ({label}): {wall:.3f} ms wall "
+                      f"(median of 5); {busy_text(busy, launches, wall)}")
+                for kname, us in top:
+                    print(f"    {us / 1e3:8.4f} ms  {kname[:90]}")
+    return out
+
+
+def megastep_ms(loop, k, n_steps=GEN - 1, reps=3):
+    """Wall ms a decode step over ``n_steps`` steps run as megasteps of
+    ``k`` graph replays, each block fetched to the host after its
+    megastep (one sync a megastep, as the engine does); median of
+    ``reps`` runs after one more."""
+    walls = []
+    tok = loop.tok.clone()
+    for _ in range(reps + 1):
+        loop.load(tok, PROMPT)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        todo = n_steps
+        while todo > 0:
+            loop.run(min(k, todo)).cpu()
+            todo -= min(k, todo)
+        walls.append((time.perf_counter() - t0) * 1e3 / n_steps)
+    return float(np.median(walls[1:]))
+
+
+def replay_enqueue_ms(loop, n_steps=GEN - 1, reps=3):
+    """Host ms to enqueue one replay (and its block copy): ``n_steps``
+    replays enqueued without a sync, over ``n_steps``; median of ``reps``.
+    Where it exceeds the device's time a step, the device waits on the
+    host between replays."""
+    times = []
+    tok = loop.tok.clone()
+    for _ in range(reps):
+        loop.load(tok, PROMPT)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop.run(n_steps)
+        times.append((time.perf_counter() - t0) * 1e3 / n_steps)
+        torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def decode_loop_phase(lm, heads, prompts, want_launches, eager, steps):
+    """``LM.generate`` at every ``DECODE_CHUNKS`` K through each head, after
+    one warm-up run that captures the decode step (one capture serves every
+    K): launch counts zeroed before and checked after each run (a replay
+    adds the capture's count to each wrapper), the streams equal for every
+    K and equal to the eager runs' (``eager``: {head: tokens}).  Then the
+    captured step itself: ms/step as megasteps of each K (a host fetch per
+    megastep), its kernel time, launches and busy share over 15 replays
+    under torch.profiler, the host's time to enqueue a replay, beside the
+    eager step of ``step_profile`` (``steps``).  Returns {head: {K: new
+    tok/s}}."""
+    cfg = lm.cfg
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reserved = torch.cuda.memory_reserved()
+    report, per_step = {}, {}
+    for name, head in heads.items():
+        served = lm.with_head(head)
+        t0 = time.perf_counter()
+        served.generate(prompts, GEN, decode_chunk=DECODE_CHUNKS[-1])      # capture
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        streams, tps = {}, {}
+        for k in DECODE_CHUNKS:
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            tokens = served.generate(prompts, GEN, decode_chunk=k)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launched = counts()
+            expect_launches(f"{cfg.name} {name} decode_chunk={k}", launched,
+                            want_launches[name])
+            streams[k], tps[k] = tokens, BATCH * GEN / dt
+            print(f"decode loop {cfg.name} head={name} decode_chunk={k}: {BATCH}x{GEN} new "
+                  f"tokens in {dt:.4f} s = {tps[k]:.1f} new tok/s; launches {launched}",
+                  flush=True)
+        for k in DECODE_CHUNKS:
+            if not torch.equal(streams[k], streams[1]) or not torch.equal(streams[k],
+                                                                          eager[name]):
+                raise AssertionError(f"{cfg.name} {name}: decode_chunk={k} gave another "
+                                     f"stream than the eager decode_chunk=1 runs")
+        (loop,) = served._loops.values()
+        if loop.graph is None:
+            raise AssertionError(f"{cfg.name} {name}: the decode step was not captured")
+        per_step[name] = loop.launches_per_step()
+        ms = {k: megastep_ms(loop, k) for k in DECODE_CHUNKS}
+        enqueue = replay_enqueue_ms(loop)
+        loop.load(loop.tok.clone(), PROMPT)
+        busy, launches, top = profile_kernels(lambda: loop.run(GEN - 1).cpu(), GEN - 1)
+        e_wall, e_busy, e_launches = steps[name]["in place"]
+        f_wall = steps[name]["functional"][0]
+        print(f"decode loop {cfg.name} head={name}: all {len(DECODE_CHUNKS)} decode_chunk "
+              f"streams equal the eager runs token for token; capture + first run "
+              f"{capture_s:.2f} s; captured step {ms[16]:.3f} ms/step at decode_chunk 16 "
+              f"({ {k: round(v, 3) for k, v in ms.items()} } ms/step by decode_chunk), "
+              f"{busy_text(busy, launches, ms[16])}; the host enqueues a replay in "
+              f"{enqueue:.3f} ms; wrapper launches a replay "
+              f"{per_step[name]}; eager step {e_wall:.3f} ms in place "
+              f"({busy_text(e_busy, e_launches, e_wall)}), {f_wall:.3f} ms functional; "
+              f"new tok/s by decode_chunk { {k: round(v, 1) for k, v in tps.items()} }",
+              flush=True)
+        for kname, us in top:
+            print(f"    {us / 1e3:8.4f} ms  {kname[:90]}")
+        report[name] = tps
+    torch.cuda.synchronize()
+    print(f"decode loop {cfg.name}: peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+          f"GiB allocated, reserved {reserved / 2 ** 30:.2f} -> "
+          f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB with {len(heads)} captured "
+          f"steps (their private pools)", flush=True)
+    print("captured_step " + json.dumps({"arch": cfg.name, "launches_per_replay": per_step}))
+    return report
 
 
 def race_inputs(counts, idx, alphas, entry):
@@ -716,11 +886,11 @@ def race_phase(dev, timer):
           flush=True)
 
 
-def run_engine(lm, stream, n_slots, *, tenants=None, head_cache=None):
+def run_engine(lm, stream, n_slots, *, tenants=None, head_cache=None, decode_chunk=1):
     """Serve ``stream`` through ``lm.engine`` with the launch counts zeroed
     just before and read just after; returns (engine, finished, seconds,
     launches)."""
-    eng = lm.engine(n_slots, PROMPT + GEN, head_cache=head_cache)
+    eng = lm.engine(n_slots, PROMPT + GEN, head_cache=head_cache, decode_chunk=decode_chunk)
     for i, (prompt, gen, arrival) in enumerate(stream):
         eng.submit(prompt, gen, arrival=arrival,
                    tenant=None if tenants is None else tenants[i])
@@ -736,9 +906,12 @@ def engine_report(label, eng, finished, seconds, launched):
     n_new = sum(len(v) for v in finished.values())
     steps = eng.stats["decode_steps"]
     print(f"engine {label}: {len(finished)} requests over {eng.n_slots} slots, {n_new} new "
-          f"tokens in {seconds:.4f} s = {n_new / seconds:.1f} new tok/s, {steps} decode ticks, "
-          f"slot utilization {eng.slot_utilization:.3f}, launches {launched} "
-          f"({ {k: v / steps for k, v in launched.items() if v} } per tick)", flush=True)
+          f"tokens in {seconds:.4f} s = {n_new / seconds:.1f} new tok/s, {steps} decode steps "
+          f"in {eng.stats['megasteps']} ticks (decode_chunk {eng.decode_chunk}), "
+          f"{eng.stats['host_syncs']} host syncs, slot utilization "
+          f"{eng.slot_utilization:.3f}, launches {launched} "
+          f"({ {k: v / steps for k, v in launched.items() if v} } per decode step)",
+          flush=True)
 
 
 def expect_launches(label, launched, want):
@@ -774,6 +947,22 @@ def engine_phase(dev, lm, frozen, kparams):
         engine_report(served.head.describe(), eng, fin, dt, launched)
         expect_launches(name, launched,
                         {"fused_decode": eng.stats["decode_steps"]} if name == "fused" else {})
+        # The same stream in megasteps: the captured step replayed (the
+        # capture, once per engine, and its WARMUP_STEPS eager steps are
+        # inside the wall time and the counts).
+        eng4, fin4, dt4, launched4 = run_engine(served, stream, SLOTS, decode_chunk=ENGINE_CHUNK)
+        engine_report(served.head.describe(), eng4, fin4, dt4, launched4)
+        expect_launches(f"{name} decode_chunk={ENGINE_CHUNK}", launched4,
+                        {"fused_decode": eng4.stats["decode_steps"] + WARMUP_STEPS}
+                        if name == "fused" else {})
+        if fin4 != fin:
+            raise AssertionError(f"engine {name}: decode_chunk={ENGINE_CHUNK} streams differ "
+                                 f"from decode_chunk=1")
+        print(f"engine {name}: decode_chunk={ENGINE_CHUNK} gives every one of the "
+              f"{N_REQUESTS} staggered streams of decode_chunk=1 token for token "
+              f"({eng4.stats['megasteps']} ticks, {eng4.stats['host_syncs']} host syncs; "
+              f"decode_chunk=1: {eng.stats['megasteps']}, {eng.stats['host_syncs']})",
+              flush=True)
         fresh = model.init_decode_cache(cfg, SLOTS, PROMPT + GEN, device=dev)
         for a, b in zip(eng.pool["periods"]["pos0"], fresh["periods"]["pos0"]):
             if not torch.equal(a, b):
@@ -1233,21 +1422,30 @@ def lm_distill_phase():
             raise AssertionError(f"serve {' '.join(argv)}: distill MSE {mse}")
         return out, counts(), dt
 
+    # Both runs decode in megasteps; the one capture of each warms its step
+    # up WARMUP_STEPS times first, and those launches run too.
     base = ["--prompt-len", str(PROMPT), "--gen", str(GEN)]
-    out, launched, dt = cli(["--sketch-head", "--batch", str(BATCH), *base])
+    out, launched, dt = cli(["--sketch-head", "--batch", str(BATCH), "--decode-chunk",
+                             str(GEN), *base])
     if "head=sketch/fused " not in out:
         raise AssertionError("serve --sketch-head did not serve the fused sketch head")
-    expect_launches("serve --sketch-head", launched, {"lsh_hash": 1, "fused_decode": GEN - 1})
-    print(f"serve --sketch-head (no --head-path): {dt:.2f} s wall, launches {launched}")
+    expect_launches("serve --sketch-head --decode-chunk", launched,
+                    {"lsh_hash": 1, "fused_decode": GEN - 1 + WARMUP_STEPS})
+    print(f"serve --sketch-head --decode-chunk {GEN} (no --head-path): {dt:.2f} s wall, "
+          f"launches {launched}")
     out, launched, dt = cli(["--sketch-head", "--engine", "--tenants", "3", "--batch",
                              str(TENANT_SLOTS), "--requests", str(N_REQUESTS), "--stats-json",
-                             *base])
+                             "--decode-chunk", str(ENGINE_CHUNK), *base])
     stats = json.loads(out.split("STATS_JSON ")[1].splitlines()[0])
-    expect_launches("serve --engine --tenants 3", launched, {
-        "lsh_hash": 3, "fused_decode": stats["tenants"]["capacity"] * stats["decode_steps"]})
-    if stats["requests"] != N_REQUESTS or not stats["tenants"]["evictions"]:
-        raise AssertionError(f"serve --engine --tenants 3: {stats}")
-    print(f"serve --engine --tenants 3: {dt:.2f} s wall, launches {launched}")
+    capacity = stats["tenants"]["capacity"]
+    expect_launches("serve --engine --tenants 3 --decode-chunk", launched, {
+        "lsh_hash": 3, "fused_decode": capacity * (stats["decode_steps"] + WARMUP_STEPS)})
+    if (stats["requests"] != N_REQUESTS or not stats["tenants"]["evictions"]
+            or stats["megasteps"] >= stats["decode_steps"]):
+        raise AssertionError(f"serve --engine --tenants 3 --decode-chunk: {stats}")
+    print(f"serve --engine --tenants 3 --decode-chunk {ENGINE_CHUNK}: {dt:.2f} s wall, "
+          f"{stats['decode_steps']} decode steps in {stats['megasteps']} ticks, "
+          f"launches {launched}")
 
 
 def live_pairs(s, window):
@@ -1428,10 +1626,12 @@ def gemma_main_path(dev, timer):
     heads = {"dense": lm.head, "fused": SketchHead(cfg=SERVE_HEAD, backend="fused",
                                                    params=frozen)}
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device=dev)
-    runs = generate_runs(lm, heads, prompts, {
-        "dense": {"flash_attn": cfg.n_layers},
-        "fused": {"flash_attn": cfg.n_layers, "fused_decode": GEN - 1}})
-    step_profile(lm, heads, prompts, runs["fused"][-1]["tokens"])
+    want = {"dense": {"flash_attn": cfg.n_layers},
+            "fused": {"flash_attn": cfg.n_layers, "fused_decode": GEN - 1}}
+    runs = generate_runs(lm, heads, prompts, want)
+    steps = step_profile(lm, heads, prompts, runs["fused"][-1]["tokens"])
+    loop_args = (lm, heads, prompts, want, {n: r[-1]["tokens"] for n, r in runs.items()},
+                 steps)
     prefill_vs_decode(lm, prompts)
 
     # Teacher-forced: the flash prefill, then one decode step's hidden, the
@@ -1451,7 +1651,7 @@ def gemma_main_path(dev, timer):
             L=SERVE_HEAD.n_rows, R=SERVE_HEAD.n_buckets, K=SERVE_HEAD.k,
             d_proj=SERVE_HEAD.proj_dim, r=SERVE_HEAD.bandwidth, B=BATCH, d=cfg.d_model,
             V=cfg.vocab_size, quant="f32", **rec)), flush=True)
-    return lm, frozen, runs
+    return lm, frozen, runs, loop_args
 
 
 def gemma_engine_phase(lm, frozen):
@@ -1492,11 +1692,40 @@ def gemma_engine_phase(lm, frozen):
         check_staggered(f"{cfg.name} {name}", served, stream, fin, ticks, frozen)
 
 
-def gemma_long_prefill(lm):
+def functional_copies(cfg, cache):
+    """The two cache copies of the functional decode step, alone: each
+    layer's rows cloned (``attention``'s scalar branch), then each
+    period's layers restacked (``forward``)."""
+    for c in cache["periods"].values():
+        layers = [KVCache(*(x[i].clone() for x in c)) for i in range(cfg.n_periods)]
+        KVCache(*(torch.stack(leaf) for leaf in zip(*layers)))
+
+
+def step_at_context(lm, cache, tok, pos, step):
+    """(median wall ms of 5 synchronized decode steps after one, peak GiB
+    the step allocated above what was allocated before it)."""
+    walls = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(lm.params, cache, tok, lm.cfg, pos=pos)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step(lm.params, cache, tok, lm.cfg, pos=pos)
+    torch.cuda.synchronize()
+    return float(np.median(walls[1:])), (torch.cuda.max_memory_allocated() - before) / 2 ** 30
+
+
+def gemma_long_prefill(lm, timer):
     """B=1, a 4160-token prompt (past the 4096 window): the bulk prefill
-    (flash_attn once per layer; wall time and the attention kernels' share
-    under torch.profiler), the local layers' rings checked slot by slot
-    against the first layer's keys, then LM.generate of 4 new tokens."""
+    (flash_attn once per layer; the last position alone unembedded; wall
+    time, peak memory and the attention kernels' share under
+    torch.profiler), the local layers' rings checked slot by slot against
+    the first layer's keys; a decode step at that context, functional
+    (its two cache copies timed alone) against in place; then
+    LM.generate of 4 new tokens."""
     from torch.profiler import ProfilerActivity, profile
 
     cfg, dev = lm.cfg, lm.device
@@ -1525,8 +1754,7 @@ def gemma_long_prefill(lm):
         ring = cache["periods"]["pos0"].k[0, 0]                    # (size, Hkv, dh)
         size, a = ring.shape[0], cfg.attention
         p0 = model._index(lm.params["periods"]["pos0"], 0)
-        x = embed(prompt, lm.params["embed"]) * torch.tensor(
-            cfg.d_model ** 0.5, dtype=torch.bfloat16, device=dev)
+        x = embed_scaled(prompt, lm.params["embed"], cfg.d_model)
         h = rms_norm(x, p0["norm1"], cfg.norm_eps)
         keys = apply_rope((h @ p0["mixer"]["wk"]).reshape(1, GEMMA_LONG, a.n_kv_heads,
                                                           a.head_dim),
@@ -1539,7 +1767,23 @@ def gemma_long_prefill(lm):
                 or not torch.equal(held.sort().values, last) or not torch.equal(ring, keys[held])):
             raise AssertionError(f"long prefill: the ring of {size} slots does not hold the "
                                  f"last {size} positions ({wrapped} wrapped)")
-        del cache, logits, x, h, keys, ring
+        del x, h, keys, ring
+        free_card()
+
+        # One decode step at this context: the functional step copies the
+        # 1.55 GB of KV caches twice, the in-place step writes one slot.
+        tok = logits.argmax(-1)[:, None]
+        kv_gb = sum(x.numel() * x.element_size() for c in cache["periods"].values()
+                    for x in c) / 1e9
+        copy_ms = timer.ms(lambda: functional_copies(cfg, cache), reps=5, warmup=1)
+        func_ms, func_gib = step_at_context(lm, cache, tok, GEMMA_LONG, serve_step)
+        inplace_ms, inplace_gib = step_at_context(lm, cache, tok, GEMMA_LONG, serve_step_)
+        print(f"{cfg.name} decode step at {GEMMA_LONG} tokens of context (B=1, {kv_gb:.2f} GB "
+              f"of KV caches): functional {func_ms:.2f} ms wall, {func_gib:.2f} GiB above "
+              f"the cache, of which the two cache copies alone take {copy_ms:.3f} ms "
+              f"(CUDA events, median of 5); in place {inplace_ms:.2f} ms wall, "
+              f"{inplace_gib:.2f} GiB above the cache, no copy", flush=True)
+        del cache, logits, tok
         free_card()
 
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1569,6 +1813,57 @@ def gemma_long_prefill(lm):
           f"peak {peak:.1f} GiB allocated; {share}; ring of {size} slots holds the last "
           f"{size} positions ({wrapped} wrapped); generate of 4 new tokens "
           f"{gen_wall * 1e3:.1f} ms wall, launches flash_attn {cfg.n_layers}", flush=True)
+
+
+def arch_phase(dev, arch, n_layers):
+    """A plain-attention arch at full width (``n_layers`` deep when given):
+    ``LM.generate`` of BATCH x PROMPT prompts for GEN new tokens through
+    the dense and the fused head at decode_chunk 1 and 16 (after a warm-up
+    and the capture), equal streams, launch counts (flash_attn once per
+    layer in the prefill, fused_decode GEN - 1), new tok/s, the peak
+    memory and the phase's seconds."""
+    t_phase = time.perf_counter()
+    lm, _, frozen, gen = build_served(arch, dev, n_layers)
+    cfg = lm.cfg
+    init_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device=dev)
+    heads = {"dense": lm.head, "fused": SketchHead(cfg=SERVE_HEAD, backend="fused",
+                                                   params=frozen)}
+    want = {"dense": {"flash_attn": cfg.n_layers},
+            "fused": {"flash_attn": cfg.n_layers, "fused_decode": GEN - 1}}
+    torch.cuda.reset_peak_memory_stats()
+    tps = {}
+    for name, head in heads.items():
+        served = lm.with_head(head)
+        served.generate(prompts, GEN)                           # warm-up
+        served.generate(prompts, GEN, decode_chunk=16)          # the capture
+        streams = {}
+        for k in (1, 16):
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            tokens = served.generate(prompts, GEN, decode_chunk=k)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            expect_launches(f"{cfg.name} {name} decode_chunk={k}", counts(), want[name])
+            if (tokens.shape != (BATCH, PROMPT + GEN) or int(tokens.min()) < 0
+                    or int(tokens.max()) >= cfg.vocab_size):
+                raise AssertionError(f"{cfg.name} {name}: bad tokens {tuple(tokens.shape)}")
+            streams[k] = tokens
+            tps[(name, k)] = round(BATCH * GEN / dt, 1)
+        if not torch.equal(streams[1], streams[16]):
+            raise AssertionError(f"{cfg.name} {name}: decode_chunk=16 gave another stream "
+                                 f"than decode_chunk=1")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    depth = (f"{cfg.n_layers} layers" if n_layers is None else
+             f"{cfg.n_layers} of {get_config(arch).n_layers} layers (the init's f32 draw of "
+             f"each layer stack must fit beside the resident weights)")
+    print(f"{cfg.name} at full width, {depth}: dense and fused streams equal at "
+          f"decode_chunk 1 and 16; new tok/s {tps}; init peak {init_peak:.1f} GiB, "
+          f"generate peak {peak:.1f} GiB allocated; {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    del lm, frozen, heads, served
+    free_card()
 
 
 def leaves(tree):
@@ -1636,7 +1931,9 @@ def main() -> None:
     timed("race_update", race_phase, dev, timer)
     flash = timed("flash_attn", flash_phase, dev, timer)
     timed("backbone", backbone_phase, dev)
-    runs, recs, lm, frozen, kparams = timed("main path", main_path, dev, timer)
+    runs, recs, lm, frozen, kparams, loop_args = timed("main path", main_path, dev, timer)
+    timed("decode loop", decode_loop_phase, *loop_args)
+    del loop_args
     refresh_launches, recs["race_update"] = timed("refresh f32", refresh_phase, dev, timer, lm,
                                                   kparams, None)
     timed("refresh int8", refresh_phase, dev, timer, lm, kparams, "int8")
@@ -1646,11 +1943,17 @@ def main() -> None:
     timed("lm distill", lm_distill_phase)
     del lm, frozen, kparams
     free_card()
-    glm, gfrozen, gruns = timed("gemma2 main path", gemma_main_path, dev, timer)
+    glm, gfrozen, gruns, loop_args = timed("gemma2 main path", gemma_main_path, dev, timer)
+    timed("gemma2 decode loop", decode_loop_phase, *loop_args)
+    del loop_args
     timed("gemma2 engine", gemma_engine_phase, glm, gfrozen)
     del gfrozen
     free_card()
-    timed("gemma2 long prefill", gemma_long_prefill, glm)
+    timed("gemma2 long prefill", gemma_long_prefill, glm, timer)
+    del glm
+    free_card()
+    for arch, n_layers in PLAIN_ARCHS:
+        timed(arch, arch_phase, dev, arch, n_layers)
     print(f"phase seconds: {phase_seconds}")
     long = flash["long prefill, global"]
     recs["flash_attn"] = dict(flash["main prefill, global"],

@@ -4,6 +4,7 @@
 
     lm = LM.from_config("rwkv6-1.6b")                     # on the card
     tokens = lm.generate(prompts, max_new_tokens=16)
+    tokens = lm.generate(prompts, 16, decode_chunk=16)    # one megastep
     lm = lm.with_head(SketchHead.load("head.npz"))        # sketched decode
     finished = lm.serve([(prompt, 16, arrival), ...])     # continuous batching
 """
@@ -39,12 +40,18 @@ class LM:
       cfg: the architecture's ``ModelConfig``.
       head: ``DenseHead`` (default) or a ``SketchHead`` with params.
       device: where params, head params and tokens live.
+
+    ``generate(decode_chunk=K > 1)`` memoizes its decode loop (on the card
+    a captured CUDA graph, holding this LM's params and head) per batch
+    shape in the LM; ``with_head`` starts a new memo.
     """
 
     params: Any
     cfg: ModelConfig
     head: Any = dataclasses.field(default_factory=DenseHead)
     device: torch.device = torch.device("cuda")
+    _loops: dict = dataclasses.field(default_factory=dict, init=False,
+                                     repr=False, compare=False)
 
     @classmethod
     def from_config(cls, arch: str, *, smoke: bool = False, device="cuda",
@@ -81,19 +88,21 @@ class LM:
         return dataclasses.replace(self, head=head.to(self.device))
 
     def generate(self, prompts, max_new_tokens: int, *,
-                 eos_id: Optional[int] = None, pad_id: int = 0
-                 ) -> torch.Tensor:
+                 eos_id: Optional[int] = None, pad_id: int = 0,
+                 decode_chunk: int = 1) -> torch.Tensor:
         """Greedy bulk prefill + decode: (B, P) prompts → (B, P +
         max_new_tokens) int64 tokens (prompt included).  With ``eos_id``,
         a sequence that emits it is finished and later positions hold
-        ``pad_id``."""
+        ``pad_id``.  ``decode_chunk=K`` (> 1) decodes K tokens per
+        megastep (``launch/decode_loop.py``), with the same tokens."""
         from repro_torch.launch.serve import generate
 
         prompts = torch.as_tensor(prompts, device=self.device).long()
         if prompts.dim() == 1:
             prompts = prompts[None]
         return generate(self.params, self.cfg, prompts, max_new_tokens,
-                        head=self.head, eos_id=eos_id, pad_id=pad_id)
+                        head=self.head, eos_id=eos_id, pad_id=pad_id,
+                        decode_chunk=decode_chunk, loops=self._loops)
 
     # -- continuous batching -------------------------------------------------
 
@@ -113,8 +122,12 @@ class LM:
             head (a ``SketchHead``) becomes the shared spec and each slot
             decodes through its request's tenant's bank row; every
             ``submit`` then needs ``tenant=``.
-          decode_chunk / spec_decode / paged: not ported yet; anything but
-            the defaults raises ``NotImplementedError``.
+          decode_chunk: tokens decoded per occupied slot between
+            admission checks: ``K > 1`` runs each tick as a megastep of up
+            to K steps (``launch/decode_loop.py``), with the same greedy
+            streams.
+          spec_decode / paged: not ported yet; anything but the defaults
+            raises ``NotImplementedError``.
         """
         from repro_torch.launch.engine import make_engine
 
@@ -126,11 +139,13 @@ class LM:
 
     def serve(self, requests: Iterable, *, n_slots: int = 4,
               max_seq: Optional[int] = None, sampler=None,
-              eos_id: Optional[int] = None) -> Dict[int, List[int]]:
+              eos_id: Optional[int] = None,
+              decode_chunk: int = 1) -> Dict[int, List[int]]:
         """Serve ``(prompt, max_new_tokens[, arrival])`` requests through
         the engine; returns each request's generated tokens (prompt
         excluded) by request id, in submission order from 0.  ``max_seq``
-        defaults to the longest request."""
+        defaults to the longest request; ``decode_chunk`` is the engine's
+        megastep size (see :meth:`engine`)."""
         import numpy as np
 
         reqs = []
@@ -141,7 +156,8 @@ class LM:
             return {}
         if max_seq is None:
             max_seq = max(len(p) + g for p, g, _ in reqs)
-        engine = self.engine(n_slots, max_seq, sampler=sampler, eos_id=eos_id)
+        engine = self.engine(n_slots, max_seq, sampler=sampler, eos_id=eos_id,
+                             decode_chunk=decode_chunk)
         for prompt, max_new, arrival in reqs:
             engine.submit(prompt, max_new, arrival=arrival)
         return engine.run()

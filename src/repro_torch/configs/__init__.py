@@ -8,6 +8,10 @@ from repro_torch.models.config import ModelConfig
 _MODULES = {
     "rwkv6-1.6b": "repro_torch.configs.rwkv6_1b6",
     "gemma2-27b": "repro_torch.configs.gemma2_27b",
+    "granite-8b": "repro_torch.configs.granite_8b",
+    "stablelm-12b": "repro_torch.configs.stablelm_12b",
+    "command-r-35b": "repro_torch.configs.command_r_35b",
+    "musicgen-large": "repro_torch.configs.musicgen_large",
 }
 
 

@@ -7,14 +7,25 @@ request queue instead:
 
 * **admit** — whenever a slot is free and a request has arrived, its
   prompt is bulk-prefilled into a fresh cache (the static path's prefill)
-  and the filled rows are copied into the pool (``cache_slot_insert``);
+  and the filled rows are copied into the pool (``cache_slot_insert_``);
   arrivals with equal prompt lengths prefill as one batch, and identical
   prompts in that batch prefill once (``cache_expand_rows``).
-* **decode** — one ``serve_step`` per tick advances every occupied slot;
-  an active-slot mask keeps free slots' rows bitwise unchanged.
+* **decode** — one ``serve_step_`` per tick advances every occupied slot;
+  an active-slot mask keeps free slots' rows bitwise unchanged.  With
+  ``decode_chunk=K`` the tick is a megastep instead
+  (``launch/decode_loop.py``: K steps, the sampler and EOS retirement on
+  the device, a CUDA graph of one step replayed K times on the card),
+  clamped so that no slot overshoots its budget and no arrival waits past
+  its tick while a slot is free; greedy streams do not change with K.
 * **retire** — a sequence leaves on EOS or its own ``max_new_tokens``; the
-  tick's retired slots are reset together (``cache_slot_reset``) to fresh
+  tick's retired slots are reset together (``cache_slot_reset_``) to fresh
   rows.
+
+``EngineBackend`` keeps the pool one set of tensors for the engine's life:
+admission, decode and reset write into it in place and hand back the same
+tensors (a captured step holds their pointers); the engine rebinds
+``self.pool`` to what a backend returns, as the JAX package's does, so a
+functional backend (the tests' numpy fake) works unchanged.
 
 With ``head_cache=`` (a ``repro_torch.api.HeadCache``) the engine serves
 per-tenant sketch heads: every request names its tenant, its slot decodes
@@ -22,9 +33,9 @@ through that tenant's bank row, and ``refresh``/``publish`` fold live
 traffic into a tenant's head with double buffering.
 
 Scheduling is the JAX package's ``launch/engine.py``; the model compute
-sits behind ``EngineBackend`` as eager PyTorch calls (no jit cache).  Not
-ported here: megastep decode (``decode_chunk > 1``) and speculative decode
-(ROADMAP module item 8), the paged pool (item 9) and seeded sampling.
+sits behind ``EngineBackend``.  Not ported here: speculative decode
+(ROADMAP module item 6), the paged pool (item 7) and seeded sampling
+(item 5).
 """
 
 from __future__ import annotations
@@ -38,10 +49,11 @@ import torch
 
 from repro_torch.api.heads import DenseHead
 from repro_torch.api.sampler import Sampler
-from repro_torch.launch.steps import prefill_step, serve_step
+from repro_torch.launch.decode_loop import DecodeLoop
+from repro_torch.launch.steps import prefill_step, serve_step_
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import (cache_expand_rows, cache_slot_insert,
-                                      cache_slot_reset, init_decode_cache)
+from repro_torch.models.model import (cache_expand_rows, cache_slot_insert_,
+                                      cache_slot_reset_, init_decode_cache)
 
 
 @dataclasses.dataclass
@@ -118,8 +130,9 @@ class SlotScheduler:
 
 class EngineBackend:
     """The model compute behind the engine, on ``device``: prefill into a
-    fresh cache, slot insert / reset / row expansion, and one decode step
-    through ``head`` (or through ``head_params`` given per call)."""
+    fresh cache, slot insert / reset / row expansion into the pool in
+    place, one decode step through ``head`` (or through ``head_params``
+    given per call), and a megastep of K of them."""
 
     def __init__(self, params, cfg: ModelConfig, *, head=None,
                  device="cuda"):
@@ -127,6 +140,7 @@ class EngineBackend:
         self.cfg = cfg
         self.head = head or DenseHead()
         self.device = torch.device(device)
+        self._loops: Dict[tuple, DecodeLoop] = {}
 
     def init_pool(self, n_slots: int, max_seq: int) -> dict:
         return init_decode_cache(self.cfg, n_slots, max_seq,
@@ -140,23 +154,46 @@ class EngineBackend:
         return prefill_step(self.params, tokens, self.cfg, fresh)
 
     def insert(self, pool: dict, filled: dict, slots) -> dict:
-        return cache_slot_insert(self.cfg, pool, filled, slots)
+        """``filled``'s rows into ``pool``'s ``slots``, in place."""
+        return cache_slot_insert_(self.cfg, pool, filled, slots)
 
     def reset(self, pool: dict, slots) -> dict:
-        return cache_slot_reset(self.cfg, pool, slots)
+        """``slots`` of ``pool`` zeroed, in place."""
+        return cache_slot_reset_(self.cfg, pool, slots)
 
     def expand_rows(self, filled: dict, inv) -> dict:
         return cache_expand_rows(self.cfg, filled, inv)
 
     def decode(self, pool: dict, tokens: np.ndarray, pos: np.ndarray,
                active: np.ndarray, head_params=None):
-        """One decode step of every slot → ((n_slots, V) logits, pool)."""
+        """One decode step of every slot, written into ``pool`` → ((n_slots,
+        V) logits, pool)."""
         dev = self.device
-        return serve_step(
+        return serve_step_(
             self.params, pool,
             torch.as_tensor(tokens, device=dev).long()[:, None], self.cfg,
             head=self.head, active=torch.as_tensor(active, device=dev),
             pos=torch.as_tensor(pos, device=dev), head_params=head_params)
+
+    def megastep(self, pool: dict, tokens: np.ndarray, pos: np.ndarray,
+                 active: np.ndarray, k: int, sampler: Sampler,
+                 eos_id: Optional[int], head_params=None):
+        """K decode steps of every slot, the sampler and EOS retirement on
+        the device, written into ``pool`` (``launch/decode_loop.py``; one
+        capture per pool and spec on the card).  Returns the (k, n_slots)
+        token block, ``pool``, and the last tokens and ``pos`` as numpy
+        arrays: the block and the carry come in one copy."""
+        key = (id(pool), sampler, eos_id)      # the loop holds its pool
+        loop = self._loops.get(key)
+        if loop is None:
+            loop = DecodeLoop(self.params, self.cfg, self.head, pool,
+                              sampler=sampler, masked=True, eos_id=eos_id,
+                              per_slot=True, head_params=head_params)
+            self._loops[key] = loop
+        loop.load(tokens, pos, active, head_params)
+        out = torch.cat([loop.run(k), loop.pos[None]]).cpu().numpy()
+        return (out[:k].astype(np.int32), pool, out[k - 1].astype(np.int32),
+                out[k].astype(np.int32))
 
 
 class ServeEngine:
@@ -165,9 +202,12 @@ class ServeEngine:
     tick); ``finished[rid]`` holds each request's generated tokens (prompt
     excluded).  Greedy: the sampler takes each row's first maximum.
 
+    ``decode_chunk=K`` (> 1) decodes each tick as a megastep of up to K
+    steps (``_chunk_for``) through ``backend.megastep``.
+
     Raises:
-      NotImplementedError: ``decode_chunk > 1``, ``spec_decode`` or
-        ``paged`` (later slices of the port).
+      NotImplementedError: ``spec_decode`` or ``paged`` (later slices of
+        the port).
     """
 
     def __init__(self, backend, n_slots: int, max_seq: int, *,
@@ -177,19 +217,23 @@ class ServeEngine:
                  head_cache=None):
         if decode_chunk < 1:
             raise ValueError(f"decode_chunk must be >= 1, got {decode_chunk}")
-        if decode_chunk > 1 or spec_decode:
+        if decode_chunk > 1 and not hasattr(backend, "megastep"):
+            raise ValueError("decode_chunk > 1 needs a backend with a "
+                             "megastep; this backend has none")
+        if spec_decode:
             raise NotImplementedError(
-                "megastep (decode_chunk > 1) and speculative decode "
-                "(spec_decode) are not ported yet: ROADMAP module item 8")
+                "speculative decode (spec_decode) is not ported yet: ROADMAP "
+                "module item 6")
         if paged:
             raise NotImplementedError(
                 "the paged cache pool is not ported yet: ROADMAP module "
-                "item 9")
+                "item 7")
         self.backend = backend
         self.n_slots = n_slots
         self.max_seq = max_seq
         self.eos_id = eos_id
         self.sampler = sampler or Sampler()
+        self.decode_chunk = decode_chunk
         self.pool = backend.init_pool(n_slots, max_seq)
         self.head_cache = head_cache
         self.slot_tenant: List[Optional[object]] = [None] * n_slots
@@ -207,7 +251,7 @@ class ServeEngine:
         self._pending_reset: List[int] = []            # slots retired this tick
         self.stats = {"refreshes": 0, "publishes": 0, "decode_steps": 0,
                       "active_slot_steps": 0, "admitted": 0, "retired": 0,
-                      "prefill_batches": 0, "host_syncs": 0,
+                      "prefill_batches": 0, "megasteps": 0, "host_syncs": 0,
                       "dedup_saved": 0}
 
     # -- request intake ----------------------------------------------------
@@ -393,31 +437,71 @@ class ServeEngine:
         with torch.no_grad():
             self._step()
 
+    def _chunk_for(self, active_slots: List[int]) -> int:
+        """This tick's megastep length: ``decode_chunk`` clamped so that no
+        occupied slot overshoots its budget and, while a slot is free, no
+        queued arrival waits past its arrival tick."""
+        chunk = min(self.decode_chunk,
+                    int(min(self.remaining[s] for s in active_slots)))
+        if self.queue and self.sched.n_free:
+            chunk = min(chunk, max(1, self.queue.peek().arrival - self.now))
+        return max(1, chunk)
+
+    def _emit(self, s: int, tok: int) -> bool:
+        """Append a decoded token to slot ``s``'s request; retire it on its
+        budget or EOS.  Returns whether it retired."""
+        self.outputs[self.sched.owner[s]].append(tok)
+        self.remaining[s] -= 1
+        if (self.remaining[s] == 0
+                or (self.eos_id is not None and tok == self.eos_id)):
+            self._retire(s)
+            return True
+        return False
+
+    def _decode_megastep(self, active: np.ndarray, active_slots: List[int],
+                         chunk: int) -> None:
+        """Advance every occupied slot ``chunk`` tokens in one megastep, then
+        walk the (chunk, n_slots) block for retirements (a row that emits
+        EOS mid-chunk is frozen on the device; its later entries are
+        padding and are skipped)."""
+        block, self.pool, self.last_tok, self.pos = self.backend.megastep(
+            self.pool, self.last_tok, self.pos, active, chunk, self.sampler,
+            self.eos_id, head_params=self._head_params_now())
+        self.stats["host_syncs"] += 1
+        self.stats["decode_steps"] += chunk
+        for s in active_slots:
+            for i in range(chunk):
+                self.stats["active_slot_steps"] += 1
+                if self._emit(s, int(block[i, s])):
+                    break
+
     def _step(self) -> None:
         self._admit()
         active_slots = self.sched.active_slots()
+        advanced = 1
         if active_slots:
             active = np.zeros(self.n_slots, bool)
             active[active_slots] = True
-            hp = self._head_params_now()
-            logits, self.pool = self.backend.decode(
-                self.pool, self.last_tok, self.pos, active, head_params=hp)
-            nxt = self._sample(logits)
-            self.stats["decode_steps"] += 1
-            self.stats["active_slot_steps"] += len(active_slots)
-            for s in active_slots:
-                tok = int(nxt[s])
-                self.outputs[self.sched.owner[s]].append(tok)
-                self.pos[s] += 1
-                self.last_tok[s] = tok
-                self.remaining[s] -= 1
-                if (self.remaining[s] == 0
-                        or (self.eos_id is not None and tok == self.eos_id)):
-                    self._retire(s)
+            self.stats["megasteps"] += 1
+            if self.decode_chunk > 1:
+                advanced = self._chunk_for(active_slots)
+                self._decode_megastep(active, active_slots, advanced)
+            else:
+                logits, self.pool = self.backend.decode(
+                    self.pool, self.last_tok, self.pos, active,
+                    head_params=self._head_params_now())
+                nxt = self._sample(logits)
+                self.stats["decode_steps"] += 1
+                self.stats["active_slot_steps"] += len(active_slots)
+                for s in active_slots:
+                    tok = int(nxt[s])
+                    self.pos[s] += 1
+                    self.last_tok[s] = tok
+                    self._emit(s, tok)
         if self._pending_reset:
             self.pool = self.backend.reset(self.pool, self._pending_reset)
             self._pending_reset = []
-        self.now += 1
+        self.now += advanced
 
     def run(self) -> Dict[int, List[int]]:
         """Tick until the queue drains and every slot retires."""

@@ -4,7 +4,10 @@ or (``--engine``) a request stream through the continuous-batching engine.
 A single bulk prefill ingests every prompt through the dense head, then
 the decode loop emits tokens step by step; with ``--sketch-head`` each
 decode step's logits come from the Representer-Sketch head on its
-``--backend`` (``fused``: one CUDA kernel; ``two_kernel``; ``ref``).  The
+``--backend`` (``fused``: one CUDA kernel; ``two_kernel``; ``ref``);
+``--decode-chunk K`` decodes K tokens per megastep (on the card, a CUDA
+graph of one decode step replayed K times), for ``generate`` and the
+engine alike, with the same tokens.  The
 head is loaded from a ``--head-path`` archive saved by either package, or,
 without one, distilled from the dense unembed in process (a short
 distillation, then a freeze).  ``--engine`` serves a synthetic stream
@@ -14,9 +17,11 @@ instead (staggered arrivals, every 4th prompt shared, lengths ``gen`` and
 bank each) through a ``HeadCache``, requests round-robin over tenants.
 
   PYTHONPATH=src python -m repro_torch.launch.serve \\
-      [--arch {rwkv6-1.6b,gemma2-27b}] [--smoke] \\
+      [--arch {rwkv6-1.6b,gemma2-27b,granite-8b,stablelm-12b,command-r-35b,
+               musicgen-large}] [--smoke] \\
       [--sketch-head [--head-path head.npz]] [--backend fused] \\
       [--quant int8] [--batch 4 --prompt-len 32 --gen 16] [--device cuda] \\
+      [--decode-chunk 16] \\
       [--engine --requests 12 --arrival-every 1 --stats-json [--tenants 3]]
 """
 
@@ -33,7 +38,8 @@ import torch
 
 from repro_torch.api.heads import DenseHead, SketchHead
 from repro_torch.api.sampler import Sampler
-from repro_torch.launch.steps import prefill_step, serve_step
+from repro_torch.launch.decode_loop import decode_chunks
+from repro_torch.launch.steps import prefill_step, serve_step_
 from repro_torch.models.config import SketchHeadConfig
 from repro_torch.models.model import init_decode_cache
 
@@ -44,20 +50,37 @@ QUICK_HEAD = SketchHeadConfig(n_rows=128, n_buckets=16, k=1, proj_dim=32,
 
 def generate(params: dict, cfg, prompts: torch.Tensor, gen_len: int, *,
              head=None, sampler: Optional[Sampler] = None,
-             eos_id: Optional[int] = None, pad_id: int = 0) -> torch.Tensor:
+             eos_id: Optional[int] = None, pad_id: int = 0,
+             decode_chunk: int = 1, loops: Optional[dict] = None
+             ) -> torch.Tensor:
     """Bulk prefill + decode. prompts (B, P) → tokens (B, P + gen_len).
 
     The first new token comes from the prefill's dense logits, each later
-    one from a decode step through ``head`` (``gen_len - 1`` steps).  With
-    ``eos_id``, a finished sequence's later positions hold ``pad_id``, its
-    cache rows freeze, and the loop ends once every row is done.
+    one from a decode step through ``head`` (``gen_len - 1`` steps, each
+    writing the cache in place).  With ``eos_id``, a finished sequence's
+    later positions hold ``pad_id``, its cache rows freeze, and the loop
+    ends once every row is done.
+
+    ``decode_chunk=K`` (> 1) runs the decode loop as megasteps of K steps
+    (``launch/decode_loop.py``: a CUDA graph of one step replayed K times
+    on the card), with the same tokens; the early exit on ``eos_id`` then
+    comes at chunk granularity, and the tail is padding.  ``loops``
+    memoizes the megastep's loop and capture (see ``decode_chunks``).
     """
+    if decode_chunk < 1:
+        raise ValueError(f"decode_chunk must be >= 1, got {decode_chunk}")
     head = head or DenseHead()
     sampler = sampler or Sampler()
     b, p = prompts.shape
     cache = init_decode_cache(cfg, b, p + gen_len, device=prompts.device)
     with torch.inference_mode():
         logits, cache = prefill_step(params, prompts, cfg, cache)
+        if decode_chunk > 1:
+            tail = decode_chunks(params, cache, logits, cfg=cfg, head=head,
+                                 sampler=sampler, gen_len=gen_len,
+                                 start_pos=p, chunk=decode_chunk,
+                                 eos_id=eos_id, pad_id=pad_id, loops=loops)
+            return torch.cat([prompts, tail], dim=1)
         out = [prompts]
         finished = torch.zeros(b, dtype=torch.bool, device=prompts.device)
         for t in range(gen_len):
@@ -72,7 +95,7 @@ def generate(params: dict, cfg, prompts: torch.Tensor, gen_len: int, *,
                 out.append(torch.full((b, gen_len - 1 - t), pad_id,
                                       dtype=nxt.dtype, device=nxt.device))
                 break
-            logits, cache = serve_step(
+            logits, cache = serve_step_(
                 params, cache, nxt[:, None], cfg, head=head,
                 active=~finished if eos_id is not None else None, pos=p + t)
     return torch.cat(out, dim=1)
@@ -184,7 +207,7 @@ def run_engine(lm, args, head_cache=None) -> None:
     n_requests = args.requests or 2 * args.batch
     engine = lm.engine(n_slots=args.batch,
                        max_seq=args.prompt_len + args.gen,
-                       head_cache=head_cache)
+                       head_cache=head_cache, decode_chunk=args.decode_chunk)
     for i, (prompt, gen, arrival) in enumerate(engine_stream(
             lm.cfg.vocab_size, n_requests, args.prompt_len, args.gen,
             args.arrival_every, args.seed)):
@@ -204,7 +227,9 @@ def run_engine(lm, args, head_cache=None) -> None:
           f"served {len(finished)} requests over {args.batch} slots: "
           f"{n_generated} new tokens in {dur:.3f}s "
           f"({n_generated / dur:.1f} new tok/s), "
-          f"{engine.stats['decode_steps']} decode steps, slot utilization "
+          f"{engine.stats['decode_steps']} decode steps in "
+          f"{engine.stats['megasteps']} megasteps (chunk "
+          f"{engine.decode_chunk}), slot utilization "
           f"{engine.slot_utilization:.2f}")
     if head_cache is not None:
         hs = head_cache.stats
@@ -233,7 +258,9 @@ def main(argv=None) -> None:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="rwkv6-1.6b",
-                    help="a ported architecture: rwkv6-1.6b or gemma2-27b")
+                    help="a ported architecture: rwkv6-1.6b, gemma2-27b, "
+                         "granite-8b, stablelm-12b, command-r-35b or "
+                         "musicgen-large")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -250,6 +277,11 @@ def main(argv=None) -> None:
                          "archive was saved with)")
     ap.add_argument("--quant", default=None, choices=["int8", "int4"],
                     help="quantize an f32 head's counts on load")
+    ap.add_argument("--decode-chunk", type=int, default=1,
+                    help="decode K tokens per megastep (launch/decode_loop.py;"
+                         " on the card a CUDA graph of one step replayed K "
+                         "times), for generate and --engine; 1 = the "
+                         "per-token host loop")
     ap.add_argument("--engine", action="store_true",
                     help="serve a request stream through the "
                          "continuous-batching engine (--batch slots) instead "
@@ -278,6 +310,8 @@ def main(argv=None) -> None:
         if args.head_path:
             ap.error("--tenants distills one shared head in process; "
                      "--head-path is not supported")
+    if args.decode_chunk < 1:
+        ap.error("--decode-chunk must be >= 1")
     if (args.quant or args.backend) and not args.sketch_head:
         ap.error("--quant/--backend apply to the sketch head; add "
                  "--sketch-head")
@@ -308,13 +342,14 @@ def main(argv=None) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t0 = time.perf_counter()
-    out = lm.generate(prompts, args.gen)
+    out = lm.generate(prompts, args.gen, decode_chunk=args.decode_chunk)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dur = time.perf_counter() - t0
     print(f"arch={lm.cfg.name} head={lm.head.describe()} device={device} "
           f"served {args.batch} seqs x {args.gen} new tokens in {dur:.3f}s "
-          f"({args.batch * args.gen / dur:.1f} new tok/s)")
+          f"({args.batch * args.gen / dur:.1f} new tok/s, decode chunk "
+          f"{args.decode_chunk})")
     print("sample token ids:", out[0, :24].tolist())
 
 

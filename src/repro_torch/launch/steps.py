@@ -1,4 +1,9 @@
-"""Serving steps: the bulk prefill and one decode step through a head."""
+"""Serving steps: the bulk prefill and one decode step through a head.
+
+``serve_step`` never writes into the cache it is given; its in-place twin
+``serve_step_`` consumes the cache and writes the step into it (the decode
+loops of ``generate``, the engine and ``launch/decode_loop.py`` run it).
+"""
 
 from __future__ import annotations
 
@@ -8,16 +13,21 @@ import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import softcap
-from repro_torch.models.model import decode_step, forward, mask_cache_update
+from repro_torch.models.model import (backbone, decode_step, decode_step_,
+                                      dense_logits, final_hidden,
+                                      mask_cache_update)
 
 
 def prefill_step(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
                  cache: dict) -> Tuple[torch.Tensor, dict]:
-    """The whole (B, P) prompt in one forward pass through the dense head:
-    returns the last position's logits (B, V) and the filled cache."""
-    logits, new_cache = forward(params, tokens, cfg, cache=cache,
-                                cache_pos=0)
-    return logits[:, -1], new_cache
+    """The whole (B, P) prompt in one forward pass that fills the cache;
+    returns the last position's logits (B, V) through the dense head and
+    the filled cache.  Only the last position is unembedded (and
+    softcapped): the (B, P, V) logits of the other positions are never
+    made."""
+    x, new_cache = backbone(params, tokens, cfg, cache=cache, cache_pos=0)
+    h = final_hidden(params, x, cfg)
+    return dense_logits(params, h[:, -1], cfg), new_cache
 
 
 def serve_step(params: dict, cache: dict, tokens: torch.Tensor,
@@ -49,3 +59,25 @@ def serve_step(params: dict, cache: dict, tokens: torch.Tensor,
     if active is not None:
         new_cache = mask_cache_update(cache, new_cache, active)
     return logits, new_cache
+
+
+def serve_step_(params: dict, cache: dict, tokens: torch.Tensor,
+                cfg: ModelConfig, head=None,
+                active: Optional[torch.Tensor] = None, *, pos=None,
+                head_params=None) -> Tuple[torch.Tensor, dict]:
+    """In-place twin of :func:`serve_step`: ``cache`` is consumed, the step
+    written into it (inactive rows unchanged), and returned with the
+    (B, V) logits, which equal ``serve_step``'s bit for bit.  ``pos`` may
+    be an int, a 0-d tensor or a (B,) tensor (see ``decode_step_``)."""
+    if head is None or not head.needs_hidden:
+        logits, cache = decode_step_(params, cache, tokens, cfg,
+                                     cache_pos=pos, active=active)
+    else:
+        hidden, cache = decode_step_(params, cache, tokens, cfg,
+                                     cache_pos=pos, return_hidden=True,
+                                     active=active)
+        logits = head.apply(head.params if head_params is None
+                            else head_params, hidden)
+        if cfg.final_logit_softcap:
+            logits = softcap(logits, cfg.final_logit_softcap)
+    return logits, cache

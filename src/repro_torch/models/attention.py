@@ -17,7 +17,10 @@ cross-attention.  Two regimes:
 The cache is ``(B, S_max, n_kv, head_dim)`` bf16; a sliding-window layer
 keeps a ring of ``min(max_seq, window)`` slots.  A scalar ``cache_pos``
 (tokens already cached) is a host integer here; a per-slot one is a (B,)
-tensor (continuous batching).  Functions never write into their inputs.
+tensor (continuous batching).  ``attention`` never writes into its inputs;
+its in-place twin ``attention_`` (one decode token, per-slot positions on
+the device) writes the new keys and values into the cache it is given,
+which is what a captured decode step needs (``launch/decode_loop.py``).
 """
 
 from __future__ import annotations
@@ -242,3 +245,54 @@ def attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
             out = attend(q, new_cache.k, new_cache.v, positions, k_pos, cfg)
     out = out.reshape(b, s, cfg.n_heads * cfg.head_dim)
     return out @ params["wo"], new_cache
+
+
+def attention_(params: dict, x: torch.Tensor, positions: torch.Tensor,
+               cfg: AttentionConfig, cache: KVCache, cache_pos: torch.Tensor,
+               active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The in-place twin of :func:`attention`'s per-slot decode: one token
+    a row, x (B, 1, d), ``positions`` (B, 1) and ``cache_pos`` (B,) on the
+    device.  Each row's key and value go into ``cache`` at its own slot
+    (``cache_pos`` mod the ring on a windowed layer) by a device index, and
+    the attention reads the written cache; returns the output only.
+
+    With ``active`` (B,) bool, an inactive row's slot gets its old key and
+    value back after the attention: the cache ends as
+    ``mask_cache_update`` leaves it and every row's output is what
+    :func:`attention` gives, bit for bit.  A scalar ``cache_pos``, expanded
+    to every row, gives :func:`attention`'s scalar decode bit for bit too
+    (the same masks and RoPE angles, element by element).
+    """
+    b, s, _ = x.shape
+    if s != 1:
+        raise ValueError(f"attention_ decodes one token a row, got {s}")
+    q = (x @ params["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = (x @ params["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = (x @ params["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    size = cache.k.shape[1]
+    ring = bool(cfg.window) and cfg.window <= size
+    # A parked engine slot whose request used its whole budget sits one past
+    # the cache's end; its write lands on the last slot and, inactive, gets
+    # the old value back (the JAX package's scatter drops it instead).
+    slot = cache_pos % size if ring else cache_pos.clamp(max=size - 1)
+    bi = torch.arange(b, device=x.device)
+    k_new, v_new = k[:, 0].to(cache.k.dtype), v[:, 0].to(cache.v.dtype)
+    if active is not None:
+        k_old, v_old = cache.k[bi, slot], cache.v[bi, slot]
+    cache.k.index_put_((bi, slot), k_new)
+    cache.v.index_put_((bi, slot), v_new)
+    if ring:
+        k_pos = _ring_positions(size, cache_pos, x.device)
+    else:
+        i = torch.arange(size, device=x.device)[None, :]
+        k_pos = torch.where(i < cache_pos[:, None] + 1, i, _INT32_MAX)
+    out = _attend_full(q, cache.k, cache.v, positions, k_pos, cfg)
+    if active is not None:
+        keep = active[:, None, None]
+        cache.k.index_put_((bi, slot), torch.where(keep, k_new, k_old))
+        cache.v.index_put_((bi, slot), torch.where(keep, v_new, v_old))
+    out = out.reshape(b, s, cfg.n_heads * cfg.head_dim)
+    return out @ params["wo"]

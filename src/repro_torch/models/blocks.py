@@ -3,7 +3,8 @@
 A layer is a mixer followed by an FFN, pre-norm residual style: rwkv's
 time-mix and channel-mix (its own FFN), or causal self-attention
 (``attn``, ``attn_local`` with the config's window, ``attn_global``
-without one) followed by a dense SwiGLU FFN."""
+without one) followed by a dense SwiGLU FFN.  ``apply_layer`` returns a new
+cache; its decode twin ``apply_layer_`` writes into the one it is given."""
 
 from __future__ import annotations
 
@@ -105,3 +106,46 @@ def apply_layer(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
     h2 = rms_norm(x, params["norm2"], eps)
     f = params["ffn"]
     return x + swiglu(h2, f["w_gate"], f["w_up"], f["w_down"]), new_cache
+
+
+def _commit_(dst: torch.Tensor, new: torch.Tensor,
+             active: Optional[torch.Tensor]) -> None:
+    """``dst`` ← ``new`` (cast to dst's dtype), or only on the rows (axis 0)
+    where ``active``: the value ``mask_cache_update`` would leave."""
+    new = new.to(dst.dtype)
+    if active is not None:
+        new = torch.where(active.reshape(-1, *([1] * (dst.dim() - 1))),
+                          new, dst)
+    dst.copy_(new)
+
+
+def apply_layer_(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
+                 *, positions: Optional[torch.Tensor], cache,
+                 cache_pos: Optional[torch.Tensor],
+                 active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The in-place decode twin of :func:`apply_layer`: one token a row, the
+    layer's new cache written into ``cache`` (where ``active``, when
+    given), the residual stream returned.  ``positions`` (B, 1) and
+    ``cache_pos`` (B,) are device tensors (the attention kinds read them).
+    The result and the written cache equal ``apply_layer``'s followed by
+    ``mask_cache_update``, bit for bit."""
+    _check_kind(kind)
+    eps = cfg.norm_eps
+    h = rms_norm(x, params["norm1"], eps)
+    if kind == "rwkv":
+        delta, tm_last, new_state = rwkv_mod.rwkv_time_mix(
+            params["mixer"], h, prev=cache.tm_prev, state0=cache.state)
+        x = x + delta
+        h2 = rms_norm(x, params["norm2"], eps)
+        delta2, cm_last = rwkv_mod.rwkv_channel_mix(
+            params["mixer"], h2, prev=cache.cm_prev)
+        _commit_(cache.tm_prev, tm_last, active)
+        _commit_(cache.cm_prev, cm_last, active)
+        _commit_(cache.state, new_state, active)
+        return x + delta2
+    delta = attn_mod.attention_(params["mixer"], h, positions,
+                                _attn_cfg(cfg, kind), cache, cache_pos, active)
+    x = x + delta
+    h2 = rms_norm(x, params["norm2"], eps)
+    f = params["ffn"]
+    return x + swiglu(h2, f["w_gate"], f["w_up"], f["w_down"])

@@ -22,8 +22,10 @@ def rope_frequencies(head_dim: int, theta: float,
     """``1 / theta^(i / half)`` for i < head_dim / 2, in f32."""
     half = head_dim // 2
     exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exps)
+    # theta by a fill, not a host-to-device copy: a captured decode step
+    # (launch/decode_loop.py) may make no copy from the host.
+    return 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                      device=device), exps)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -67,6 +69,14 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return table[tokens.long()]
+
+
+def embed_scaled(tokens: torch.Tensor, table: torch.Tensor,
+                 d_model: int) -> torch.Tensor:
+    """``embed(tokens) · sqrt(d_model)``, the factor rounded to bf16 first
+    as the JAX package rounds it (a device fill, no copy from the host)."""
+    return embed(tokens, table) * torch.full(
+        (), d_model ** 0.5, dtype=torch.bfloat16, device=tokens.device)
 
 
 def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:

@@ -416,6 +416,46 @@ def test_forward_teacher_forced_matches_jax(jx, smoke, return_hidden):
     assert_bf16_backbone_close(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("arch", ["granite-8b", "stablelm-12b",
+                                  "command-r-35b", "musicgen-large"])
+def test_plain_attention_arch_matches_jax(jx, arch):
+    """The four plain-attention archs (one ``attn`` kind, no window, no
+    softcap; GQA or MHA) on their smoke configs and JAX's params: the
+    teacher-forced forward's logits, then a 32-token prefill and one decode
+    step's hidden, under the bf16 backbone rule; the in-place decode twin
+    gives the functional step's hidden bit for bit."""
+    jnp = jx["jnp"]
+    jcfg, cfg = jx["config"](arch, smoke=True), get_config(arch, smoke=True)
+    assert cfg.pattern == ("attn",) and cfg.attention.window is None
+    jparams = jx["model"].init_model(jx["jax"].random.PRNGKey(0), jcfg)
+    params = params_from_numpy(jx["jax"].tree.map(np.asarray, jparams), "cpu")
+    toks = np.random.default_rng(5).integers(0, cfg.vocab_size, (3, 40))
+    toks = toks.astype(np.int32)
+    want, _, _ = jx["model"].forward(jparams, jnp.asarray(toks), jcfg,
+                                     remat=False)
+    got, _ = model.forward(params, torch.from_numpy(toks), cfg)
+    assert got.shape == want.shape
+    assert_bf16_backbone_close(got.numpy(), np.asarray(want))
+
+    jcache = jx["model"].init_decode_cache(jcfg, 3, 40)
+    _, jcache, _ = jx["model"].forward(
+        jparams, jnp.asarray(toks[:, :32]), jcfg, cache=jcache,
+        cache_pos=jnp.zeros((), jnp.int32), remat=False)
+    want, _ = jx["model"].decode_step(jparams, jcache,
+                                      jnp.asarray(toks[:, 32:33]),
+                                      jnp.asarray(32, jnp.int32), jcfg,
+                                      return_hidden=True)
+    _, cache = prefill_step(params, torch.from_numpy(toks[:, :32]), cfg,
+                            model.init_decode_cache(cfg, 3, 40, "cpu"))
+    tok = torch.from_numpy(toks[:, 32:33])
+    got, _ = model.decode_step(params, cache, tok, cfg, cache_pos=32,
+                               return_hidden=True)
+    assert_bf16_backbone_close(got.numpy(), np.asarray(want))
+    mine, _ = model.decode_step_(params, cache, tok, cfg, cache_pos=32,
+                                 return_hidden=True)
+    assert torch.equal(mine, got)
+
+
 def test_ring_prefill_then_decode_matches_jax(jx, smoke):
     """Prefill 12 tokens into caches of max_seq 18: the local layer's ring
     (8 slots) wraps.  The caches equal JAX's (the first layer bit for bit,

@@ -322,10 +322,9 @@ def test_retired_slots_reset_to_fresh_cache(smoke):
 
 def test_engine_refuses_unported_modes(smoke):
     lm = _lm(smoke)
-    for kw in ({"decode_chunk": 4}, {"spec_decode": 2}):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            lm.engine(2, 10, **kw)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 6"):
+        lm.engine(2, 10, spec_decode=2)
+    with pytest.raises(NotImplementedError, match="item 7"):
         lm.engine(2, 10, paged=True)
 
 

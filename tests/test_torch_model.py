@@ -49,7 +49,9 @@ def _f32(a):
     return np.asarray(jnp.asarray(a).astype(jnp.float32))
 
 
-@pytest.mark.parametrize("arch", [ARCH, "gemma2-27b"])
+@pytest.mark.parametrize("arch", [ARCH, "gemma2-27b", "granite-8b",
+                                  "stablelm-12b", "command-r-35b",
+                                  "musicgen-large"])
 @pytest.mark.parametrize("smoke", [False, True])
 def test_config_matches_jax(smoke, arch):
     """Field by field; the port's own dataclasses (``AttentionConfig``)

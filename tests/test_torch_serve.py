@@ -233,6 +233,21 @@ def test_generate_teacher_forced_against_jax(smoke_models, jax_archives,
     bf16 tolerance, each sketched step's logits agree with JAX's head on
     the port's hidden, and every emitted token is the argmax of the port's
     own logits."""
+    _teacher_forced_against_jax(smoke_models, jax_archives, kind, which, 1)
+
+
+@pytest.mark.parametrize("kind,which", [("dense", None), ("sketch", None),
+                                        ("sketch", "int8")])
+def test_chunked_generate_teacher_forced_against_jax(smoke_models,
+                                                     jax_archives, kind,
+                                                     which):
+    """The same check on the stream of ``generate(decode_chunk=3)``: two
+    megasteps (3 and 1 steps) after the prefill's token."""
+    _teacher_forced_against_jax(smoke_models, jax_archives, kind, which, 3)
+
+
+def _teacher_forced_against_jax(smoke_models, jax_archives, kind, which,
+                                decode_chunk):
     jcfg, cfg, jparams, params, prompts = smoke_models
     head = None
     lm = LM.from_config(ARCH, smoke=True, device="cpu", params=params)
@@ -241,7 +256,7 @@ def test_generate_teacher_forced_against_jax(smoke_models, jax_archives,
         jh = jax_load_head(jax_archives[which])
         lm = lm.with_head(head)
     gen = 5
-    tokens = lm.generate(prompts, gen)
+    tokens = lm.generate(prompts, gen, decode_chunk=decode_chunk)
     assert tokens.shape == (3, 12 + gen) and tokens.dtype == torch.int64
     np.testing.assert_array_equal(tokens[:, :12].numpy(), prompts)
 
