@@ -136,7 +136,23 @@ kernels through the same wrappers and checks.
    ``LM.generate`` dense and fused at decode_chunk 1 and 16, equal
    streams, launch counts, new tok/s, init and generate peak memory, the
    phase's seconds.
-14. Prints the ``{"kernels": [...]}`` line (race_update's launches from the
+14. Speculative decode and the paged engine (PR 21): after each decode
+   loop phase (rwkv6: fused and two_kernel drafts; gemma2: fused),
+   ``LM.generate(spec_decode=K)`` for K in SPEC_KS, each stream equal to
+   the dense one, launch counts (the draft head's kernels once a draft
+   step), acceptance rate, mean m, ms a tick and new tok/s; the dense
+   head as the draft (acceptance exactly 1.0, verify logits equal to the
+   captured draft steps' bit for bit).  After rwkv6's engine phase, the
+   speculative engine (K=4, fused) against the dense engine on 12
+   staggered requests of distinct prompt lengths; after each engine
+   phase, the paged engine (page 16, fused) against the contiguous one on
+   a trace that repeats two prompts (prefix hits, COW copies on gemma2).
+   For gemma2, before its long prefill, the memo: generate at
+   decode_chunk 16 over three prompt lengths (one loop kept), the
+   long-prompt peak at decode_chunk 16 against 1 (less than one KV cache
+   apart), and speculative decode at the wrapped ring (K=4, the dense
+   stream, the snapshot's bytes).
+15. Prints the ``{"kernels": [...]}`` line (race_update's launches from the
    refresh path, race_query's from the paper phase, flash_attn's from the
    gemma2 main path with its record at the main path's global-layer
    prefill, flex_attention as its library call, softcap-free kernel and
@@ -190,9 +206,9 @@ from repro_torch.kernels.sketch_head.ops import (dequantize_sketch_ref,
                                                  sketch_head_ref)
 from repro_torch.data.tabular import DATASETS
 from repro_torch.launch import paper_repro, serve
-from repro_torch.launch.decode_loop import WARMUP_STEPS
+from repro_torch.launch.decode_loop import WARMUP_STEPS, SpecLoop
 from repro_torch.launch.serve import engine_stream
-from repro_torch.launch.steps import prefill_step, serve_step, serve_step_
+from repro_torch.launch.steps import prefill_step, prefill_step_, serve_step, serve_step_
 from repro_torch.models import model
 from repro_torch.models.attention import KVCache
 from repro_torch.models.config import SketchHeadConfig
@@ -234,6 +250,10 @@ ENGINE_CHUNK = 4                    # the engine's megastep size
 # weights; 32 layers peak near 73 GB.
 PLAIN_ARCHS = (("granite-8b", None), ("stablelm-12b", None),
                ("musicgen-large", None), ("command-r-35b", 32))
+SPEC_KS = (4, 16)                   # speculative draft lengths
+PAGE_SIZE = 16                      # the paged engine's tokens a page
+MEMO_PROMPTS = (16, 32, 64)         # generate's prompt lengths in the memo phase
+MEMO_LONG = 4100                    # a prompt past gemma2's 4096-slot window
 
 
 def card_line() -> str:
@@ -725,8 +745,8 @@ def decode_loop_phase(lm, heads, prompts, want_launches, eager, steps):
     captured step itself: ms/step as megasteps of each K (a host fetch per
     megastep), its kernel time, launches and busy share over 15 replays
     under torch.profiler, the host's time to enqueue a replay, beside the
-    eager step of ``step_profile`` (``steps``).  Returns {head: {K: new
-    tok/s}}."""
+    eager step of ``step_profile`` (``steps``).  Returns {head: the
+    captured step's ms/step at decode_chunk 16}."""
     cfg = lm.cfg
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -780,7 +800,7 @@ def decode_loop_phase(lm, heads, prompts, want_launches, eager, steps):
               flush=True)
         for kname, us in top:
             print(f"    {us / 1e3:8.4f} ms  {kname[:90]}")
-        report[name] = tps
+        report[name] = ms[16]
     torch.cuda.synchronize()
     print(f"decode loop {cfg.name}: peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
           f"GiB allocated, reserved {reserved / 2 ** 30:.2f} -> "
@@ -1866,6 +1886,308 @@ def arch_phase(dev, arch, n_layers):
     free_card()
 
 
+def draft_launches(head):
+    """The kernels one draft step of ``head`` launches (per step)."""
+    if not head.needs_hidden:
+        return []
+    return ["fused_decode"] if head.backend == "fused" else ["lsh_hash", "sketch_head"]
+
+
+def spec_tick_ms(loop, k, tok, reps=5):
+    """Wall ms of one speculative tick of ``k`` draft steps (k replays, the
+    verify, the acceptance, the rollback) with its host fetch of ``m``;
+    median of ``reps`` after one more.  The carry is reloaded each time."""
+    walls = []
+    for _ in range(reps + 1):
+        loop.load(tok, PROMPT)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m, _, _ = loop.run(k)
+        int(m)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(walls[1:]))
+
+
+def dense_draft_check(lm, prompts, dense):
+    """The dense head as the draft: ``generate(spec_decode=4)`` accepts
+    every draft (rate exactly 1.0) and gives the dense stream, and on one
+    tick the verify's logits equal the captured draft steps' logits bit
+    for bit (the same (B, 1, d) unembed, eager and replayed)."""
+    cfg, dev = lm.cfg, prompts.device
+    served = lm.with_head(DenseHead())
+    tokens, stats = served.generate(prompts, GEN, spec_decode=4, return_stats=True)
+    if stats["accepted_draft_tokens"] != stats["draft_tokens"] or not torch.equal(tokens, dense):
+        raise AssertionError(f"{cfg.name} dense-head draft: acceptance "
+                             f"{stats['accepted_draft_tokens']}/{stats['draft_tokens']}, or "
+                             f"another stream than dense decode")
+    with torch.inference_mode():
+        cache = model.init_decode_cache(cfg, prompts.shape[0], PROMPT + GEN, device=dev)
+        logits, cache = prefill_step_(lm.params, prompts, cfg, cache)
+        loop = SpecLoop(lm.params, cfg, DenseHead(), cache, k=4, masked=False,
+                        per_slot=False, record_logits=True)
+        loop.load(logits.argmax(-1), PROMPT)
+        _, m, acc, _ = loop.run(4)
+        same = torch.equal(loop.verify_logits, loop.draft_logits)
+    loop.close()
+    if int(m) != 4 or not bool((acc == 4).all()) or not same:
+        raise AssertionError(f"{cfg.name} dense-head draft tick: m={int(m)}, acc "
+                             f"{acc.tolist()}, verify logits equal the draft logits: {same}")
+    print(f"{cfg.name} spec generate, dense-head draft K=4: acceptance "
+          f"{stats['accepted_draft_tokens']}/{stats['draft_tokens']} = 1.0 exactly, "
+          f"{stats['verify_calls']} verify calls, the dense stream; one tick's verify "
+          f"logits equal its {int(m)} captured draft steps' logits bit for bit", flush=True)
+
+
+def spec_phase(lm, heads, prompts, want_launches, eager, steps):
+    """``LM.generate(spec_decode=K)`` for K in SPEC_KS through each sketched
+    head (BATCH x PROMPT prompts, GEN new tokens), after a run that
+    captures the draft step: launch counts zeroed before and checked after
+    each run (each draft head's kernels once a draft step, flash_attn once
+    a layer in the prefill), every stream equal to the eager dense one;
+    acceptance rate, mean ``m``, ms a tick (the tick alone, its host fetch
+    included) beside the captured step's ms, and new tok/s.  Then the
+    dense head as the draft (``dense_draft_check``)."""
+    cfg, dense = lm.cfg, eager["dense"]
+    prefill = {"flash_attn": cfg.n_layers} if "flash_attn" in want_launches["dense"] else {}
+    for name, head in heads.items():
+        if not head.needs_hidden:
+            continue
+        served = lm.with_head(head)
+        for k in SPEC_KS:
+            served.generate(prompts, GEN, spec_decode=k)                  # the capture
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            tokens, stats = served.generate(prompts, GEN, spec_decode=k, return_stats=True)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launched = counts()
+            want = dict(prefill, **{w: stats["decode_steps"] for w in draft_launches(head)})
+            expect_launches(f"{cfg.name} {name} spec_decode={k}", launched, want)
+            if not torch.equal(tokens, dense):
+                raise AssertionError(f"{cfg.name} {name} spec_decode={k}: another stream "
+                                     f"than dense decode")
+            loop = next(v for key, v in served._loops.items() if key[:2] == ("spec", k))
+            if loop.graph is None:
+                raise AssertionError(f"{cfg.name} {name}: the draft step was not captured")
+            tick = spec_tick_ms(loop, k, tokens[:, PROMPT])
+            rate = stats["accepted_draft_tokens"] / stats["draft_tokens"]
+            print(f"{cfg.name} spec generate head={name} K={k}: the dense stream token for "
+                  f"token; acceptance {stats['accepted_draft_tokens']}/{stats['draft_tokens']} "
+                  f"= {rate:.3f}, mean m {(GEN - 1) / stats['verify_calls']:.3f} over "
+                  f"{stats['verify_calls']} ticks, {stats['decode_steps']} draft steps; "
+                  f"{tick:.3f} ms a tick of {k} draft steps (captured step "
+                  f"{steps[name]:.3f} ms); {BATCH * GEN / dt:.1f} new tok/s (prefill "
+                  f"included); launches {launched}", flush=True)
+        for loop in served._loops.values():
+            loop.close()
+    dense_draft_check(lm, prompts, dense)
+
+
+def spec_engine_phase(lm, frozen):
+    """The engine's speculative ticks (spec_decode 4, fused head) against
+    the dense engine (decode_chunk 1) on N_REQUESTS staggered requests
+    over SLOTS slots: every stream equal.  Prompt lengths all differ, so
+    every prefill is a batch of one in both engines whatever the clock
+    does (a spec tick advances it by m).  fused_decode once a draft step,
+    the capture's warm-up steps once."""
+    cfg, dev = lm.cfg, lm.device
+    rng = np.random.default_rng(12)
+    stream = [(rng.integers(0, cfg.vocab_size, 20 + i, dtype=np.int32),
+               GEN if i % 2 else GEN // 4, i) for i in range(N_REQUESTS)]
+    max_seq = 20 + N_REQUESTS + GEN
+    results = {}
+    for name, head, spec in (("dense", DenseHead(), 0),
+                             ("fused", SketchHead(cfg=SERVE_HEAD, backend="fused",
+                                                  params=frozen), 4)):
+        eng = lm.with_head(head).engine(SLOTS, max_seq, spec_decode=spec)
+        for p, g, a in stream:
+            eng.submit(p, g, arrival=a)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        fin = eng.run()
+        torch.cuda.synchronize()
+        results[name] = (eng, fin, time.perf_counter() - t0, counts())
+    (d_eng, d_fin, d_dt, _), (eng, fin, dt, launched) = results["dense"], results["fused"]
+    expect_launches("spec engine", launched,
+                    {"fused_decode": eng.stats["decode_steps"] + WARMUP_STEPS})
+    if fin != d_fin:
+        raise AssertionError("spec engine: a stream differs from the dense engine's")
+    st, n_new = eng.stats, sum(len(v) for v in fin.values())
+    print(f"{cfg.name} spec engine (fused drafts, K=4): all {len(fin)} streams equal the dense "
+          f"engine's; {st['verify_calls']} verify calls, acceptance "
+          f"{st['accepted_draft_tokens']}/{st['draft_tokens']} = "
+          f"{st['accepted_draft_tokens'] / st['draft_tokens']:.3f}, {st['megasteps']} ticks, "
+          f"{st['host_syncs']} host syncs, {st['decode_steps']} draft steps, "
+          f"{n_new / dt:.1f} new tok/s ({dt * 1e3 / st['megasteps']:.2f} ms a tick); dense "
+          f"engine {d_eng.stats['megasteps']} ticks, {d_eng.stats['host_syncs']} host syncs, "
+          f"{n_new / d_dt:.1f} new tok/s ({d_dt * 1e3 / d_eng.stats['megasteps']:.2f} ms a "
+          f"tick); launches {launched}", flush=True)
+
+
+def time_decode_ticks(backend, name):
+    """Wrap ``backend.<name>`` (an engine's per-token decode call) to
+    record each call's wall ms between two synchronizations; returns the
+    list it fills.  The engine syncs on the logits right after the call,
+    so the added synchronizations cost next to nothing."""
+    fn, walls = getattr(backend, name), []
+
+    def timed_call(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    setattr(backend, name, timed_call)
+    return walls
+
+
+def paged_phase(lm, frozen):
+    """The paged engine (PAGE_SIZE tokens a page, fused head) against the
+    contiguous engine on one trace of N_REQUESTS staggered requests over
+    SLOTS slots: every third prompt one of two shared prompts (lengths 24
+    and 40: partial last pages, so decode writes fork them), the others of
+    lengths of their own, so every prefill is a batch of one in both
+    engines.  Every stream equal, prefix hits > 0, COW copies > 0 where
+    there are arenas; fused_decode once a tick, flash_attn once a layer a
+    prefill (none at a hit).  Prints hits and queries, pages in use and
+    their peak, COW copies, ms a tick and new tok/s of each engine."""
+    cfg, dev = lm.cfg, lm.device
+    rng = np.random.default_rng(11)
+    shared = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32) for n in (24, 40)]
+    lengths = iter(n for n in range(17, 64) if n not in (24, 40))
+    stream = []
+    for i in range(N_REQUESTS):
+        prompt = (shared[(i // 3) % 2] if i % 3 == 2 else
+                  rng.integers(0, cfg.vocab_size, next(lengths), dtype=np.int32))
+        stream.append((prompt, GEN if i % 2 else GEN // 4, i))
+    max_seq = 64 + GEN
+    served = lm.with_head(SketchHead(cfg=SERVE_HEAD, backend="fused", params=frozen))
+    attn = any(k != "rwkv" for k in cfg.pattern)
+    results = {}
+    for paged in (False, True):
+        eng = served.engine(SLOTS, max_seq, paged=paged, page_size=PAGE_SIZE)
+        for p, g, a in stream:
+            eng.submit(p, g, arrival=a)
+        ticks = time_decode_ticks(eng.backend, "paged_decode" if paged else "decode")
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        fin = eng.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        want = {"fused_decode": eng.stats["decode_steps"]}
+        if attn:
+            want["flash_attn"] = cfg.n_layers * eng.stats["prefill_batches"]
+        expect_launches(f"{cfg.name} {'paged' if paged else 'contiguous'} engine", counts(),
+                        want)
+        results[paged] = (eng, fin, dt, float(np.median(ticks)))
+    (c_eng, c_fin, c_dt, c_tick), (eng, fin, dt, tick) = results[False], results[True]
+    st, n_new = eng.stats, sum(len(v) for v in fin.values())
+    if fin != c_fin:
+        raise AssertionError(f"{cfg.name} paged engine: a stream differs from the contiguous "
+                             f"engine's")
+    if not st["prefix_hits"] or (attn and not st["cow_copies"]):
+        raise AssertionError(f"{cfg.name} paged engine: {st['prefix_hits']} prefix hits, "
+                             f"{st['cow_copies']} COW copies")
+    eng.page_pool.check_invariants(eng.prefix.external_refs())
+    print(f"{cfg.name} paged engine (page {PAGE_SIZE}, fused head): all {len(fin)} streams "
+          f"equal the contiguous engine's; prefix hits {st['prefix_hits']}/"
+          f"{st['prefix_queries']}, prefill batches {st['prefill_batches']} (contiguous "
+          f"{c_eng.stats['prefill_batches']}), pages in use {st['pages_in_use']} (peak "
+          f"{st['pages_in_use_peak']} of {eng.page_pool.num_pages}), {st['cow_copies']} COW "
+          f"copies; {dt * 1e3 / st['megasteps']:.2f} ms a tick with admissions and "
+          f"{n_new / dt:.1f} new tok/s against the contiguous engine's "
+          f"{c_dt * 1e3 / c_eng.stats['megasteps']:.2f} ms and {n_new / c_dt:.1f} "
+          f"({st['megasteps']} and {c_eng.stats['megasteps']} ticks); the decode call alone "
+          f"(gather, step, commit) {tick:.2f} ms against {c_tick:.2f} ms (medians)", flush=True)
+
+
+def cache_gib(cache):
+    return sum(x.numel() * x.element_size() for c in cache["periods"].values()
+               for x in c) / 2 ** 30
+
+
+def memo_phase(glm, frozen):
+    """gemma2-27b at full width: (a) ``generate`` at decode_chunk 16 over
+    MEMO_PROMPTS (B=BATCH), each stream equal to decode_chunk 1's, the
+    memo's size after each held to one loop; (b) B=1 and a MEMO_LONG-token
+    prompt: the peak allocated above the resident state at decode_chunk 1
+    and at 16, whose gap must stay below one KV cache (the loop prefills
+    into its own cache); the memory reserved before and after the loops
+    are closed (their graph pools released); (c) speculative decode at
+    that wrapped ring (K=4, fused drafts, 8 new tokens): the dense stream,
+    with the ring snapshot's bytes."""
+    cfg, dev = glm.cfg, glm.device
+    lm = glm.with_head(DenseHead())
+    gen = torch.Generator(dev).manual_seed(7)
+    for p in MEMO_PROMPTS:
+        prompts = torch.randint(0, cfg.vocab_size, (BATCH, p), generator=gen, device=dev)
+        want = lm.generate(prompts, GEN)
+        got = lm.generate(prompts, GEN, decode_chunk=16)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want) or len(lm._loops) != 1:
+            raise AssertionError(f"memo: prompt {p}: {len(lm._loops)} loops, or another stream "
+                                 f"than decode_chunk 1")
+        print(f"{cfg.name} memo: prompt {p}, decode_chunk 16 equal to 1, {len(lm._loops)} loop "
+              f"in the memo, {torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB reserved",
+              flush=True)
+    prompt = torch.randint(0, cfg.vocab_size, (1, MEMO_LONG), generator=gen, device=dev)
+    kv = cache_gib(model.init_decode_cache(cfg, 1, MEMO_LONG + 8, device="meta"))
+    peaks, streams = {}, {}
+    for k in (1, 16):
+        free_card()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        streams[k] = lm.generate(prompt, 8, decode_chunk=k)
+        torch.cuda.synchronize()
+        peaks[k] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    if not torch.equal(streams[16], streams[1]) or not peaks[16] - peaks[1] < kv:
+        raise AssertionError(f"memo: long prompt peaks {peaks} GiB (one KV cache {kv:.3f} GiB), "
+                             f"or another stream at decode_chunk 16")
+    free_card()
+    reserved = torch.cuda.memory_reserved() / 2 ** 30
+    n_loops = len(lm._loops)
+    for loop in lm._loops.values():
+        loop.close()
+    lm._loops.clear()
+    free_card()
+    print(f"{cfg.name} memo: B=1, {MEMO_LONG}-token prompt, 8 new tokens: peak above the "
+          f"resident state {peaks[1]:.3f} GiB at decode_chunk 1, {peaks[16]:.3f} GiB at 16 "
+          f"(gap {peaks[16] - peaks[1]:.3f} GiB, one KV cache {kv:.3f} GiB), equal streams; "
+          f"{n_loops} loops in the memo; reserved {reserved:.2f} GiB -> "
+          f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB after closing them", flush=True)
+
+    spec = glm.with_head(SketchHead(cfg=SERVE_HEAD, backend="fused", params=frozen))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    tokens, stats = spec.generate(prompt, 8, spec_decode=4, return_stats=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    expect_launches("spec at the wrapped ring", counts(),
+                    {"flash_attn": cfg.n_layers,
+                     "fused_decode": stats["decode_steps"] + WARMUP_STEPS})
+    (loop,) = spec._loops.values()
+    snap = sum(x.numel() * x.element_size() for s in loop.snap["periods"].values()
+               if s is not None for x in s)
+    ring = loop.cache["periods"]["pos0"].k
+    whole = 2 * 4 * ring.numel() * ring.element_size()
+    if not torch.equal(tokens, streams[1]) or snap == 0:
+        raise AssertionError("spec at the wrapped ring: another stream than dense decode")
+    loop.close()
+    print(f"{cfg.name} spec at the wrapped ring (B=1, {MEMO_LONG}-token prompt, ring of "
+          f"{ring.shape[2]} slots, K=4, fused drafts): the dense stream; acceptance "
+          f"{stats['accepted_draft_tokens']}/{stats['draft_tokens']}, {stats['verify_calls']} "
+          f"ticks; ring snapshot {snap / 2 ** 20:.3f} MiB for K=4 (whole rings each step would "
+          f"be {whole / 2 ** 30:.3f} GiB); {dt:.2f} s with the prefill", flush=True)
+
+
+
 def leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1932,21 +2254,28 @@ def main() -> None:
     flash = timed("flash_attn", flash_phase, dev, timer)
     timed("backbone", backbone_phase, dev)
     runs, recs, lm, frozen, kparams, loop_args = timed("main path", main_path, dev, timer)
-    timed("decode loop", decode_loop_phase, *loop_args)
+    loop_ms = timed("decode loop", decode_loop_phase, *loop_args)
+    timed("spec generate", spec_phase, *loop_args[:5], loop_ms)
     del loop_args
     refresh_launches, recs["race_update"] = timed("refresh f32", refresh_phase, dev, timer, lm,
                                                   kparams, None)
     timed("refresh int8", refresh_phase, dev, timer, lm, kparams, "int8")
     timed("engine", engine_phase, dev, lm, frozen, kparams)
+    timed("spec engine", spec_engine_phase, lm, frozen)
+    timed("paged engine", paged_phase, lm, frozen)
     timed("race_query", query_phase, dev, timer)
     recs["race_query"], query_launches = timed("paper", paper_phase, dev, timer)
     timed("lm distill", lm_distill_phase)
     del lm, frozen, kparams
     free_card()
     glm, gfrozen, gruns, loop_args = timed("gemma2 main path", gemma_main_path, dev, timer)
-    timed("gemma2 decode loop", decode_loop_phase, *loop_args)
+    loop_ms = timed("gemma2 decode loop", decode_loop_phase, *loop_args)
+    timed("gemma2 spec generate", spec_phase, *loop_args[:5], loop_ms)
     del loop_args
     timed("gemma2 engine", gemma_engine_phase, glm, gfrozen)
+    timed("gemma2 paged engine", paged_phase, glm, gfrozen)
+    free_card()
+    timed("gemma2 memo", memo_phase, glm, gfrozen)
     del gfrozen
     free_card()
     timed("gemma2 long prefill", gemma_long_prefill, glm, timer)

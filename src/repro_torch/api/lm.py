@@ -5,6 +5,7 @@
     lm = LM.from_config("rwkv6-1.6b")                     # on the card
     tokens = lm.generate(prompts, max_new_tokens=16)
     tokens = lm.generate(prompts, 16, decode_chunk=16)    # one megastep
+    tokens = lm.generate(prompts, 16, spec_decode=4)      # drafts, dense verify
     lm = lm.with_head(SketchHead.load("head.npz"))        # sketched decode
     finished = lm.serve([(prompt, 16, arrival), ...])     # continuous batching
 """
@@ -41,9 +42,15 @@ class LM:
       head: ``DenseHead`` (default) or a ``SketchHead`` with params.
       device: where params, head params and tokens live.
 
-    ``generate(decode_chunk=K > 1)`` memoizes its decode loop (on the card
-    a captured CUDA graph, holding this LM's params and head) per batch
-    shape in the LM; ``with_head`` starts a new memo.
+    ``generate(decode_chunk=K > 1)`` and ``generate(spec_decode=K)``
+    memoize their decode loops in the LM (on the card a captured CUDA
+    graph, holding this LM's params and head).  A loop owns the call's
+    decode cache, so the memo is bounded: at most one loop per (kind,
+    spec depth, batch size, eos_id/pad_id), a call with another
+    ``max_seq`` replacing that loop, and at most
+    ``launch.decode_loop.MAX_LOOPS`` (4) loops in all, the least recently
+    used dropped first (its cache and graph freed).  ``with_head`` starts
+    a new memo.
     """
 
     params: Any
@@ -89,12 +96,19 @@ class LM:
 
     def generate(self, prompts, max_new_tokens: int, *,
                  eos_id: Optional[int] = None, pad_id: int = 0,
-                 decode_chunk: int = 1) -> torch.Tensor:
+                 decode_chunk: int = 1, spec_decode: int = 0,
+                 return_stats: bool = False):
         """Greedy bulk prefill + decode: (B, P) prompts → (B, P +
         max_new_tokens) int64 tokens (prompt included).  With ``eos_id``,
         a sequence that emits it is finished and later positions hold
         ``pad_id``.  ``decode_chunk=K`` (> 1) decodes K tokens per
-        megastep (``launch/decode_loop.py``), with the same tokens."""
+        megastep (``launch/decode_loop.py``), with the same tokens.
+        ``spec_decode=K`` (> 0) drafts up to K tokens a tick through this
+        LM's head and verifies them with the dense head: the tokens are
+        the dense head's, bit for bit; it excludes ``decode_chunk > 1``.
+        ``return_stats=True`` returns ``(tokens, stats)``: the decode
+        steps, and with ``spec_decode`` the verify calls, draft tokens and
+        accepted draft tokens."""
         from repro_torch.launch.serve import generate
 
         prompts = torch.as_tensor(prompts, device=self.device).long()
@@ -102,14 +116,16 @@ class LM:
             prompts = prompts[None]
         return generate(self.params, self.cfg, prompts, max_new_tokens,
                         head=self.head, eos_id=eos_id, pad_id=pad_id,
-                        decode_chunk=decode_chunk, loops=self._loops)
+                        decode_chunk=decode_chunk, spec_decode=spec_decode,
+                        return_stats=return_stats, loops=self._loops)
 
     # -- continuous batching -------------------------------------------------
 
     def engine(self, n_slots: int, max_seq: int, *,
                sampler=None, eos_id: Optional[int] = None, head_cache=None,
                decode_chunk: int = 1, spec_decode: int = 0,
-               paged: bool = False):
+               paged: bool = False, page_size: int = 16,
+               num_pages: Optional[int] = None):
         """A fresh continuous-batching ``ServeEngine`` over this model and
         head, on this LM's device.
 
@@ -126,26 +142,43 @@ class LM:
             admission checks: ``K > 1`` runs each tick as a megastep of up
             to K steps (``launch/decode_loop.py``), with the same greedy
             streams.
-          spec_decode / paged: not ported yet; anything but the defaults
-            raises ``NotImplementedError``.
+          spec_decode: speculative draft length: every tick drafts up to
+            K tokens through this LM's head and the dense head verifies
+            them, with the dense streams; excludes ``decode_chunk > 1`` and
+            ``head_cache``.
+          paged: keep the attention caches in a shared page pool with
+            per-slot page tables and an exact-prompt prefix cache
+            (``launch/paging.py``) instead of contiguous slot rows: the
+            same streams, repeated prompts prefill once.  Excludes
+            ``decode_chunk > 1`` and ``spec_decode``.
+          page_size: tokens a page (paged only).
+          num_pages: the page pool's size (paged only; sized from
+            ``n_slots`` and ``max_seq`` when omitted).
+
+        Raises:
+          ValueError: an excluded combination, a negative ``spec_decode``
+            or ``page_size < 1``.
         """
         from repro_torch.launch.engine import make_engine
 
         return make_engine(self.params, self.cfg, n_slots, max_seq,
                            head=self.head, sampler=sampler, eos_id=eos_id,
                            decode_chunk=decode_chunk, spec_decode=spec_decode,
-                           paged=paged, head_cache=head_cache,
+                           paged=paged, page_size=page_size,
+                           num_pages=num_pages, head_cache=head_cache,
                            device=self.device)
 
     def serve(self, requests: Iterable, *, n_slots: int = 4,
               max_seq: Optional[int] = None, sampler=None,
-              eos_id: Optional[int] = None,
-              decode_chunk: int = 1) -> Dict[int, List[int]]:
+              eos_id: Optional[int] = None, decode_chunk: int = 1,
+              spec_decode: int = 0, paged: bool = False,
+              page_size: int = 16) -> Dict[int, List[int]]:
         """Serve ``(prompt, max_new_tokens[, arrival])`` requests through
         the engine; returns each request's generated tokens (prompt
         excluded) by request id, in submission order from 0.  ``max_seq``
-        defaults to the longest request; ``decode_chunk`` is the engine's
-        megastep size (see :meth:`engine`)."""
+        defaults to the longest request; ``decode_chunk``,
+        ``spec_decode``, ``paged`` and ``page_size`` are the engine's (see
+        :meth:`engine`)."""
         import numpy as np
 
         reqs = []
@@ -157,7 +190,9 @@ class LM:
         if max_seq is None:
             max_seq = max(len(p) + g for p, g, _ in reqs)
         engine = self.engine(n_slots, max_seq, sampler=sampler, eos_id=eos_id,
-                             decode_chunk=decode_chunk)
+                             decode_chunk=decode_chunk,
+                             spec_decode=spec_decode, paged=paged,
+                             page_size=page_size)
         for prompt, max_new, arrival in reqs:
             engine.submit(prompt, max_new, arrival=arrival)
         return engine.run()

@@ -22,6 +22,24 @@ a scalar ``pos`` (static generate) advances by 1 a step, a (B,) ``pos``
 A replayed graph runs kernels without passing through their Python
 wrappers, so the capture records each wrapper's ``launches`` delta and
 every replay adds it back: the counts still say what ran on the card.
+
+:class:`SpecLoop` is the speculative twin (the JAX package's
+``jitted_spec_megastep``): the serving head drafts K tokens through K
+replays of one captured step, each recording its final hidden, its draft
+token and what the rollback needs (``models.model.cache_snapshot_``);
+then, on the device and with no host sync, the dense head verifies every
+drafted position (``dense_verify_logits``, one (B, 1, d) unembed a
+position, the dense step's own product), the longest matching prefix
+plus the bonus token commits, ``m`` = the least over active rows, and the
+cache rewinds to step ``m`` (``cache_rollback_``).  The tokens are the
+dense head's, bit for bit; the draft head only sets how many commit a
+tick.  The host fetches ``m`` with the block, once a tick.
+
+A loop owns a full decode cache (on the card, a graph pool too), so the
+memo that ``generate`` keeps (``LM._loops``) is bounded: one loop per
+(kind, batch size, retirement spec), a new ``max_seq`` replacing the old
+loop, and at most :data:`MAX_LOOPS` loops, the least recently used
+dropped first (:func:`memo_loop`).
 """
 
 from __future__ import annotations
@@ -38,6 +56,7 @@ from repro_torch.kernels.race_query.ops import race_query
 from repro_torch.kernels.race_update.ops import race_update
 from repro_torch.kernels.sketch_head.ops import sketch_head_logits
 from repro_torch.launch.steps import serve_step_
+from repro_torch.models import model
 from repro_torch.models.config import ModelConfig
 
 #: The kernel wrappers whose ``launches`` a replay adds to.
@@ -45,6 +64,9 @@ COUNTED = (fused_decode_logits, lsh_hash, sketch_head_logits, race_update,
            race_query, flash_attention)
 
 WARMUP_STEPS = 2
+
+#: The most loops a memo keeps (each holds a decode cache).
+MAX_LOOPS = 4
 
 
 def _counts() -> list:
@@ -102,6 +124,7 @@ class DecodeLoop:
         if head_params is not None:
             self.head_params = dict(head_params)
             self.head_params["tenant_ids"] = head_params["tenant_ids"].clone()
+        self.shapes = _shapes(cache)
         self.graph = None
         self.launches = [0] * len(COUNTED)      # per replay, by COUNTED
         if self.device.type == "cuda":
@@ -130,7 +153,7 @@ class DecodeLoop:
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             for _ in range(WARMUP_STEPS):
-                self._step()
+                self._warm_step()
         torch.cuda.current_stream(dev).wait_stream(side)
         before = _counts()
         graph = torch.cuda.CUDAGraph()
@@ -142,6 +165,27 @@ class DecodeLoop:
             w.launches = n
         self.launches = [a - b for a, b in zip(after, before)]
         self.graph = graph
+
+    def _warm_step(self) -> None:
+        """One warm-up step before the capture."""
+        self._step()
+
+    def close(self) -> None:
+        """Release the captured graph (its private pool) and the static
+        buffers; the loop cannot run after this."""
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = self.cache = self.head_params = None
+
+    def _replay(self) -> None:
+        """One step: a replay of the captured graph (adding each wrapper's
+        recorded launches), or the step itself off the card."""
+        if self.graph is None:
+            self._step()
+            return
+        self.graph.replay()
+        for w, n in zip(COUNTED, self.launches):
+            w.launches += n
 
     def launches_per_step(self) -> dict:
         """Each wrapper's launches in one step of the captured graph (by
@@ -182,26 +226,202 @@ class DecodeLoop:
         block = torch.empty((k, self.tok.shape[0]), dtype=torch.int64,
                             device=self.device)
         for i in range(k):
-            if self.graph is None:
-                self._step()
-            else:
-                self.graph.replay()
-                for w, n in zip(COUNTED, self.launches):
-                    w.launches += n
+            self._replay()
             block[i].copy_(self.tok)
         return block
 
 
-def _empty_like(cache: dict) -> dict:
-    return {"periods": {name: type(c)(*(torch.empty_like(x) for x in c))
-                        for name, c in cache["periods"].items()}}
+class SpecLoop(DecodeLoop):
+    """Speculative decode on static buffers: K draft steps through the
+    serving head (one captured step replayed), the dense verify, the
+    acceptance and the rollback, per :meth:`run`.
+
+    Args (besides :class:`DecodeLoop`'s, without ``head_params``):
+      k: the most draft steps a tick (the snapshot buffers' depth).
+      record_logits: keep each draft step's (B, V) logits in
+        ``draft_logits`` and each tick's verify logits in
+        ``verify_logits`` (for checks; off when serving).
+
+    The draft step records, before it writes, what the rollback needs
+    (``model.cache_snapshot_`` into ``snap``), then its hidden and draft
+    token; ``step`` (a device index) counts the steps of the tick.  The
+    warm-up before the capture runs with ``active`` all False where the
+    step is masked, so the cache keeps its contents; its snapshot and
+    hidden writes go to the static buffers, which a tick overwrites before
+    it reads them.
+    """
+
+    @torch.inference_mode()
+    def __init__(self, params: dict, cfg: ModelConfig, head, cache: dict,
+                 *, k: int, sampler: Optional[Sampler] = None, masked: bool,
+                 eos_id: Optional[int] = None, pad_id: int = 0,
+                 per_slot: bool, record_logits: bool = False):
+        if k < 1:
+            raise ValueError(f"a spec loop needs k >= 1, got {k}")
+        leaf = next(iter(cache["periods"].values()))[0]
+        dev, b = leaf.device, leaf.shape[1]
+        self.k = k
+        self.step = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.hiddens = torch.zeros((k, b, cfg.d_model), dtype=torch.float32,
+                                   device=dev)
+        self.drafts = torch.zeros((k, b), dtype=torch.int64, device=dev)
+        self.snap = model.init_spec_snapshot(cfg, cache, k)
+        self.draft_logits = self.verify_logits = None
+        if record_logits:
+            self.draft_logits = torch.zeros((k, b, cfg.vocab_size),
+                                            dtype=torch.float32, device=dev)
+        super().__init__(params, cfg, head, cache, sampler=sampler,
+                         masked=masked, eos_id=eos_id, pad_id=pad_id,
+                         per_slot=per_slot)
+
+    def _warm_step(self) -> None:
+        self.step.zero_()               # keep the step index inside the buffers
+        self._step()
+
+    def close(self) -> None:
+        super().close()
+        self.snap = self.hiddens = self.drafts = self.draft_logits = None
+        self.verify_logits = None
+
+    def _step(self) -> None:
+        b = self.tok.shape[0]
+        model.cache_snapshot_(self.cfg, self.cache, self.snap, self.step,
+                              model._slot_positions(self.pos, b, self.device))
+        logits, _, hidden = serve_step_(
+            self.params, self.cache, self.tok[:, None], self.cfg,
+            head=self.head, active=self.active, pos=self.pos,
+            return_hidden=True)
+        nxt = self.sampler.sample(logits)
+        if self.active is not None:
+            nxt = torch.where(self.active, nxt, self.pad_id)
+        if self.per_slot:
+            self.pos.add_(self.active if self.active is not None else 1)
+        else:
+            self.pos.add_(1)
+        self.hiddens.index_copy_(0, self.step, hidden[None])
+        self.drafts.index_copy_(0, self.step, nxt[None])
+        if self.draft_logits is not None:
+            self.draft_logits.index_copy_(0, self.step, logits[None])
+        self.tok.copy_(nxt)
+        self.step.add_(1)
+
+    @torch.inference_mode()
+    def run(self, k: int):
+        """One tick of ``k`` (<= the loop's depth) draft steps from the
+        loaded carry, verified and committed on the device.
+
+        Returns device tensors ``(block, m, acc, adv)``: the (k, B) verify
+        tokens, of which rows < ``m`` (0-d) are committed (``pad_id`` past
+        a row's EOS and on inactive rows), each row's committed accepted
+        drafts (B,) and its emitted tokens (B,).  The carry (cache,
+        ``tok``, ``pos``, ``active``) is left at the committed step."""
+        if not 1 <= k <= self.k:
+            raise ValueError(f"a spec tick needs 1 <= k <= {self.k}, got {k}")
+        pos_in = self.pos.clone()
+        self.step.zero_()
+        for _ in range(k):
+            self._replay()
+        dense = model.dense_verify_logits(self.params, self.hiddens[:k],
+                                          self.cfg)           # (k, B, V)
+        if self.draft_logits is not None:
+            self.verify_logits = dense
+        verify = torch.stack([self.sampler.sample(d) for d in dense])
+        active = self.active
+        if active is not None:
+            verify = torch.where(active[None], verify, self.pad_id)
+        drafts = self.drafts[:k]
+        a = torch.cumprod((drafts == verify).long(), dim=0).sum(0)
+        n = (a + 1).clamp(max=k)
+        if active is not None:
+            n = torch.where(active, n, k)     # parked rows set no limit
+        m = n.min()
+        steps = torch.arange(k, device=self.device)[:, None]
+        if active is not None:
+            hits = (verify == self.eos_id if self.eos_id is not None
+                    else torch.zeros_like(verify, dtype=torch.bool))
+            prior = hits.long().cumsum(0) - hits.long()       # EOS before i
+            alive = active[None] & (prior == 0)
+        else:
+            alive = torch.ones_like(verify, dtype=torch.bool)
+        committed = alive & (steps < m)
+        block = torch.where(committed, verify, self.pad_id)
+        adv = committed.long().sum(0)
+        acc = torch.minimum(a, adv)
+        if active is not None and self.eos_id is not None:
+            active &= ~(hits & (steps < m)).any(0)
+        model.cache_rollback_(self.cfg, self.cache, self.snap, m, k)
+        self.tok.copy_(block.index_select(0, (m - 1).reshape(1))[0])
+        self.pos.copy_(pos_in + (adv if self.per_slot else m))
+        return block, m, acc, adv
+
+
+def _shapes(cache: dict) -> tuple:
+    return tuple(tuple(leaf.shape) for c in cache["periods"].values()
+                 for leaf in c)
+
+
+def _zeros_like(cache: dict, device) -> dict:
+    """A zero cache of ``cache``'s shapes and dtypes on ``device`` (the
+    template may live on the meta device)."""
+    return {"periods": {name: type(c)(*(
+        torch.zeros(x.shape, dtype=x.dtype, device=device) for x in c))
+        for name, c in cache["periods"].items()}}
+
+
+def memo_loop(loops: Optional[dict], key: tuple, shapes: tuple, build):
+    """The loop memoized under ``key`` if its cache has ``shapes``, else
+    ``build()``; a loop of other shapes (another ``max_seq``) is closed
+    before the new one is built, and beyond :data:`MAX_LOOPS` the least
+    recently used loops are closed first, so a memo holds at most
+    MAX_LOOPS decode caches and never two under one key.  ``loops=None``
+    builds a loop that is not kept."""
+    if loops is None:
+        return build()
+    loop = loops.pop(key, None)
+    if loop is not None and loop.shapes != shapes:
+        loop.close()
+        loop = None
+    if loop is None:
+        while len(loops) >= MAX_LOOPS:
+            loops.pop(next(iter(loops))).close()
+        loop = build()
+    loops[key] = loop                       # most recently used last
+    return loop
+
+
+def generate_loop(params: dict, cfg: ModelConfig, *, head, sampler: Sampler,
+                  template: dict, device, masked: bool,
+                  eos_id: Optional[int] = None, pad_id: int = 0,
+                  spec_k: int = 0, loops: Optional[dict] = None):
+    """The static-batch loop over a decode cache shaped as ``template``
+    (a cache, or one made on the meta device): a :class:`DecodeLoop`, or
+    with ``spec_k`` a :class:`SpecLoop` of that depth, from the memo
+    ``loops`` (one loop per kind, depth, batch size and retirement spec;
+    see :func:`memo_loop`).  ``generate`` prefills into the loop's own
+    cache (``loop.cache``), so no second cache is made."""
+    device = torch.device(device)
+    b = next(iter(template["periods"].values()))[0].shape[1]
+    key = ("spec" if spec_k else "chunk", spec_k, cfg, head, sampler, b,
+           masked, eos_id, pad_id, str(device))
+
+    def build():
+        cache = _zeros_like(template, device)
+        if spec_k:
+            return SpecLoop(params, cfg, head, cache, k=spec_k,
+                            sampler=sampler, masked=masked, eos_id=eos_id,
+                            pad_id=pad_id, per_slot=False)
+        return DecodeLoop(params, cfg, head, cache, sampler=sampler,
+                          masked=masked, eos_id=eos_id, pad_id=pad_id,
+                          per_slot=False)
+
+    return memo_loop(loops, key, _shapes(template), build)
 
 
 def decode_chunks(params: dict, cache: dict, first_logits: torch.Tensor, *,
                   cfg: ModelConfig, head, sampler: Sampler, gen_len: int,
                   start_pos: int, chunk: int, eos_id: Optional[int] = None,
-                  pad_id: int = 0, loops: Optional[dict] = None
-                  ) -> torch.Tensor:
+                  pad_id: int = 0, loops: Optional[dict] = None,
+                  stats: Optional[dict] = None) -> torch.Tensor:
     """The static-batch decode loop as megasteps of ``chunk`` steps.
 
     The first token comes from the prefill's ``first_logits``, then the
@@ -211,12 +431,13 @@ def decode_chunks(params: dict, cache: dict, first_logits: torch.Tensor, *,
     loop's early exit at chunk granularity, one host sync a chunk.
 
     Args:
-      cache: the prefilled decode cache (read once, into the loop's own).
-      loops: a dict that memoizes the :class:`DecodeLoop` (and its capture)
-        per (cfg, head, sampler, cache shapes (B and max_seq), masked,
-        eos_id, pad_id, device); a fresh loop is built when None.  The loops hold the
-        params and head they were built on, so the dict belongs to one
-        model and head (``LM`` keeps one).
+      cache: the prefilled decode cache: the loop's own ``loop.cache``
+        (``generate`` prefills into it), or another cache of its shapes,
+        which is copied in.
+      loops: the memo of :func:`generate_loop` (``LM`` keeps one); a
+        fresh loop is built when None.  The loops hold the params and head
+        they were built on, so the dict belongs to one model and head.
+      stats: a dict that gets the decode steps run (``decode_steps``).
 
     Returns:
       (B, gen_len) int64 tokens (prompt excluded), on the device.
@@ -225,27 +446,75 @@ def decode_chunks(params: dict, cache: dict, first_logits: torch.Tensor, *,
         raise ValueError(f"decode_chunk must be >= 1, got {chunk}")
     b = first_logits.shape[0]
     masked = eos_id is not None
-    shapes = tuple(tuple(leaf.shape) for c in cache["periods"].values()
-                   for leaf in c)            # B and max_seq
-    key = (cfg, head, sampler, shapes, masked, eos_id, pad_id,
-           str(first_logits.device))
-    loop = None if loops is None else loops.get(key)
-    if loop is None:
-        loop = DecodeLoop(params, cfg, head, _empty_like(cache),
-                          sampler=sampler, masked=masked, eos_id=eos_id,
-                          pad_id=pad_id, per_slot=False)
-        if loops is not None:
-            loops[key] = loop
+    loop = generate_loop(params, cfg, head=head, sampler=sampler,
+                         template=cache, device=first_logits.device,
+                         masked=masked, eos_id=eos_id, pad_id=pad_id,
+                         loops=loops)
+    if cache is not loop.cache:
+        loop.load_cache(cache)
     tok0 = sampler.sample(first_logits)
-    loop.load_cache(cache)
     loop.load(tok0, start_pos, None if not masked else tok0 != eos_id)
-    blocks, todo = [tok0[:, None]], gen_len - 1
+    blocks, todo, steps = [tok0[:, None]], gen_len - 1, 0
     while todo > 0:
         k = min(chunk, todo)
         blocks.append(loop.run(k).T)
-        todo -= k
+        todo, steps = todo - k, steps + k
         if masked and todo > 0 and not bool(loop.active.any()):
             blocks.append(torch.full((b, todo), pad_id, dtype=torch.int64,
                                      device=tok0.device))
             break
+    if stats is not None:
+        stats["decode_steps"] = steps
     return torch.cat(blocks, dim=1)
+
+
+def spec_decode_chunks(params: dict, cache: dict, first_logits: torch.Tensor,
+                       *, cfg: ModelConfig, head, sampler: Sampler,
+                       gen_len: int, start_pos: int, spec_k: int,
+                       eos_id: Optional[int] = None, pad_id: int = 0,
+                       loops: Optional[dict] = None):
+    """The static-batch speculative decode loop (``generate(spec_decode=K)``).
+
+    As :func:`decode_chunks`, but each tick is a :class:`SpecLoop` tick of
+    ``min(spec_k, tokens still to emit)`` draft steps, committing its
+    ``m`` verified tokens; the host fetches ``m`` with the block (one sync
+    a tick).  The first token comes from the prefill's dense logits.
+
+    Returns ``(tokens, stats)``: (B, gen_len) int64 tokens (prompt
+    excluded) and the backbone's draft steps (``decode_steps``),
+    ``verify_calls``, ``draft_tokens`` and ``accepted_draft_tokens``.
+    """
+    if spec_k < 1:
+        raise ValueError(f"spec_decode must be >= 1, got {spec_k}")
+    b = first_logits.shape[0]
+    masked = eos_id is not None
+    loop = generate_loop(params, cfg, head=head, sampler=sampler,
+                         template=cache, device=first_logits.device,
+                         masked=masked, eos_id=eos_id, pad_id=pad_id,
+                         spec_k=spec_k, loops=loops)
+    if cache is not loop.cache:
+        loop.load_cache(cache)
+    tok0 = sampler.sample(first_logits)
+    loop.load(tok0, start_pos, None if not masked else tok0 != eos_id)
+    blocks, todo = [tok0[:, None]], gen_len - 1
+    stats = {"decode_steps": 0, "verify_calls": 0, "draft_tokens": 0,
+             "accepted_draft_tokens": 0}
+    while todo > 0:
+        kk = min(spec_k, todo)
+        block, m, acc, _ = loop.run(kk)
+        parts = [m.reshape(1), acc.sum().reshape(1), block.reshape(-1)]
+        if masked:
+            parts.append(loop.active.any().long().reshape(1))
+        host = torch.cat(parts).cpu()                   # the tick's one sync
+        m = int(host[0])
+        blocks.append(host[2:2 + kk * b].reshape(kk, b)[:m].T.to(tok0.device))
+        stats["decode_steps"] += kk
+        stats["verify_calls"] += 1
+        stats["draft_tokens"] += kk * b
+        stats["accepted_draft_tokens"] += int(host[1])
+        todo -= m
+        if masked and todo > 0 and not bool(host[-1]):
+            blocks.append(torch.full((b, todo), pad_id, dtype=torch.int64,
+                                     device=tok0.device))
+            break
+    return torch.cat(blocks, dim=1), stats

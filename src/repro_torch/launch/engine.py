@@ -32,10 +32,24 @@ per-tenant sketch heads: every request names its tenant, its slot decodes
 through that tenant's bank row, and ``refresh``/``publish`` fold live
 traffic into a tenant's head with double buffering.
 
+With ``spec_decode=K`` each tick is a speculative tick instead
+(``decode_loop.SpecLoop``): the engine's head drafts up to K tokens for
+every occupied slot, the dense head verifies them, and the ``m`` steps
+every active slot agrees on commit; the clock advances by ``m``, and the
+streams are the dense engine's.
+
+With ``paged=True`` the attention caches live in page arenas addressed
+through a host page table (``launch/paging.py``), rwkv's state in one row
+a slot: identical prompts hit the prefix cache and skip their prefill
+(the entry's pages are mapped shared, its state rows and first logits
+restored), a shared page is copied before a decode write lands on it
+(copy-on-write), and each tick gathers every slot's view, runs the same
+in-place decode step and commits the written position back.  The streams
+are the contiguous engine's.
+
 Scheduling is the JAX package's ``launch/engine.py``; the model compute
-sits behind ``EngineBackend``.  Not ported here: speculative decode
-(ROADMAP module item 6), the paged pool (item 7) and seeded sampling
-(item 5).
+sits behind ``EngineBackend``.  Not ported here: seeded sampling (ROADMAP
+module item 5).
 """
 
 from __future__ import annotations
@@ -49,8 +63,10 @@ import torch
 
 from repro_torch.api.heads import DenseHead
 from repro_torch.api.sampler import Sampler
-from repro_torch.launch.decode_loop import DecodeLoop
+from repro_torch.launch.decode_loop import DecodeLoop, SpecLoop
 from repro_torch.launch.steps import prefill_step, serve_step_
+from repro_torch.models import blocks
+from repro_torch.models import model as model_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import (cache_expand_rows, cache_slot_insert_,
                                       cache_slot_reset_, init_decode_cache)
@@ -196,6 +212,103 @@ class EngineBackend:
                 out[k].astype(np.int32))
 
 
+    def spec_megastep(self, pool: dict, tokens: np.ndarray, pos: np.ndarray,
+                      active: np.ndarray, k: int, sampler: Sampler,
+                      eos_id: Optional[int], k_max: Optional[int] = None):
+        """One speculative tick of every slot (``decode_loop.SpecLoop``, one
+        loop per pool and spec, ``k_max`` deep): ``k`` draft steps through
+        the head, the dense verify, the commit of ``m`` steps, all on the
+        device, written into ``pool``.  Returns the (k, n_slots) verify
+        block, ``m``, each slot's accepted drafts, ``pool``, and the last
+        tokens and ``pos``, all from one copy to the host."""
+        key = ("spec", id(pool), sampler, eos_id)
+        loop = self._loops.get(key)
+        if loop is None:
+            loop = SpecLoop(self.params, self.cfg, self.head, pool,
+                            k=k_max or k, sampler=sampler, masked=True,
+                            eos_id=eos_id, per_slot=True)
+            self._loops[key] = loop
+        loop.load(tokens, pos, active)
+        block, m, acc, _ = loop.run(k)
+        b = block.shape[1]
+        out = torch.cat([m.reshape(1), block.reshape(-1), acc, loop.tok,
+                         loop.pos]).cpu().numpy().astype(np.int32)
+        rest = out[1 + k * b:]
+        return (out[1:1 + k * b].reshape(k, b), int(out[0]), rest[:b], pool,
+                rest[b:2 * b], rest[2 * b:])
+
+    # -- the paged pool ------------------------------------------------------
+
+    def paged_geometries(self, max_seq: int) -> list:
+        """The distinct (size, ring) sequence geometries of the paged layers:
+        where each family writes a position, for the write-page logic."""
+        geoms = {blocks.paged_geometry(self.cfg, k, max_seq)
+                 for k in set(self.cfg.pattern)}
+        return sorted(g for g in geoms if g is not None)
+
+    def init_paged(self, n_slots: int, max_seq: int, page_size: int,
+                   num_pages: int):
+        """The paged engine's device state: (page arenas, state rows)."""
+        del max_seq
+        return (model_mod.init_paged_cache(self.cfg, num_pages, page_size,
+                                           device=self.device),
+                model_mod.init_paged_state(self.cfg, n_slots,
+                                           device=self.device))
+
+    def paged_decode(self, pages: dict, state: dict, table: np.ndarray,
+                     tokens: np.ndarray, pos: np.ndarray, active: np.ndarray,
+                     *, max_seq: int, page_size: int, head_params=None):
+        """One paged decode tick: each slot's view gathered through the page
+        table, the state rows merged in, the same in-place decode step as
+        the contiguous engine's on that tree (the state is written where it
+        lives), then the written position committed back to the arenas.
+        Returns ((n_slots, V) logits, pages, state)."""
+        del page_size
+        dev = self.device
+        pt = torch.as_tensor(table, device=dev)
+        posd = torch.as_tensor(pos, device=dev).long()
+        view = model_mod.paged_gather_cache(self.cfg, pages, pt, max_seq)
+        full = model_mod.merge_paged_view(self.cfg, view, state)
+        logits, _ = serve_step_(
+            self.params, full,
+            torch.as_tensor(tokens, device=dev).long()[:, None], self.cfg,
+            head=self.head, active=torch.as_tensor(active, device=dev),
+            pos=posd, head_params=head_params)
+        model_mod.paged_commit_cache(self.cfg, pages, view, pt, posd, max_seq)
+        return logits, pages, state
+
+    def paged_insert(self, pages: dict, filled: dict, pt_rows: np.ndarray,
+                     *, max_seq: int, page_size: int) -> dict:
+        """Freshly prefilled rows into their newly mapped pages, in place."""
+        del max_seq, page_size
+        return model_mod.paged_insert_cache(
+            self.cfg, pages, filled, torch.as_tensor(pt_rows,
+                                                     device=self.device))
+
+    def page_copy(self, pages: dict, src_ids, dst_ids, *, max_seq: int,
+                  page_size: int) -> dict:
+        """The copy-on-write fork: pages ``src_ids`` → ``dst_ids`` in every
+        arena, in place."""
+        del max_seq, page_size
+        dev = self.device
+        return model_mod.paged_copy_pages(
+            self.cfg, pages, torch.as_tensor(src_ids, device=dev).long(),
+            torch.as_tensor(dst_ids, device=dev).long())
+
+    def state_rows(self, filled: dict, row: int):
+        """Copies of one prefilled row's rwkv state (what a prefix-cache
+        entry keeps), or None for a model without rwkv layers."""
+        rows = model_mod.extract_state_rows(self.cfg, filled, row)
+        if all(c is None for c in rows["periods"].values()):
+            return None
+        return rows
+
+    def state_restore(self, state: dict, entry_state: dict,
+                      slot: int) -> dict:
+        """A prefix entry's state rows into ``slot``, in place."""
+        return cache_slot_insert_(self.cfg, state, entry_state, [slot])
+
+
 class ServeEngine:
     """Continuous-batching engine over a ``backend`` and ``n_slots`` cache
     rows.  ``submit()`` requests, then ``run()`` (or ``step()`` tick by
@@ -203,38 +316,82 @@ class ServeEngine:
     excluded).  Greedy: the sampler takes each row's first maximum.
 
     ``decode_chunk=K`` (> 1) decodes each tick as a megastep of up to K
-    steps (``_chunk_for``) through ``backend.megastep``.
+    steps (``_chunk_for``) through ``backend.megastep``; ``spec_decode=K``
+    as a speculative tick of up to K draft steps through
+    ``backend.spec_megastep``; ``paged=True`` keeps the caches in a page
+    pool with a prefix cache (``page_size`` tokens a page, ``num_pages``
+    pages, sized from ``n_slots`` and ``max_seq`` when omitted).
 
     Raises:
-      NotImplementedError: ``spec_decode`` or ``paged`` (later slices of
-        the port).
+      ValueError: ``decode_chunk < 1``, ``spec_decode < 0``,
+        ``spec_decode`` with ``decode_chunk > 1`` or ``head_cache``,
+        ``paged`` with ``decode_chunk > 1`` or ``spec_decode``,
+        ``page_size < 1``, or a backend without the ops a mode needs.
     """
 
     def __init__(self, backend, n_slots: int, max_seq: int, *,
                  eos_id: Optional[int] = None,
                  sampler: Optional[Sampler] = None, decode_chunk: int = 1,
                  spec_decode: int = 0, paged: bool = False,
+                 page_size: int = 16, num_pages: Optional[int] = None,
                  head_cache=None):
+        if head_cache is not None and spec_decode:
+            raise ValueError("spec_decode and per-tenant heads are mutually "
+                             "exclusive: the draft/verify tick cannot rebind "
+                             "per-slot tenant heads mid-draft")
         if decode_chunk < 1:
             raise ValueError(f"decode_chunk must be >= 1, got {decode_chunk}")
+        if spec_decode < 0:
+            raise ValueError(f"spec_decode must be >= 0, got {spec_decode}")
+        if spec_decode and decode_chunk > 1:
+            raise ValueError("spec_decode and decode_chunk > 1 are mutually "
+                             "exclusive: the speculative tick already "
+                             "advances up to K tokens")
         if decode_chunk > 1 and not hasattr(backend, "megastep"):
             raise ValueError("decode_chunk > 1 needs a backend with a "
                              "megastep; this backend has none")
-        if spec_decode:
-            raise NotImplementedError(
-                "speculative decode (spec_decode) is not ported yet: ROADMAP "
-                "module item 6")
+        if spec_decode and not hasattr(backend, "spec_megastep"):
+            raise ValueError("spec_decode needs a backend with a "
+                             "spec_megastep; this backend has none")
         if paged:
-            raise NotImplementedError(
-                "the paged cache pool is not ported yet: ROADMAP module "
-                "item 7")
+            if decode_chunk > 1:
+                raise ValueError("paged=True runs the host decode loop; "
+                                 "decode_chunk > 1 is not supported")
+            if spec_decode:
+                raise ValueError("paged=True and spec_decode are mutually "
+                                 "exclusive")
+            if page_size < 1:
+                raise ValueError(f"page_size must be >= 1, got {page_size}")
+            if not hasattr(backend, "init_paged"):
+                raise ValueError("paged=True needs a backend with the paged "
+                                 "pool ops (init_paged, paged_decode, ...); "
+                                 "this backend has none")
         self.backend = backend
         self.n_slots = n_slots
         self.max_seq = max_seq
         self.eos_id = eos_id
         self.sampler = sampler or Sampler()
         self.decode_chunk = decode_chunk
-        self.pool = backend.init_pool(n_slots, max_seq)
+        self.spec_decode = spec_decode
+        self.paged = paged
+        self.page_size = page_size
+        self.pool = None
+        if paged:
+            from repro_torch.launch.paging import PagePool, PrefixCache
+            npp = -(-max_seq // page_size)          # page-table width
+            if num_pages is None:
+                # Every slot's whole budget plus a prefix-cache working set;
+                # LRU eviction absorbs the rest.
+                num_pages = 1 + (n_slots + 8) * (npp + 1)
+            self.pages, self.state = backend.init_paged(
+                n_slots, max_seq, page_size, num_pages)
+            self.page_pool = PagePool(num_pages, n_slots, npp)
+            self.prefix = PrefixCache(self.page_pool)
+            self._geoms = backend.paged_geometries(max_seq)
+            self._has_state = any(c is not None
+                                  for c in self.state["periods"].values())
+        else:
+            self.pool = backend.init_pool(n_slots, max_seq)
         self.head_cache = head_cache
         self.slot_tenant: List[Optional[object]] = [None] * n_slots
         self._refresh: Dict = {}            # tenant -> f32 shadow head
@@ -252,7 +409,11 @@ class ServeEngine:
         self.stats = {"refreshes": 0, "publishes": 0, "decode_steps": 0,
                       "active_slot_steps": 0, "admitted": 0, "retired": 0,
                       "prefill_batches": 0, "megasteps": 0, "host_syncs": 0,
-                      "dedup_saved": 0}
+                      "verify_calls": 0, "draft_tokens": 0,
+                      "accepted_draft_tokens": 0, "dedup_saved": 0,
+                      "prefix_hits": 0, "prefix_queries": 0,
+                      "page_allocs": 0, "cow_copies": 0, "pages_in_use": 0,
+                      "pages_in_use_peak": 0}
 
     # -- request intake ----------------------------------------------------
 
@@ -320,14 +481,20 @@ class ServeEngine:
                         and int(first[i]) == self.eos_id)):
                 self._retire(s)
 
-    def _admit(self) -> None:
-        """FIFO admission into free slots; equal-length prompts arriving
-        together prefill as one batch, identical prompts in it once."""
-        batch = self._pop_admission_batch()
+    @staticmethod
+    def _by_len(batch: List[Request]) -> Dict[int, List[Request]]:
         by_len: Dict[int, List[Request]] = {}
         for r in batch:
             by_len.setdefault(len(r.prompt), []).append(r)
-        for plen, group in by_len.items():
+        return by_len
+
+    def _admit(self) -> None:
+        """FIFO admission into free slots; equal-length prompts arriving
+        together prefill as one batch, identical prompts in it once."""
+        if self.paged:
+            return self._admit_paged()
+        batch = self._pop_admission_batch()
+        for plen, group in self._by_len(batch).items():
             uniq: Dict[bytes, int] = {}
             rows: List[np.ndarray] = []
             inv: List[int] = []
@@ -355,6 +522,126 @@ class ServeEngine:
             self.stats["prefill_batches"] += 1
             self._finish_admit(group, slots, first, plen)
 
+    def _admit_paged(self) -> None:
+        """Paged admission: a prefix-cache hit maps the entry's pages shared
+        (copy-on-write through the refcounts) and restores its state rows
+        and first logits; misses prefill once per distinct prompt, scatter
+        into fresh pages and register an entry.  One sample per
+        prompt-length group over its rows in arrival order, as the
+        contiguous engine samples."""
+        batch = self._pop_admission_batch()
+        for plen, group in self._by_len(batch).items():
+            plans = []                     # (request, kind, key, ref)
+            miss_rows: List[np.ndarray] = []
+            seen_miss: Dict[bytes, int] = {}
+            for r in group:
+                key = r.prompt.tobytes()
+                entry = self.prefix.get(key)
+                if entry is not None:
+                    plans.append((r, "hit", key, entry))
+                elif key in seen_miss:
+                    plans.append((r, "dup", key, seen_miss[key]))
+                    self.stats["dedup_saved"] += 1
+                else:
+                    seen_miss[key] = len(miss_rows)
+                    miss_rows.append(r.prompt)
+                    plans.append((r, "miss", key, seen_miss[key]))
+            logits_u = filled = None
+            if miss_rows:
+                logits_u, filled = self.backend.prefill(np.stack(miss_rows),
+                                                        self.max_seq)
+                self.stats["prefill_batches"] += 1
+            first = self._sample(torch.stack(
+                [p[3].logits if p[1] == "hit" else logits_u[p[3]]
+                 for p in plans]))
+            slots = np.asarray([self.sched.admit(r.rid) for r in group])
+            self._bind_tenants(group, slots)
+            self._pending_reset = [s for s in self._pending_reset
+                                   if s not in slots]
+            # Misses first: fresh pages, one scatter for all their rows,
+            # then their prefix entries.
+            n_alloc = -(-plen // self.page_size)
+            miss_slots, miss_pt = [], []
+            for p, slot in zip(plans, slots):
+                if p[1] != "miss":
+                    continue
+                ids = self._alloc_pages(n_alloc)
+                self.page_pool.map_slot(int(slot), ids, owned=True)
+                miss_slots.append(int(slot))
+                miss_pt.append(self.page_pool.table[int(slot)].copy())
+            if miss_slots:
+                self.pages = self.backend.paged_insert(
+                    self.pages, filled, np.stack(miss_pt),
+                    max_seq=self.max_seq, page_size=self.page_size)
+                if self._has_state:
+                    self.state = self.backend.insert(self.state, filled,
+                                                     miss_slots)
+                for p, slot in zip(plans, slots):
+                    if p[1] == "miss":
+                        self.prefix.register(
+                            p[2], self.page_pool.slot_pages(int(slot)),
+                            self.backend.state_rows(filled, p[3]),
+                            logits_u[p[3]].clone(), plen)
+            # Hits and same-batch duplicates share the entry's pages and
+            # restore its state rows.
+            for p, slot in zip(plans, slots):
+                if p[1] == "miss":
+                    continue
+                entry = p[3] if p[1] == "hit" else self.prefix.peek(p[2])
+                self.page_pool.map_slot(int(slot), entry.page_ids,
+                                        owned=False)
+                if entry.state is not None:
+                    self.state = self.backend.state_restore(
+                        self.state, entry.state, int(slot))
+            self._finish_admit(group, slots, first, plen)
+        self._sync_page_stats()
+
+    def _alloc_pages(self, n: int) -> List[int]:
+        """``n`` pages, evicting LRU prefix entries until they fit."""
+        while True:
+            ids = self.page_pool.alloc(n)
+            if ids is not None:
+                return ids
+            if not self.prefix.evict_lru():
+                raise RuntimeError(
+                    f"page pool exhausted: {n} pages requested, "
+                    f"{self.page_pool.n_free} free and nothing left to "
+                    f"evict; raise num_pages or lower n_slots/max_seq")
+
+    def _ensure_write_pages(self, active_slots: List[int]) -> None:
+        """Before a paged tick, make the page each active slot writes (one
+        per sequence geometry) mapped and private: unmapped → a fresh page;
+        shared (a prefix entry or another slot refers to it) → a copy
+        (COW).  Without the copy, a divergent write would reach every
+        sharer."""
+        copies = []                         # (src, dst) page-id pairs
+        for s in active_slots:
+            pos = int(self.pos[s])
+            idxs = {(pos % size if ring else min(pos, size - 1))
+                    // self.page_size for size, ring in self._geoms}
+            for j in sorted(idxs):
+                pid = int(self.page_pool.table[s, j])
+                if pid == 0:
+                    (new,) = self._alloc_pages(1)
+                    self.page_pool.map_index(s, j, new)
+                elif self.page_pool.refcount[pid] > 1:
+                    (new,) = self._alloc_pages(1)
+                    self.page_pool.remap(s, j, new)
+                    copies.append((pid, new))
+                    self.stats["cow_copies"] += 1
+        if copies:
+            src, dst = zip(*copies)
+            self.pages = self.backend.page_copy(
+                self.pages, np.asarray(src), np.asarray(dst),
+                max_seq=self.max_seq, page_size=self.page_size)
+
+    def _sync_page_stats(self) -> None:
+        self.stats["page_allocs"] = self.page_pool.page_allocs
+        self.stats["pages_in_use"] = self.page_pool.pages_in_use
+        self.stats["pages_in_use_peak"] = self.page_pool.peak_in_use
+        self.stats["prefix_hits"] = self.prefix.hits
+        self.stats["prefix_queries"] = self.prefix.queries
+
     def _retire(self, slot: int) -> None:
         rid = self.sched.retire(slot)
         self.finished[rid] = self.outputs[rid]
@@ -362,6 +649,10 @@ class ServeEngine:
             self.head_cache.release(self.slot_tenant[slot])
             self.slot_tenant[slot] = None
         self._pending_reset.append(slot)
+        if self.paged:
+            # Unmap the slot's pages: the ones a prefix entry shares stay,
+            # the rest return to the free list.
+            self.page_pool.clear_slot(slot)
         self.stats["retired"] += 1
 
     # -- per-tenant heads --------------------------------------------------
@@ -437,11 +728,13 @@ class ServeEngine:
         with torch.no_grad():
             self._step()
 
-    def _chunk_for(self, active_slots: List[int]) -> int:
-        """This tick's megastep length: ``decode_chunk`` clamped so that no
-        occupied slot overshoots its budget and, while a slot is free, no
-        queued arrival waits past its arrival tick."""
-        chunk = min(self.decode_chunk,
+    def _chunk_for(self, active_slots: List[int],
+                   base: Optional[int] = None) -> int:
+        """This tick's megastep length: ``base`` (``decode_chunk``, or the
+        speculative draft length) clamped so that no occupied slot
+        overshoots its budget and, while a slot is free, no queued arrival
+        waits past its arrival tick."""
+        chunk = min(base or self.decode_chunk,
                     int(min(self.remaining[s] for s in active_slots)))
         if self.queue and self.sched.n_free:
             chunk = min(chunk, max(1, self.queue.peek().arrival - self.now))
@@ -475,6 +768,28 @@ class ServeEngine:
                 if self._emit(s, int(block[i, s])):
                     break
 
+    def _decode_spec_megastep(self, active: np.ndarray,
+                              active_slots: List[int], draft_k: int) -> int:
+        """One speculative tick: ``draft_k`` drafts through the head, the
+        dense verify, and the ``m`` committed steps walked as in
+        ``_decode_megastep`` (an EOS mid-block retires; a retired row's
+        later entries are padding).  Returns ``m``, the clock's advance."""
+        block, m, acc, self.pool, self.last_tok, self.pos = (
+            self.backend.spec_megastep(
+                self.pool, self.last_tok, self.pos, active, draft_k,
+                self.sampler, self.eos_id, k_max=self.spec_decode))
+        self.stats["host_syncs"] += 1
+        self.stats["decode_steps"] += draft_k      # the backbone's steps
+        self.stats["verify_calls"] += 1
+        self.stats["draft_tokens"] += draft_k * len(active_slots)
+        self.stats["accepted_draft_tokens"] += int(acc[active_slots].sum())
+        for s in active_slots:
+            for i in range(m):
+                self.stats["active_slot_steps"] += 1
+                if self._emit(s, int(block[i, s])):
+                    break
+        return m
+
     def _step(self) -> None:
         self._admit()
         active_slots = self.sched.active_slots()
@@ -483,13 +798,25 @@ class ServeEngine:
             active = np.zeros(self.n_slots, bool)
             active[active_slots] = True
             self.stats["megasteps"] += 1
-            if self.decode_chunk > 1:
+            if self.spec_decode:
+                advanced = self._decode_spec_megastep(
+                    active, active_slots,
+                    self._chunk_for(active_slots, base=self.spec_decode))
+            elif self.decode_chunk > 1:
                 advanced = self._chunk_for(active_slots)
                 self._decode_megastep(active, active_slots, advanced)
             else:
-                logits, self.pool = self.backend.decode(
-                    self.pool, self.last_tok, self.pos, active,
-                    head_params=self._head_params_now())
+                if self.paged:
+                    self._ensure_write_pages(active_slots)
+                    logits, self.pages, self.state = self.backend.paged_decode(
+                        self.pages, self.state, self.page_pool.table,
+                        self.last_tok, self.pos, active,
+                        max_seq=self.max_seq, page_size=self.page_size,
+                        head_params=self._head_params_now())
+                else:
+                    logits, self.pool = self.backend.decode(
+                        self.pool, self.last_tok, self.pos, active,
+                        head_params=self._head_params_now())
                 nxt = self._sample(logits)
                 self.stats["decode_steps"] += 1
                 self.stats["active_slot_steps"] += len(active_slots)
@@ -499,8 +826,16 @@ class ServeEngine:
                     self.last_tok[s] = tok
                     self._emit(s, tok)
         if self._pending_reset:
-            self.pool = self.backend.reset(self.pool, self._pending_reset)
+            if not self.paged:
+                self.pool = self.backend.reset(self.pool, self._pending_reset)
+            elif self._has_state:
+                # The pages were unmapped at retirement (unmapped entries
+                # read the zero page); only the state rows are zeroed.
+                self.state = self.backend.reset(self.state,
+                                                self._pending_reset)
             self._pending_reset = []
+        if self.paged:
+            self._sync_page_stats()
         self.now += advanced
 
     def run(self) -> Dict[int, List[int]]:
@@ -522,15 +857,17 @@ class ServeEngine:
 def make_engine(params, cfg: ModelConfig, n_slots: int, max_seq: int, *,
                 head=None, sampler: Optional[Sampler] = None,
                 eos_id: Optional[int] = None, decode_chunk: int = 1,
-                spec_decode: int = 0, paged: bool = False, head_cache=None,
-                device="cuda") -> ServeEngine:
+                spec_decode: int = 0, paged: bool = False,
+                page_size: int = 16, num_pages: Optional[int] = None,
+                head_cache=None, device="cuda") -> ServeEngine:
     """An engine over a real model on ``device``: the serving entry point
     behind ``LM.engine``/``LM.serve``.  ``head_cache=`` (a ``HeadCache``)
     makes it per-tenant: ``head`` is then the shared ``SketchHead`` spec
     (config, backend, quant) while each slot decodes through its tenant's
     bank row; every ``submit`` needs ``tenant=``, and
     ``engine.refresh(tenant, …)``/``engine.publish(tenant)`` fold live
-    traffic into a tenant's head."""
+    traffic into a tenant's head.  ``spec_decode``, ``paged``,
+    ``page_size`` and ``num_pages`` are :class:`ServeEngine`'s."""
     if head_cache is not None:
         from repro_torch.api.heads import SketchHead
         if not isinstance(head, SketchHead):
@@ -543,4 +880,5 @@ def make_engine(params, cfg: ModelConfig, n_slots: int, max_seq: int, *,
     return ServeEngine(backend, n_slots, max_seq, eos_id=eos_id,
                        sampler=sampler, decode_chunk=decode_chunk,
                        spec_decode=spec_decode, paged=paged,
+                       page_size=page_size, num_pages=num_pages,
                        head_cache=head_cache)

@@ -7,7 +7,13 @@ decode step's logits come from the Representer-Sketch head on its
 ``--backend`` (``fused``: one CUDA kernel; ``two_kernel``; ``ref``);
 ``--decode-chunk K`` decodes K tokens per megastep (on the card, a CUDA
 graph of one decode step replayed K times), for ``generate`` and the
-engine alike, with the same tokens.  The
+engine alike, with the same tokens; ``--spec-decode K`` decodes
+speculatively instead (the head drafts up to K tokens a tick, the dense
+head verifies them: the dense head's tokens, and the banner prints the
+acceptance rate).  ``--engine --paged --page-size N`` keeps the engine's
+caches in a page pool with a prefix cache (the same streams; repeated
+prompts skip their prefill; the banner prints prefix hits and
+copy-on-write copies).  The
 head is loaded from a ``--head-path`` archive saved by either package, or,
 without one, distilled from the dense unembed in process (a short
 distillation, then a freeze).  ``--engine`` serves a synthetic stream
@@ -21,8 +27,9 @@ bank each) through a ``HeadCache``, requests round-robin over tenants.
                musicgen-large}] [--smoke] \\
       [--sketch-head [--head-path head.npz]] [--backend fused] \\
       [--quant int8] [--batch 4 --prompt-len 32 --gen 16] [--device cuda] \\
-      [--decode-chunk 16] \\
-      [--engine --requests 12 --arrival-every 1 --stats-json [--tenants 3]]
+      [--decode-chunk 16 | --spec-decode 4] \\
+      [--engine --requests 12 --arrival-every 1 --stats-json [--tenants 3]
+       [--paged --page-size 16]]
 """
 
 from __future__ import annotations
@@ -38,8 +45,9 @@ import torch
 
 from repro_torch.api.heads import DenseHead, SketchHead
 from repro_torch.api.sampler import Sampler
-from repro_torch.launch.decode_loop import decode_chunks
-from repro_torch.launch.steps import prefill_step, serve_step_
+from repro_torch.launch.decode_loop import (decode_chunks, generate_loop,
+                                            spec_decode_chunks)
+from repro_torch.launch.steps import prefill_step_, serve_step_
 from repro_torch.models.config import SketchHeadConfig
 from repro_torch.models.model import init_decode_cache
 
@@ -51,54 +59,105 @@ QUICK_HEAD = SketchHeadConfig(n_rows=128, n_buckets=16, k=1, proj_dim=32,
 def generate(params: dict, cfg, prompts: torch.Tensor, gen_len: int, *,
              head=None, sampler: Optional[Sampler] = None,
              eos_id: Optional[int] = None, pad_id: int = 0,
-             decode_chunk: int = 1, loops: Optional[dict] = None
-             ) -> torch.Tensor:
+             decode_chunk: int = 1, spec_decode: int = 0,
+             return_stats: bool = False, loops: Optional[dict] = None):
     """Bulk prefill + decode. prompts (B, P) → tokens (B, P + gen_len).
 
     The first new token comes from the prefill's dense logits, each later
     one from a decode step through ``head`` (``gen_len - 1`` steps, each
     writing the cache in place).  With ``eos_id``, a finished sequence's
     later positions hold ``pad_id``, its cache rows freeze, and the loop
-    ends once every row is done.
+    ends once every row is done.  The prefill writes into the one decode
+    cache of the call (``prefill_step_``).
 
     ``decode_chunk=K`` (> 1) runs the decode loop as megasteps of K steps
     (``launch/decode_loop.py``: a CUDA graph of one step replayed K times
     on the card), with the same tokens; the early exit on ``eos_id`` then
-    comes at chunk granularity, and the tail is padding.  ``loops``
-    memoizes the megastep's loop and capture (see ``decode_chunks``).
+    comes at chunk granularity, and the tail is padding.
+
+    ``spec_decode=K`` (> 0) decodes speculatively: ``head`` drafts up to K
+    tokens a tick, the dense head verifies them (``SpecLoop``), and the
+    tokens are the dense head's, bit for bit.  It excludes
+    ``decode_chunk > 1``.  ``return_stats=True`` also returns a dict:
+    ``decode_steps`` (the backbone's steps), and with ``spec_decode``
+    ``verify_calls``, ``draft_tokens`` and ``accepted_draft_tokens``.
+
+    ``loops`` memoizes the loops of ``decode_chunk > 1`` and
+    ``spec_decode``, which own the call's decode cache (see
+    ``decode_loop.memo_loop`` for the bound).
+
+    Raises:
+      ValueError: ``decode_chunk < 1``, ``spec_decode < 0``, or both
+        ``spec_decode`` and ``decode_chunk > 1``.
     """
     if decode_chunk < 1:
         raise ValueError(f"decode_chunk must be >= 1, got {decode_chunk}")
+    if spec_decode < 0:
+        raise ValueError(f"spec_decode must be >= 0, got {spec_decode}")
+    if spec_decode and decode_chunk > 1:
+        raise ValueError("spec_decode and decode_chunk > 1 are mutually "
+                         "exclusive: the speculative tick already advances "
+                         "up to K tokens")
     head = head or DenseHead()
     sampler = sampler or Sampler()
     b, p = prompts.shape
-    cache = init_decode_cache(cfg, b, p + gen_len, device=prompts.device)
     with torch.inference_mode():
-        logits, cache = prefill_step(params, prompts, cfg, cache)
-        if decode_chunk > 1:
-            tail = decode_chunks(params, cache, logits, cfg=cfg, head=head,
-                                 sampler=sampler, gen_len=gen_len,
-                                 start_pos=p, chunk=decode_chunk,
-                                 eos_id=eos_id, pad_id=pad_id, loops=loops)
-            return torch.cat([prompts, tail], dim=1)
-        out = [prompts]
-        finished = torch.zeros(b, dtype=torch.bool, device=prompts.device)
-        for t in range(gen_len):
-            nxt = sampler.sample(logits)
-            if eos_id is not None:
-                nxt = torch.where(finished, torch.full_like(nxt, pad_id), nxt)
-                finished = finished | (nxt == eos_id)
-            out.append(nxt[:, None])
-            if t == gen_len - 1:
-                break   # the last token's logits are never used
-            if eos_id is not None and bool(finished.all()):
-                out.append(torch.full((b, gen_len - 1 - t), pad_id,
-                                      dtype=nxt.dtype, device=nxt.device))
-                break
-            logits, cache = serve_step_(
-                params, cache, nxt[:, None], cfg, head=head,
-                active=~finished if eos_id is not None else None, pos=p + t)
-    return torch.cat(out, dim=1)
+        if decode_chunk > 1 or spec_decode:
+            template = init_decode_cache(cfg, b, p + gen_len, device="meta")
+            loop = generate_loop(params, cfg, head=head, sampler=sampler,
+                                 template=template, device=prompts.device,
+                                 masked=eos_id is not None, eos_id=eos_id,
+                                 pad_id=pad_id, spec_k=spec_decode,
+                                 loops=loops)
+            cache = loop.cache
+            for leaf in (x for c in cache["periods"].values() for x in c):
+                leaf.zero_()
+        else:
+            cache = init_decode_cache(cfg, b, p + gen_len,
+                                      device=prompts.device)
+        logits, cache = prefill_step_(params, prompts, cfg, cache)
+        kw = dict(cfg=cfg, head=head, sampler=sampler, gen_len=gen_len,
+                  start_pos=p, eos_id=eos_id, pad_id=pad_id)
+        if spec_decode:
+            tail, stats = spec_decode_chunks(params, cache, logits,
+                                             spec_k=spec_decode, loops=loops,
+                                             **kw)
+        elif decode_chunk > 1:
+            stats = {}
+            tail = decode_chunks(params, cache, logits, chunk=decode_chunk,
+                                 loops=loops, stats=stats, **kw)
+        else:
+            tail, stats = _decode_host_loop(params, cache, logits, **kw)
+    tokens = torch.cat([prompts, tail], dim=1)
+    return (tokens, stats) if return_stats else tokens
+
+
+def _decode_host_loop(params, cache, logits, *, cfg, head, sampler, gen_len,
+                      start_pos, eos_id, pad_id):
+    """The per-token decode loop (``decode_chunk=1``): returns ((B,
+    gen_len) tokens, {"decode_steps"})."""
+    b = logits.shape[0]
+    out = []
+    finished = torch.zeros(b, dtype=torch.bool, device=logits.device)
+    steps = 0
+    for t in range(gen_len):
+        nxt = sampler.sample(logits)
+        if eos_id is not None:
+            nxt = torch.where(finished, torch.full_like(nxt, pad_id), nxt)
+            finished = finished | (nxt == eos_id)
+        out.append(nxt[:, None])
+        if t == gen_len - 1:
+            break   # the last token's logits are never used
+        if eos_id is not None and bool(finished.all()):
+            out.append(torch.full((b, gen_len - 1 - t), pad_id,
+                                  dtype=nxt.dtype, device=nxt.device))
+            break
+        logits, cache = serve_step_(
+            params, cache, nxt[:, None], cfg, head=head,
+            active=~finished if eos_id is not None else None,
+            pos=start_pos + t)
+        steps += 1
+    return torch.cat(out, dim=1), {"decode_steps": steps}
 
 
 def _distill_quick(params, cfg, distill_steps: int):
@@ -207,7 +266,9 @@ def run_engine(lm, args, head_cache=None) -> None:
     n_requests = args.requests or 2 * args.batch
     engine = lm.engine(n_slots=args.batch,
                        max_seq=args.prompt_len + args.gen,
-                       head_cache=head_cache, decode_chunk=args.decode_chunk)
+                       head_cache=head_cache, decode_chunk=args.decode_chunk,
+                       spec_decode=args.spec_decode, paged=args.paged,
+                       page_size=args.page_size)
     for i, (prompt, gen, arrival) in enumerate(engine_stream(
             lm.cfg.vocab_size, n_requests, args.prompt_len, args.gen,
             args.arrival_every, args.seed)):
@@ -231,6 +292,17 @@ def run_engine(lm, args, head_cache=None) -> None:
           f"{engine.stats['megasteps']} megasteps (chunk "
           f"{engine.decode_chunk}), slot utilization "
           f"{engine.slot_utilization:.2f}")
+    s = engine.stats
+    if engine.spec_decode:
+        print(f"speculative: K={engine.spec_decode}, {s['verify_calls']} "
+              f"verify calls, acceptance {s['accepted_draft_tokens']}/"
+              f"{s['draft_tokens']} "
+              f"({s['accepted_draft_tokens'] / max(1, s['draft_tokens']):.2f})")
+    if engine.paged:
+        print(f"paged: page_size={engine.page_size}, prefix hits "
+              f"{s['prefix_hits']}/{s['prefix_queries']}, "
+              f"{s['prefill_batches']} prefill batches, {s['cow_copies']} "
+              f"COW copies, pages in use peak {s['pages_in_use_peak']}")
     if head_cache is not None:
         hs = head_cache.stats
         print(f"tenants: {args.tenants} over HeadCache capacity "
@@ -243,7 +315,9 @@ def run_engine(lm, args, head_cache=None) -> None:
                   "device": str(dev), "n_slots": args.batch,
                   "requests": len(finished), "tokens": n_generated,
                   "seconds": dur,
-                  "slot_utilization": engine.slot_utilization}
+                  "slot_utilization": engine.slot_utilization,
+                  "spec_decode": engine.spec_decode, "paged": engine.paged,
+                  "page_size": engine.page_size if engine.paged else None}
         record.update({k: int(v) for k, v in engine.stats.items()})
         if head_cache is not None:
             record["tenants"] = {
@@ -282,6 +356,10 @@ def main(argv=None) -> None:
                          " on the card a CUDA graph of one step replayed K "
                          "times), for generate and --engine; 1 = the "
                          "per-token host loop")
+    ap.add_argument("--spec-decode", type=int, default=0,
+                    help="speculative decode: the head drafts up to K tokens "
+                         "a tick and the dense head verifies them (the dense "
+                         "head's tokens); not with --decode-chunk > 1")
     ap.add_argument("--engine", action="store_true",
                     help="serve a request stream through the "
                          "continuous-batching engine (--batch slots) instead "
@@ -290,6 +368,13 @@ def main(argv=None) -> None:
                     help="engine mode: number of requests (default 2 x batch)")
     ap.add_argument("--arrival-every", type=int, default=1,
                     help="engine mode: ticks between request arrivals")
+    ap.add_argument("--paged", action="store_true",
+                    help="engine mode: a paged cache pool with an "
+                         "exact-prompt prefix cache (the same streams; "
+                         "repeated prompts prefill once); not with "
+                         "--decode-chunk > 1 or --spec-decode")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="engine mode with --paged: tokens a page")
     ap.add_argument("--stats-json", action="store_true",
                     help="engine mode: print the engine stats as one "
                          "'STATS_JSON {...}' line")
@@ -302,16 +387,27 @@ def main(argv=None) -> None:
                     help="seed of the random backbone and prompts")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.stats_json and not args.engine:
-        ap.error("--stats-json applies to engine mode; add --engine")
+    if (args.stats_json or args.paged) and not args.engine:
+        ap.error("--stats-json/--paged apply to engine mode; add --engine")
     if args.tenants:
         if not (args.engine and args.sketch_head):
             ap.error("--tenants needs --engine and --sketch-head")
         if args.head_path:
             ap.error("--tenants distills one shared head in process; "
                      "--head-path is not supported")
+        if args.spec_decode:
+            ap.error("--tenants and --spec-decode are mutually exclusive")
     if args.decode_chunk < 1:
         ap.error("--decode-chunk must be >= 1")
+    if args.spec_decode < 0:
+        ap.error("--spec-decode must be >= 0")
+    if args.spec_decode and args.decode_chunk > 1:
+        ap.error("--spec-decode and --decode-chunk > 1 are mutually exclusive")
+    if args.paged and (args.decode_chunk > 1 or args.spec_decode):
+        ap.error("--paged runs the per-token tick: not with --decode-chunk > 1 "
+                 "or --spec-decode")
+    if args.page_size < 1:
+        ap.error("--page-size must be >= 1")
     if (args.quant or args.backend) and not args.sketch_head:
         ap.error("--quant/--backend apply to the sketch head; add "
                  "--sketch-head")
@@ -342,7 +438,8 @@ def main(argv=None) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t0 = time.perf_counter()
-    out = lm.generate(prompts, args.gen, decode_chunk=args.decode_chunk)
+    out, stats = lm.generate(prompts, args.gen, decode_chunk=args.decode_chunk,
+                             spec_decode=args.spec_decode, return_stats=True)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dur = time.perf_counter() - t0
@@ -350,6 +447,11 @@ def main(argv=None) -> None:
           f"served {args.batch} seqs x {args.gen} new tokens in {dur:.3f}s "
           f"({args.batch * args.gen / dur:.1f} new tok/s, decode chunk "
           f"{args.decode_chunk})")
+    if args.spec_decode:
+        drafted, accepted = stats["draft_tokens"], stats["accepted_draft_tokens"]
+        print(f"speculative: K={args.spec_decode}, {stats['verify_calls']} verify "
+              f"calls, acceptance {accepted}/{drafted} "
+              f"({accepted / max(1, drafted):.2f})")
     print("sample token ids:", out[0, :24].tolist())
 
 

@@ -2,7 +2,8 @@
 
 ``serve_step`` never writes into the cache it is given; its in-place twin
 ``serve_step_`` consumes the cache and writes the step into it (the decode
-loops of ``generate``, the engine and ``launch/decode_loop.py`` run it).
+loops of ``generate``, the engine and ``launch/decode_loop.py`` run it),
+and so does ``prefill_step_``, the prefill into a zeroed cache.
 """
 
 from __future__ import annotations
@@ -14,8 +15,8 @@ import torch
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import softcap
 from repro_torch.models.model import (backbone, decode_step, decode_step_,
-                                      dense_logits, final_hidden,
-                                      mask_cache_update)
+                                      dense_logits, dense_verify_logits,
+                                      final_hidden, mask_cache_update)
 
 
 def prefill_step(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
@@ -28,6 +29,18 @@ def prefill_step(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     x, new_cache = backbone(params, tokens, cfg, cache=cache, cache_pos=0)
     h = final_hidden(params, x, cfg)
     return dense_logits(params, h[:, -1], cfg), new_cache
+
+
+def prefill_step_(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+                  cache: dict) -> Tuple[torch.Tensor, dict]:
+    """In-place twin of :func:`prefill_step`: ``cache`` must be zero (a
+    fresh cache, or one zeroed in place); each layer's rows are written
+    into it, and it is returned with the same logits.  No second cache is
+    made: beside ``cache`` only one layer's new rows are live at a time."""
+    x, cache = backbone(params, tokens, cfg, cache=cache, cache_pos=0,
+                        in_place=True)
+    h = final_hidden(params, x, cfg)
+    return dense_logits(params, h[:, -1], cfg), cache
 
 
 def serve_step(params: dict, cache: dict, tokens: torch.Tensor,
@@ -64,20 +77,27 @@ def serve_step(params: dict, cache: dict, tokens: torch.Tensor,
 def serve_step_(params: dict, cache: dict, tokens: torch.Tensor,
                 cfg: ModelConfig, head=None,
                 active: Optional[torch.Tensor] = None, *, pos=None,
-                head_params=None) -> Tuple[torch.Tensor, dict]:
+                head_params=None, return_hidden: bool = False):
     """In-place twin of :func:`serve_step`: ``cache`` is consumed, the step
     written into it (inactive rows unchanged), and returned with the
     (B, V) logits, which equal ``serve_step``'s bit for bit.  ``pos`` may
-    be an int, a 0-d tensor or a (B,) tensor (see ``decode_step_``)."""
-    if head is None or not head.needs_hidden:
+    be an int, a 0-d tensor or a (B,) tensor (see ``decode_step_``).
+
+    ``return_hidden=True`` also returns the (B, d) f32 final hidden, the
+    input of a speculative verify, as a third element; the dense head then
+    takes its logits from that hidden through ``dense_verify_logits``, bit
+    for bit the unembed it runs otherwise."""
+    if (head is None or not head.needs_hidden) and not return_hidden:
         logits, cache = decode_step_(params, cache, tokens, cfg,
                                      cache_pos=pos, active=active)
+        return logits, cache
+    hidden, cache = decode_step_(params, cache, tokens, cfg, cache_pos=pos,
+                                 return_hidden=True, active=active)
+    if head is None or not head.needs_hidden:
+        logits = dense_verify_logits(params, hidden, cfg)
     else:
-        hidden, cache = decode_step_(params, cache, tokens, cfg,
-                                     cache_pos=pos, return_hidden=True,
-                                     active=active)
         logits = head.apply(head.params if head_params is None
                             else head_params, hidden)
         if cfg.final_logit_softcap:
             logits = softcap(logits, cfg.final_logit_softcap)
-    return logits, cache
+    return (logits, cache, hidden) if return_hidden else (logits, cache)

@@ -1,7 +1,7 @@
 """Causal self-attention: GQA, sliding window, softcap, RoPE, KV cache.
 
-The JAX package's ``models/attention.py`` without its paged variants and
-cross-attention.  Two regimes:
+The JAX package's ``models/attention.py`` without cross-attention.  Two
+regimes:
 
 * **Bulk prefill into a fresh cache, and the cacheless forward**: the
   attention of the whole prompt is causal attention over its own q, k, v
@@ -21,6 +21,14 @@ tensor (continuous batching).  ``attention`` never writes into its inputs;
 its in-place twin ``attention_`` (one decode token, per-slot positions on
 the device) writes the new keys and values into the cache it is given,
 which is what a captured decode step needs (``launch/decode_loop.py``).
+
+The paged variants (``init_paged_cache``, ``paged_view``, ``paged_commit``,
+``paged_insert``) keep the keys and values of every slot in one
+``(num_pages, page_size, n_kv, head_dim)`` arena per layer, addressed
+through a host page table (``launch/paging.py``); page 0 is the reserved
+zero page, so a view gathered through unmapped entries equals a fresh
+cache row.  The arenas stack the periods on a leading axis, as the decode
+caches do.
 """
 
 from __future__ import annotations
@@ -63,6 +71,72 @@ def init_cache(batch: int, max_seq: int, cfg: AttentionConfig,
     shape = (*lead, batch, size, cfg.n_kv_heads, cfg.head_dim)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
+
+
+def init_paged_cache(num_pages: int, page_size: int, cfg: AttentionConfig,
+                     lead: tuple = (), device="cuda",
+                     dtype=torch.bfloat16) -> KVCache:
+    """Zero page arenas ``(*lead, num_pages, page_size, n_kv, head_dim)``."""
+    shape = (*lead, num_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
+
+
+def paged_view(cache: KVCache, pt: torch.Tensor, size: int) -> KVCache:
+    """Per-slot contiguous rows gathered from period-stacked arenas
+    (P, num_pages, ps, n_kv, dh) through the (B, npp_max) page table:
+    (P, B, size, n_kv, dh), fresh tensors.  This layer reads the first
+    ``ceil(size / ps)`` entries; unmapped (0) entries read the zero page,
+    so the view equals a contiguous pool row at the same depth."""
+    ps = cache.k.shape[2]
+    npp = -(-size // ps)
+    idx = pt[:, :npp].long()
+
+    def gather(pages):
+        v = pages[:, idx]                          # (P, B, npp, ps, kv, dh)
+        v = v.reshape(pages.shape[0], idx.shape[0], npp * ps,
+                      *pages.shape[3:])
+        return v[:, :, :size].contiguous()
+
+    return KVCache(gather(cache.k), gather(cache.v))
+
+
+def paged_commit(cache: KVCache, view: KVCache, pt: torch.Tensor,
+                 wpos: torch.Tensor) -> KVCache:
+    """Scatter the position each slot's decode step wrote in ``view`` back
+    into the arenas, in place.  ``wpos`` (B,) is the step's write index
+    (``pos % size`` on a ring, else ``pos`` clamped to the last slot, as
+    ``attention_`` writes).  An unmapped slot (a free one: the masked step
+    restored its row) writes the gathered zeros onto the zero page."""
+    ps = cache.k.shape[2]
+    bi = torch.arange(pt.shape[0], device=wpos.device)
+    phys = pt.long()[bi, wpos // ps]
+    off = wpos % ps
+    for pages, rows in ((cache.k, view.k), (cache.v, view.v)):
+        pages[:, phys, off] = rows[:, bi, wpos].to(pages.dtype)
+    return cache
+
+
+def paged_insert(cache: KVCache, src: KVCache,
+                 pt_rows: torch.Tensor) -> KVCache:
+    """Scatter freshly prefilled rows (P, G, size, n_kv, dh) into their
+    newly mapped pages, in place (``pt_rows``: the requests' (G, npp_max)
+    page-table rows).  Positions past the prompt are still zero after the
+    prefill, so unmapped trailing entries write zeros onto the zero
+    page."""
+    ps = cache.k.shape[2]
+    size = src.k.shape[2]
+    npp = -(-size // ps)
+    idx = pt_rows[:, :npp].long()
+    for pages, rows in ((cache.k, src.k), (cache.v, src.v)):
+        pad = npp * ps - size
+        if pad:
+            rows = torch.cat([rows, rows.new_zeros(
+                (*rows.shape[:2], pad, *rows.shape[3:]))], dim=2)
+        rows = rows.reshape(rows.shape[0], rows.shape[1], npp, ps,
+                            *rows.shape[3:])
+        pages[:, idx] = rows.to(pages.dtype)
+    return cache
 
 
 def _scores_mask(scores: torch.Tensor, q_pos: torch.Tensor,

@@ -4,7 +4,11 @@ A layer is a mixer followed by an FFN, pre-norm residual style: rwkv's
 time-mix and channel-mix (its own FFN), or causal self-attention
 (``attn``, ``attn_local`` with the config's window, ``attn_global``
 without one) followed by a dense SwiGLU FFN.  ``apply_layer`` returns a new
-cache; its decode twin ``apply_layer_`` writes into the one it is given."""
+cache; its decode twin ``apply_layer_`` writes into the one it is given.
+
+Paged dispatch: the attention kinds keep their caches in page arenas
+(``paged_*``), rwkv's constant-size state stays one row a slot in a state
+tree; a layer belongs to exactly one of the two."""
 
 from __future__ import annotations
 
@@ -68,6 +72,98 @@ def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
                                         device=device)
     return attn_mod.init_cache(batch, max_seq, _attn_cfg(cfg, kind),
                                lead=lead, device=device)
+
+
+def cache_needs_snapshot(cfg: ModelConfig, kind: str, cache) -> bool:
+    """Whether a speculative rollback must record this layer's cache (one
+    layer's, (B, S, ...)) at each draft step: rwkv's recurrent state has no
+    position to rewind, and a rolling SWA ring (``window <= size``) loses
+    the previous lap's entry, still inside the window, to each draft
+    write.  A plain KV cache rewinds by position alone: draft writes past
+    the rewound position are masked and overwritten before they are read.
+    """
+    _check_kind(kind)
+    if cache is None:
+        return False
+    if kind == "rwkv":
+        return True
+    a = _attn_cfg(cfg, kind)
+    return bool(a.window) and a.window <= cache.k.shape[1]
+
+
+def paged_geometry(cfg: ModelConfig, kind: str, max_seq: int):
+    """``(size, ring)`` of one layer's paged cache (the per-slot length and
+    whether decode writes roll, ``pos % size``), or None for rwkv, whose
+    state is not paged."""
+    _check_kind(kind)
+    if kind == "rwkv":
+        return None
+    a = _attn_cfg(cfg, kind)
+    size = min(max_seq, a.window) if a.window else max_seq
+    return size, bool(a.window) and a.window <= size
+
+
+def init_paged_layer_cache(cfg: ModelConfig, kind: str, num_pages: int,
+                           page_size: int, lead: tuple = (), device="cuda"):
+    """Zero page arenas of one layer (None for rwkv)."""
+    if paged_geometry(cfg, kind, 1) is None:
+        return None
+    return attn_mod.init_paged_cache(num_pages, page_size,
+                                     _attn_cfg(cfg, kind), lead=lead,
+                                     device=device)
+
+
+def init_paged_state_cache(cfg: ModelConfig, kind: str, n_slots: int,
+                           lead: tuple = (), device="cuda"):
+    """Zero state rows of one layer (rwkv only; None for the paged kinds)."""
+    _check_kind(kind)
+    if kind != "rwkv":
+        return None
+    return rwkv_mod.init_rwkv_cache(n_slots, cfg.d_model, lead=lead,
+                                    device=device)
+
+
+def _wpos(cfg: ModelConfig, kind: str, pos: torch.Tensor,
+          max_seq: int) -> torch.Tensor:
+    """The (B,) index a decode step writes at: ``pos % size`` on a ring,
+    else ``pos`` clamped to the last slot (``attention_``'s parked slot)."""
+    size, ring = paged_geometry(cfg, kind, max_seq)
+    return pos % size if ring else pos.clamp(max=size - 1)
+
+
+def paged_view_cache(cfg: ModelConfig, kind: str, cache, pt, max_seq: int):
+    """One layer's per-slot view gathered from its arenas (None stays)."""
+    if cache is None:
+        return None
+    size, _ = paged_geometry(cfg, kind, max_seq)
+    return attn_mod.paged_view(cache, pt, size)
+
+
+def paged_commit_cache(cfg: ModelConfig, kind: str, cache, view, pt, pos,
+                       max_seq: int):
+    """The position a decode step wrote in ``view`` back into the arenas."""
+    if cache is None:
+        return None
+    return attn_mod.paged_commit(cache, view, pt,
+                                 _wpos(cfg, kind, pos, max_seq))
+
+
+def paged_insert_cache(kind: str, cache, src, pt_rows):
+    """Freshly prefilled rows into newly mapped pages (None stays)."""
+    if cache is None:
+        return None
+    return attn_mod.paged_insert(cache, src, pt_rows)
+
+
+def paged_copy_pages(kind: str, cache, src_ids: torch.Tensor,
+                     dst_ids: torch.Tensor):
+    """Whole pages ``src_ids`` → ``dst_ids`` in every arena of one layer
+    (the copy-on-write fork), in place."""
+    if cache is None:
+        return None
+    for leaf in cache:
+        leaf[:, dst_ids] = leaf[:, src_ids]
+    return cache
 
 
 def apply_layer(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,

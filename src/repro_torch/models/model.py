@@ -16,11 +16,16 @@ period's view of the stacked leaves), and returned as the same tensors.
 They give the functional results bit for bit, and a captured decode step
 (``launch/decode_loop.py``) needs them: a CUDA graph replays on fixed
 buffers.
+
+Speculative decode keeps its rollback state here (``init_spec_snapshot``,
+``cache_snapshot_``, ``cache_rollback_``) and verifies through
+``dense_verify_logits``; the paged engine's cache trees (page arenas and
+state rows) are built and moved by the ``paged_*`` functions at the end.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -90,7 +95,17 @@ def mask_cache_update(cache: dict, new_cache: dict,
 
 def _each_leaf(cache: dict):
     for c in cache["periods"].values():
-        yield from c
+        if c is not None:
+            yield from c
+
+
+def _leaf_pairs(dst: dict, src: dict):
+    """(dst leaf, src leaf) pairs by layer name, over the layers ``dst``
+    holds: a paged engine's state tree holds only its rwkv layers, while a
+    prefilled ``src`` holds every layer."""
+    for name, c in dst["periods"].items():
+        if c is not None:
+            yield from zip(c, src["periods"][name])
 
 
 def mask_cache_update_(cache: dict, new_cache: dict,
@@ -127,7 +142,7 @@ def cache_slot_insert_(cfg: ModelConfig, pool: dict, src: dict,
     """In-place twin of :func:`cache_slot_insert`: row i of ``src`` written
     into ``pool`` slot ``slots[i]``; other rows are not touched."""
     del cfg
-    for old, new in zip(_each_leaf(pool), _each_leaf(src)):
+    for old, new in _leaf_pairs(pool, src):
         old.index_copy_(1, _slot_index(slots, old.device), new.to(old.dtype))
     return pool
 
@@ -188,10 +203,13 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
 
 
 def backbone(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
-             cache: Optional[dict] = None, cache_pos=None
+             cache: Optional[dict] = None, cache_pos=None,
+             in_place: bool = False
              ) -> Tuple[torch.Tensor, Optional[dict]]:
     """:func:`forward` up to the final norm: the residual stream (B, S, d)
-    in bf16 and the new cache."""
+    in bf16 and the new cache.  With ``in_place``, each layer's new cache
+    is written into its period's rows of ``cache``, which is returned: the
+    same values, and only one layer's new cache is live beside it."""
     x = embed_scaled(tokens, params["embed"], cfg.d_model)
     positions, cache_pos = _positions(tokens.shape[1], cache_pos,
                                       tokens.device)
@@ -206,10 +224,16 @@ def backbone(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
             x, nc = blocks.apply_layer(_index(stacked, i), x, cfg, kind,
                                        positions=positions, cache=layer_cache,
                                        cache_pos=cache_pos)
-            layer_caches.append(nc)
-        if cache is not None:
+            if in_place:
+                for dst, leaf in zip(cache["periods"][name], nc):
+                    dst[i].copy_(leaf)
+            else:
+                layer_caches.append(nc)
+        if cache is not None and not in_place:
             new_periods[name] = type(layer_caches[0])(
                 *(torch.stack(leaf) for leaf in zip(*layer_caches)))
+    if in_place:
+        return x, cache
     new_cache = {"periods": new_periods} if cache is not None else None
     return x, new_cache
 
@@ -229,6 +253,26 @@ def dense_logits(params: dict, h: torch.Tensor, cfg: ModelConfig
     if cfg.final_logit_softcap:
         logits = softcap(logits, cfg.final_logit_softcap)
     return logits
+
+
+def dense_verify_logits(params: dict, hidden: torch.Tensor,
+                        cfg: ModelConfig) -> torch.Tensor:
+    """:func:`dense_logits` on carried f32 final hiddens, bit for bit the
+    unembed of the decode step that made them.
+
+    ``hidden`` is the f32 output of ``return_hidden=True``; bf16 → f32 is
+    exact, so casting back gives the step's own bf16 activations.  A (B, d)
+    input is lifted to the decode step's (B, 1, d) before the product; a
+    (K, B, d) block (a speculative draft's hiddens) is unembedded one
+    position at a time at that same shape, so that every row meets the
+    GEMM the dense step runs (a (B, K, d) product may pick another kernel
+    and give other bits).  Returns (B, V) or (K, B, V) f32.
+    """
+    table = params["embed"] if cfg.tie_embeddings else params["head"]
+    if hidden.dim() == 3:
+        return torch.stack([dense_verify_logits(params, h, cfg)
+                            for h in hidden])
+    return dense_logits(params, hidden.to(table.dtype)[:, None], cfg)[:, 0]
 
 
 def _output(params, x, cfg, return_hidden):
@@ -293,3 +337,199 @@ def decode_step_(params: dict, cache: dict, tokens: torch.Tensor,
                                     cache=_index(caches, i), cache_pos=pos,
                                     active=active)
     return _output(params, x, cfg, return_hidden)[:, -1], cache
+
+
+# -- speculative decode: rollback state (launch/decode_loop.py) -----------
+
+
+class RingSnapshot(NamedTuple):
+    """What K draft steps overwrite in a period-stacked SWA ring: before
+    step i, the (n_periods, B, n_kv, dh) key and value rows at the slot it
+    writes, and that slot (B,)."""
+    k: torch.Tensor       # (K, n_periods, B, n_kv, dh)
+    v: torch.Tensor
+    slot: torch.Tensor    # (K, B) int64
+
+
+def init_spec_snapshot(cfg: ModelConfig, cache: dict, k: int) -> dict:
+    """Static rollback buffers for ``k`` draft steps over ``cache``: for
+    each layer whose cache cannot be rewound by position
+    (``blocks.cache_needs_snapshot``), rwkv's whole state (K, *leaf) or a
+    ring's :class:`RingSnapshot`; None for the others.
+
+    A ring keeps only the slots the steps overwrite, (K, P, B, n_kv, dh)
+    a leaf, not the reference's whole ring each step (K x the ring): at
+    gemma2-27b's 4096-slot rings that is 2 x 23 x 16 x 128 x 2 B = 188 KB
+    a row a step, against 0.77 GB."""
+    periods = {}
+    for j, kind in enumerate(cfg.pattern):
+        name = f"pos{j}"
+        c = cache["periods"][name]
+        if not blocks.cache_needs_snapshot(cfg, kind, _index(c, 0)):
+            periods[name] = None
+        elif kind == "rwkv":
+            periods[name] = type(c)(*(leaf.new_zeros((k, *leaf.shape))
+                                      for leaf in c))
+        else:
+            rows = (k, c.k.shape[0], c.k.shape[1], *c.k.shape[3:])
+            periods[name] = RingSnapshot(
+                c.k.new_zeros(rows), c.v.new_zeros(rows),
+                torch.zeros((k, c.k.shape[1]), dtype=torch.int64,
+                            device=c.k.device))
+    return {"periods": periods}
+
+
+def cache_snapshot_(cfg: ModelConfig, cache: dict, snap: dict,
+                    step: torch.Tensor, pos: torch.Tensor) -> None:
+    """Before draft step ``step`` ((1,) int64 on the device), record into
+    slot ``step`` of ``snap`` what the step is about to change: rwkv's
+    state, and each ring's rows at ``pos % size`` (``pos``: (B,) device
+    positions the step writes).  Device indices only, so a captured step
+    can run it."""
+    del cfg
+    for name, s in snap["periods"].items():
+        if s is None:
+            continue
+        c = cache["periods"][name]
+        if isinstance(s, RingSnapshot):
+            slot = pos % c.k.shape[2]
+            bi = torch.arange(slot.shape[0], device=slot.device)
+            s.k.index_copy_(0, step, c.k[:, bi, slot][None])
+            s.v.index_copy_(0, step, c.v[:, bi, slot][None])
+            s.slot.index_copy_(0, step, slot[None])
+        else:
+            for buf, leaf in zip(s, c):
+                buf.index_copy_(0, step, leaf[None])
+
+
+def cache_rollback_(cfg: ModelConfig, cache: dict, snap: dict,
+                    m: torch.Tensor, k: int) -> None:
+    """Rewind ``cache`` after ``k`` draft steps to its state after the
+    first ``m`` (a 0-d int64 device tensor, 1 <= m <= k), in place, with
+    no host sync: rwkv's state from its snapshot before step ``m`` (kept
+    when m == k), each ring's slots written by steps m..k-1 restored, the
+    last step first (steps may share a slot when the ring is shorter than
+    k).  Plain KV caches keep the draft's writes past the rewound
+    position: decode masks keys past ``cache_pos``."""
+    del cfg
+    keep = m >= k
+    for name, s in snap["periods"].items():
+        if s is None:
+            continue
+        c = cache["periods"][name]
+        if isinstance(s, RingSnapshot):
+            bi = torch.arange(s.slot.shape[1], device=m.device)
+            for j in reversed(range(k)):
+                undo = m <= j
+                slot = s.slot[j]
+                for leaf, old in ((c.k, s.k[j]), (c.v, s.v[j])):
+                    leaf[:, bi, slot] = torch.where(undo, old,
+                                                    leaf[:, bi, slot])
+        else:
+            idx = m.clamp(max=k - 1).reshape(1)
+            for buf, leaf in zip(s, c):
+                leaf.copy_(torch.where(keep, leaf,
+                                       buf.index_select(0, idx)[0]))
+
+
+# -- the paged pool (launch/engine.py, launch/paging.py) -------------------
+#
+# The paged engine splits the decode cache in two trees: ``pages`` holds a
+# period-stacked (n_periods, num_pages, page_size, ...) arena per attention
+# layer, addressed through the host page table; ``state`` holds rwkv's
+# (n_periods, n_slots, ...) state rows under the ordinary slot ops.  A
+# layer is in exactly one of them (None in the other).  A paged decode
+# gathers each slot's view, merges the state in, runs the in-place decode
+# step on that tree (the state is written where it lives) and commits the
+# written position back to the arenas.
+
+
+def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
+                     device="cuda") -> dict:
+    """Zero page arenas, one per attention layer (None for rwkv); one page
+    id addresses the same physical page in every arena."""
+    return {"periods": {
+        f"pos{j}": blocks.init_paged_layer_cache(
+            cfg, kind, num_pages, page_size, lead=(cfg.n_periods,),
+            device=device)
+        for j, kind in enumerate(cfg.pattern)}}
+
+
+def init_paged_state(cfg: ModelConfig, n_slots: int, device="cuda") -> dict:
+    """Zero state rows (n_periods, n_slots, ...) for the rwkv layers only."""
+    return {"periods": {
+        f"pos{j}": blocks.init_paged_state_cache(
+            cfg, kind, n_slots, lead=(cfg.n_periods,), device=device)
+        for j, kind in enumerate(cfg.pattern)}}
+
+
+def paged_gather_cache(cfg: ModelConfig, pages: dict, pt: torch.Tensor,
+                       max_seq: int) -> dict:
+    """Each slot's contiguous view of every arena through the (B, npp)
+    page table (unmapped entries read the zero page: fresh-cache bytes)."""
+    return {"periods": {
+        f"pos{j}": blocks.paged_view_cache(cfg, kind,
+                                           pages["periods"][f"pos{j}"], pt,
+                                           max_seq)
+        for j, kind in enumerate(cfg.pattern)}}
+
+
+def paged_commit_cache(cfg: ModelConfig, pages: dict, view: dict,
+                       pt: torch.Tensor, pos: torch.Tensor,
+                       max_seq: int) -> dict:
+    """The position each slot's decode step wrote in ``view`` (at ``pos``,
+    ring-adjusted per layer) scattered back into the arenas, in place."""
+    for j, kind in enumerate(cfg.pattern):
+        name = f"pos{j}"
+        blocks.paged_commit_cache(cfg, kind, pages["periods"][name],
+                                  view["periods"][name], pt, pos, max_seq)
+    return pages
+
+
+def paged_insert_cache(cfg: ModelConfig, pages: dict, src: dict,
+                       pt_rows: torch.Tensor) -> dict:
+    """Freshly prefilled rows (the tree ``cache_slot_insert_`` takes) into
+    their newly mapped pages, in place."""
+    for j, kind in enumerate(cfg.pattern):
+        name = f"pos{j}"
+        blocks.paged_insert_cache(kind, pages["periods"][name],
+                                  src["periods"][name], pt_rows)
+    return pages
+
+
+def paged_copy_pages(cfg: ModelConfig, pages: dict, src_ids: torch.Tensor,
+                     dst_ids: torch.Tensor) -> dict:
+    """Whole pages ``src_ids`` → ``dst_ids`` across every arena (the
+    copy-on-write fork), in place."""
+    for j, kind in enumerate(cfg.pattern):
+        blocks.paged_copy_pages(kind, pages["periods"][f"pos{j}"], src_ids,
+                                dst_ids)
+    return pages
+
+
+def merge_paged_view(cfg: ModelConfig, view: dict, state: dict) -> dict:
+    """One full cache tree from gathered views and the state rows (the
+    same tensors, no copy): the tree a contiguous pool would be."""
+    del cfg
+    return {"periods": {
+        name: v if v is not None else state["periods"][name]
+        for name, v in view["periods"].items()}}
+
+
+def extract_paged_state(cfg: ModelConfig, cache: dict) -> dict:
+    """The rwkv half of a full cache tree (the same tensors; None for the
+    paged kinds)."""
+    return {"periods": {
+        f"pos{j}": cache["periods"][f"pos{j}"] if kind == "rwkv" else None
+        for j, kind in enumerate(cfg.pattern)}}
+
+
+def extract_state_rows(cfg: ModelConfig, cache: dict, row: int) -> dict:
+    """Copies of batch row ``row`` of the rwkv layers of a prefilled cache,
+    (n_periods, 1, ...) a leaf: the constant-size state a prefix-cache
+    entry keeps."""
+    state = extract_paged_state(cfg, cache)
+    return {"periods": {
+        name: None if c is None else type(c)(
+            *(leaf[:, row:row + 1].clone() for leaf in c))
+        for name, c in state["periods"].items()}}

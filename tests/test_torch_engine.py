@@ -320,12 +320,31 @@ def test_retired_slots_reset_to_fresh_cache(smoke):
     _assert_caches_equal(engine.pool, fresh)
 
 
-def test_engine_refuses_unported_modes(smoke):
+def test_engine_rejects_bad_mode_combinations(smoke):
+    """The JAX package's engine ``ValueError``s: speculative decode with a
+    megastep, with per-tenant heads or negative; the paged pool with a
+    megastep, with speculative decode or with pages of no tokens."""
+    from repro_torch.api import HeadCache
+
     lm = _lm(smoke)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        lm.engine(2, 10, spec_decode=2)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        lm.engine(2, 10, paged=True)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        lm.engine(2, 10, spec_decode=2, decode_chunk=4)
+    with pytest.raises(ValueError, match="spec_decode must be >= 0"):
+        lm.engine(2, 10, spec_decode=-1)
+    spec = lm.with_head(SketchHead(cfg=HEAD_CFG, backend="fused"))
+    with pytest.raises(ValueError, match="per-tenant"):
+        spec.engine(2, 10, spec_decode=2,
+                    head_cache=HeadCache(lambda t: None, 1))
+    with pytest.raises(ValueError, match="paged"):
+        lm.engine(2, 10, paged=True, decode_chunk=4)
+    with pytest.raises(ValueError, match="paged"):
+        lm.engine(2, 10, paged=True, spec_decode=2)
+    with pytest.raises(ValueError, match="page_size"):
+        lm.engine(2, 10, paged=True, page_size=0)
+    engine = lm.engine(2, 10, spec_decode=2)
+    assert engine.spec_decode == 2 and not engine.paged
+    engine = lm.engine(2, 10, paged=True, page_size=4)
+    assert engine.paged and engine.pool is None
 
 
 def test_submit_contract(smoke):
