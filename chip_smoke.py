@@ -131,11 +131,11 @@ kernels through the same wrappers and checks.
    recomputed, a decode step at that context functional against in place
    (the functional step's two cache copies timed alone), wall time and
    flash_attn's share of the kernel time under torch.profiler, then 4 new
-   tokens through ``LM.generate``.  Then granite-8b, stablelm-12b and
-   musicgen-large at full width and command-r-35b at 32 of its 40 layers:
-   ``LM.generate`` dense and fused at decode_chunk 1 and 16, equal
-   streams, launch counts, new tok/s, init and generate peak memory, the
-   phase's seconds.
+   tokens through ``LM.generate``.  Then granite-8b, stablelm-12b,
+   musicgen-large and command-r-35b (all 40 layers, drawn a layer at a
+   time by ``draw_params``) at full width and depth: ``LM.generate`` dense
+   and fused at decode_chunk 1 and 16, equal streams, launch counts, new
+   tok/s, init and generate peak memory, the phase's seconds.
 14. Speculative decode and the paged engine (PR 21): after each decode
    loop phase (rwkv6: fused and two_kernel drafts; gemma2: fused),
    ``LM.generate(spec_decode=K)`` for K in SPEC_KS, each stream equal to
@@ -152,7 +152,22 @@ kernels through the same wrappers and checks.
    long-prompt peak at decode_chunk 16 against 1 (less than one KV cache
    apart), and speculative decode at the wrapped ring (K=4, the dense
    stream, the snapshot's bytes).
-15. Prints the ``{"kernels": [...]}`` line (race_update's launches from the
+15. Seeded sampling on rwkv6-1.6b after its spec phase
+   (``seeded_phase``: the card's threefry keys, split chain, bits and
+   uniforms of a (4, 65536) draw equal the CPU port's bit for bit;
+   ``Sampler(temperature=0.9, top_k=12, seed=7)`` gives one stream at
+   decode_chunk 1 and 16 and through spec K=4 with the dense-head draft,
+   and the engine's streams at decode_chunk 4 equal decode_chunk 1's;
+   ms/step of the captured step greedy, seeded and seeded at top_p 0.95,
+   and the sort's share).  Last, the MoE archs at full width, drawn a
+   layer at a time: mixtral-8x7b at 24 of 32 layers (65.4 GiB; flash_attn
+   24 a prefill, its 4096 window wraps no ring at prompt 32) and
+   jamba-v0.1-52b at 16 of 32 (two periods, 48.5 GiB; flash_attn 2 a
+   prefill), the cells of the plain archs, then for jamba spec generate at
+   K=4 (dense-head and fused drafts, the dense stream), the paged engine
+   against the contiguous one (prefix hits: mamba state rows in the
+   prefix cache) and the spec engine against the dense one.
+16. Prints the ``{"kernels": [...]}`` line (race_update's launches from the
    refresh path, race_query's from the paper phase, flash_attn's from the
    gemma2 main path with its record at the main path's global-layer
    prefill, flex_attention as its library call, softcap-free kernel and
@@ -182,7 +197,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.api import LM, DenseHead, HeadCache, SketchHead
+from repro_torch.api import LM, DenseHead, HeadCache, Sampler, SketchHead
+from repro_torch.api import sampler as sampling
 from repro_torch.configs import get_config
 from repro_torch.core.sketch_lm_head import (dequantize_head, freeze_head, quantize_counts,
                                              quantize_head)
@@ -209,10 +225,11 @@ from repro_torch.launch import paper_repro, serve
 from repro_torch.launch.decode_loop import WARMUP_STEPS, SpecLoop
 from repro_torch.launch.serve import engine_stream
 from repro_torch.launch.steps import prefill_step, prefill_step_, serve_step, serve_step_
-from repro_torch.models import model
+from repro_torch.models import blocks, model
 from repro_torch.models.attention import KVCache
 from repro_torch.models.config import SketchHeadConfig
-from repro_torch.models.layers import apply_rope, embed_scaled, rms_norm, softcap
+from repro_torch.models.layers import (apply_rope, embed_scaled, init_dense, rms_norm,
+                                      softcap)
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
@@ -244,12 +261,15 @@ GEMMA_LONG = 4160                   # past the 4096 window: the local rings wrap
 GEMMA_STAGGERED = 6                 # staggered requests over TENANT_SLOTS slots
 DECODE_CHUNKS = (1, 4, 16)          # generate's megastep sizes
 ENGINE_CHUNK = 4                    # the engine's megastep size
-# The plain-attention archs at full width, and the depth each runs at:
-# command-r-35b's init draws each layer stack as one f32 tensor, and at
-# 40 layers its FFN stacks' draw peaks near 90 GB beside the resident
-# weights; 32 layers peak near 73 GB.
-PLAIN_ARCHS = (("granite-8b", None), ("stablelm-12b", None),
-               ("musicgen-large", None), ("command-r-35b", 32))
+# The plain-attention archs at full width and depth (command-r-35b's 40
+# layers, 56.4 GiB, drawn a layer at a time: ``draw_params``).
+PLAIN_ARCHS = (("granite-8b", None, False), ("stablelm-12b", None, False),
+               ("musicgen-large", None, False), ("command-r-35b", None, True))
+# The MoE archs at full width, at the depth one card holds: mixtral-8x7b
+# at 24 of 32 layers (65.4 GiB), jamba-v0.1-52b at 16 of 32 (two periods,
+# 48.5 GiB; three would be 72.3 GiB).
+MOE_ARCHS = (("mixtral-8x7b", 24), ("jamba-v0.1-52b", 16))
+SEEDED = dict(temperature=0.9, top_k=12, seed=7)   # the reference tests' "seeded"
 SPEC_KS = (4, 16)                   # speculative draft lengths
 PAGE_SIZE = 16                      # the paged engine's tokens a page
 MEMO_PROMPTS = (16, 32, 64)         # generate's prompt lengths in the memo phase
@@ -522,19 +542,52 @@ def backbone_phase(dev):
     assert_bf16_backbone_close(got.cpu().numpy(), want.numpy())
 
 
-def build_served(arch, dev, n_layers=None):
+def draw_params(cfg, gen):
+    """Random params of ``cfg`` on the generator's device, drawn one layer
+    at a time into preallocated bf16 stacks: the f32 transient of the draw
+    is then one layer's leaf (1.9 GB for mixtral's (8, 4096, 14336)
+    experts), where ``init_model`` draws each whole stack in f32 (45 GB
+    for mixtral's w_gate at 24 layers)."""
+    params = {"embed": init_dense(gen, (cfg.vocab_size, cfg.d_model), scale=0.02),
+              "final_norm": torch.zeros((cfg.d_model,), dtype=torch.float32,
+                                        device=gen.device)}
+    if not cfg.tie_embeddings:
+        params["head"] = init_dense(gen, (cfg.vocab_size, cfg.d_model), scale=0.02)
+
+    def stack(dst, layer, i):
+        for k, v in layer.items():
+            if isinstance(v, dict):
+                stack(dst.setdefault(k, {}), v, i)
+            else:
+                if k not in dst:
+                    dst[k] = v.new_empty((cfg.n_periods, *v.shape))
+                dst[k][i].copy_(v)
+
+    params["periods"] = {}
+    for j, kind in enumerate(cfg.pattern):
+        stacked = params["periods"][f"pos{j}"] = {}
+        for i in range(cfg.n_periods):
+            stack(stacked, blocks.init_layer(gen, cfg, kind, ffn=cfg.ffn_kind(j)), i)
+    return params
+
+
+def build_served(arch, dev, n_layers=None, per_layer=False):
     """Full-width ``arch`` from seed 0 on the card (``n_layers`` deep when
-    given, else at full depth), and the serve head (SERVE_HEAD) frozen from
-    random kernel params over 256 anchors at the arch's vocabulary; returns
-    (lm, kernel params, frozen head, the generator, for the prompts)."""
+    given, else at full depth; with ``per_layer``, drawn a layer at a time
+    by ``draw_params`` and passed through ``LM.from_config(params=)``), and
+    the serve head (SERVE_HEAD) frozen from random kernel params over 256
+    anchors at the arch's vocabulary; returns (lm, kernel params, frozen
+    head, the generator, for the prompts)."""
     gen = torch.Generator(dev).manual_seed(0)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    if n_layers is None:
-        lm = LM.from_config(arch, device=dev, generator=gen)
+    if per_layer:
+        cfg = get_config(arch)
+        cfg = cfg if n_layers is None else cfg.scaled(n_layers=n_layers)
+        lm = LM.from_config(arch, device=dev, params=draw_params(cfg, gen),
+                            n_layers=n_layers)
     else:
-        cfg = get_config(arch).scaled(n_layers=n_layers)
-        lm = LM(model.init_model(cfg, gen), cfg, DenseHead(), dev)
+        lm = LM.from_config(arch, device=dev, generator=gen, n_layers=n_layers)
     cfg = lm.cfg
     m = 256
     kparams = {"points": torch.randn((m, SERVE_HEAD.proj_dim), generator=gen, device=dev),
@@ -919,7 +972,9 @@ def run_engine(lm, stream, n_slots, *, tenants=None, head_cache=None, decode_chu
     t0 = time.perf_counter()
     finished = eng.run()
     torch.cuda.synchronize()
-    return eng, finished, time.perf_counter() - t0, counts()
+    dt, launched = time.perf_counter() - t0, counts()
+    eng.close()                                 # its captured loops' graphs
+    return eng, finished, dt, launched
 
 
 def engine_report(label, eng, finished, seconds, launched):
@@ -1835,22 +1890,30 @@ def gemma_long_prefill(lm, timer):
           f"{gen_wall * 1e3:.1f} ms wall, launches flash_attn {cfg.n_layers}", flush=True)
 
 
-def arch_phase(dev, arch, n_layers):
-    """A plain-attention arch at full width (``n_layers`` deep when given):
-    ``LM.generate`` of BATCH x PROMPT prompts for GEN new tokens through
-    the dense and the fused head at decode_chunk 1 and 16 (after a warm-up
-    and the capture), equal streams, launch counts (flash_attn once per
-    layer in the prefill, fused_decode GEN - 1), new tok/s, the peak
-    memory and the phase's seconds."""
+def attn_layers(cfg):
+    """The attention layers of ``cfg`` (flash_attn launches in a prefill)."""
+    return cfg.n_periods * sum(k in blocks.ATTN_KINDS for k in cfg.pattern)
+
+
+def arch_phase(dev, arch, n_layers, per_layer=False, extra=None):
+    """An arch at full width (``n_layers`` deep when given; drawn a layer
+    at a time with ``per_layer``): ``LM.generate`` of BATCH x PROMPT
+    prompts for GEN new tokens through the dense and the fused head at
+    decode_chunk 1 and 16 (after a warm-up and the capture), equal
+    streams, launch counts (flash_attn once per attention layer in the
+    prefill, fused_decode GEN - 1), new tok/s, the peak memory and the
+    phase's seconds.  ``extra(lm, frozen, prompts, dense_stream)`` runs
+    after, on the same model."""
     t_phase = time.perf_counter()
-    lm, _, frozen, gen = build_served(arch, dev, n_layers)
+    lm, _, frozen, gen = build_served(arch, dev, n_layers, per_layer)
     cfg = lm.cfg
     init_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device=dev)
     heads = {"dense": lm.head, "fused": SketchHead(cfg=SERVE_HEAD, backend="fused",
                                                    params=frozen)}
-    want = {"dense": {"flash_attn": cfg.n_layers},
-            "fused": {"flash_attn": cfg.n_layers, "fused_decode": GEN - 1}}
+    want = {"dense": {"flash_attn": attn_layers(cfg)},
+            "fused": {"flash_attn": attn_layers(cfg), "fused_decode": GEN - 1}}
+    dense_stream = None
     torch.cuda.reset_peak_memory_stats()
     tps = {}
     for name, head in heads.items():
@@ -1874,16 +1937,27 @@ def arch_phase(dev, arch, n_layers):
         if not torch.equal(streams[1], streams[16]):
             raise AssertionError(f"{cfg.name} {name}: decode_chunk=16 gave another stream "
                                  f"than decode_chunk=1")
+        if name == "dense":
+            dense_stream = streams[1]
+        for loop in served._loops.values():
+            loop.close()
+        served._loops.clear()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     depth = (f"{cfg.n_layers} layers" if n_layers is None else
-             f"{cfg.n_layers} of {get_config(arch).n_layers} layers (the init's f32 draw of "
-             f"each layer stack must fit beside the resident weights)")
-    print(f"{cfg.name} at full width, {depth}: dense and fused streams equal at "
-          f"decode_chunk 1 and 16; new tok/s {tps}; init peak {init_peak:.1f} GiB, "
-          f"generate peak {peak:.1f} GiB allocated; {time.perf_counter() - t_phase:.1f} s",
-          flush=True)
+             f"{cfg.n_layers} of {get_config(arch).n_layers} layers")
+    n_params = sum(t.numel() for t in leaves(lm.params))
+    print(f"{cfg.name} at full width, {depth} ({n_params / 1e9:.2f} B params"
+          f"{', drawn a layer at a time' if per_layer else ''}): dense and fused streams "
+          f"equal at decode_chunk 1 and 16; launches flash_attn {attn_layers(cfg)} a "
+          f"prefill, fused_decode {GEN - 1} a fused generate; new tok/s {tps}; init peak "
+          f"{init_peak:.1f} GiB, generate peak {peak:.1f} GiB allocated; "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    if extra is not None:
+        extra(lm, frozen, prompts, dense_stream)
     del lm, frozen, heads, served
     free_card()
+    print(f"{cfg.name} freed: {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB reserved", flush=True)
 
 
 def draft_launches(head):
@@ -2009,9 +2083,11 @@ def spec_engine_phase(lm, frozen):
         fin = eng.run()
         torch.cuda.synchronize()
         results[name] = (eng, fin, time.perf_counter() - t0, counts())
+        eng.close()
     (d_eng, d_fin, d_dt, _), (eng, fin, dt, launched) = results["dense"], results["fused"]
     expect_launches("spec engine", launched,
-                    {"fused_decode": eng.stats["decode_steps"] + WARMUP_STEPS})
+                    {"fused_decode": eng.stats["decode_steps"] + WARMUP_STEPS,
+                     "flash_attn": attn_layers(cfg) * eng.stats["prefill_batches"]})
     if fin != d_fin:
         raise AssertionError("spec engine: a stream differs from the dense engine's")
     st, n_new = eng.stats, sum(len(v) for v in fin.values())
@@ -2066,7 +2142,7 @@ def paged_phase(lm, frozen):
         stream.append((prompt, GEN if i % 2 else GEN // 4, i))
     max_seq = 64 + GEN
     served = lm.with_head(SketchHead(cfg=SERVE_HEAD, backend="fused", params=frozen))
-    attn = any(k != "rwkv" for k in cfg.pattern)
+    attn = attn_layers(cfg) > 0
     results = {}
     for paged in (False, True):
         eng = served.engine(SLOTS, max_seq, paged=paged, page_size=PAGE_SIZE)
@@ -2081,7 +2157,7 @@ def paged_phase(lm, frozen):
         dt = time.perf_counter() - t0
         want = {"fused_decode": eng.stats["decode_steps"]}
         if attn:
-            want["flash_attn"] = cfg.n_layers * eng.stats["prefill_batches"]
+            want["flash_attn"] = attn_layers(cfg) * eng.stats["prefill_batches"]
         expect_launches(f"{cfg.name} {'paged' if paged else 'contiguous'} engine", counts(),
                         want)
         results[paged] = (eng, fin, dt, float(np.median(ticks)))
@@ -2104,6 +2180,137 @@ def paged_phase(lm, frozen):
           f"{c_dt * 1e3 / c_eng.stats['megasteps']:.2f} ms and {n_new / c_dt:.1f} "
           f"({st['megasteps']} and {c_eng.stats['megasteps']} ticks); the decode call alone "
           f"(gather, step, commit) {tick:.2f} ms against {c_tick:.2f} ms (medians)", flush=True)
+
+
+def timed_print(label, fn, *args):
+    """``fn(*args)``, then a line with its seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"{label}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def jamba_phase(lm, frozen, prompts, dense):
+    """jamba at reduced depth after its generate cells: spec generate at
+    K=4 with the dense-head draft (acceptance 1.0) and with fused drafts
+    (rejections: the mamba rows restored from their snapshots), each the
+    dense stream bit for bit; the paged engine against the contiguous one
+    (``paged_phase``: mamba state rows in the prefix cache); the
+    speculative engine against the dense one (``spec_engine_phase``)."""
+    cfg = lm.cfg
+    t0 = time.perf_counter()
+    for name, head in (("dense-head", DenseHead()),
+                       ("fused", SketchHead(cfg=SERVE_HEAD, backend="fused", params=frozen))):
+        served = lm.with_head(head)
+        served.generate(prompts, GEN, spec_decode=4)                # the capture
+        torch.cuda.synchronize()
+        reset_counts()
+        t1 = time.perf_counter()
+        tokens, stats = served.generate(prompts, GEN, spec_decode=4, return_stats=True)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        want = dict({"flash_attn": attn_layers(cfg)},
+                    **{w: stats["decode_steps"] for w in draft_launches(head)})
+        expect_launches(f"{cfg.name} spec {name}", counts(), want)
+        if not torch.equal(tokens, dense):
+            raise AssertionError(f"{cfg.name} spec generate ({name} draft): another stream "
+                                 f"than dense decode")
+        if name == "dense-head" and stats["accepted_draft_tokens"] != stats["draft_tokens"]:
+            raise AssertionError(f"{cfg.name}: the dense-head draft was rejected")
+        print(f"{cfg.name} spec generate K=4, {name} draft: the dense stream token for "
+              f"token; acceptance {stats['accepted_draft_tokens']}/{stats['draft_tokens']}, "
+              f"{stats['verify_calls']} ticks; {BATCH * GEN / dt:.1f} new tok/s (prefill "
+              f"included); launches {want}", flush=True)
+        for loop in served._loops.values():
+            loop.close()
+        served._loops.clear()
+    print(f"{cfg.name} spec generate: {time.perf_counter() - t0:.1f} s", flush=True)
+    timed_print(f"{cfg.name} paged engine", paged_phase, lm, frozen)
+    timed_print(f"{cfg.name} spec engine", spec_engine_phase, lm, frozen)
+
+
+def seeded_phase(lm, prompts, timer):
+    """Seeded sampling on full-width rwkv6-1.6b (``Sampler(**SEEDED)``,
+    the reference tests' "seeded"): (a) the card's threefry keys, a chain
+    of splits, random bits and uniforms of a (4, 65536) draw equal to the
+    CPU port's bit for bit; (b) ``generate`` at decode_chunk 1 and 16 the
+    same stream; (c) spec generate at K=4 with the dense-head draft that
+    stream; (d) the engine at decode_chunk 4 the streams of decode_chunk
+    1 (12 staggered requests over 4 slots); (e) the captured step's
+    ms/step greedy, seeded and seeded with top_p 0.95, and the top-p
+    sort's share of that step (the sort of (4, 65536) logits timed
+    alone)."""
+    cfg, dev = lm.cfg, lm.device
+    shape = (BATCH, cfg.vocab_size)
+    for seed in (0, 7, 2 ** 31 - 1):
+        key, ckey = sampling.prng_key(seed, dev), sampling.prng_key(seed)
+        for _ in range(3):
+            keys, ckeys = sampling.split(key), sampling.split(ckey)
+            if not torch.equal(keys.cpu(), ckeys):
+                raise AssertionError(f"seed {seed}: the card's split differs from the CPU's")
+            for got, want in ((sampling.random_bits(keys[1], shape),
+                               sampling.random_bits(ckeys[1], shape)),
+                              (sampling.uniform(keys[1], shape, sampling.F32_TINY, 1.0),
+                               sampling.uniform(ckeys[1], shape, sampling.F32_TINY, 1.0))):
+                if not torch.equal(got.cpu(), want):
+                    raise AssertionError(f"seed {seed}: the card's bits or uniforms differ "
+                                         f"from the CPU's")
+            key, ckey = keys[0], ckeys[0]
+    print(f"seeded: threefry keys, 3 chained splits, random bits and uniforms of a {shape} "
+          f"draw at seeds 0, 7, 2^31-1 equal on the card and the CPU bit for bit", flush=True)
+    sampler = Sampler(**SEEDED)
+    dense = lm.with_head(DenseHead())
+    greedy = dense.generate(prompts, GEN)
+    host = dense.generate(prompts, GEN, sampler=sampler)
+    dense.generate(prompts, GEN, sampler=sampler, decode_chunk=16)       # the capture
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    chunk = dense.generate(prompts, GEN, sampler=sampler, decode_chunk=16)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    expect_launches("seeded generate", counts(), {})
+    spec, stats = dense.generate(prompts, GEN, sampler=sampler, spec_decode=4,
+                                 return_stats=True)
+    if not (torch.equal(chunk, host) and torch.equal(spec, host)):
+        raise AssertionError("seeded: decode_chunk 16 or spec_decode 4 gave another stream "
+                             "than the per-token loop")
+    if stats["accepted_draft_tokens"] != stats["draft_tokens"] or torch.equal(host, greedy):
+        raise AssertionError("seeded: the dense-head draft was rejected, or the seeded "
+                             "stream is the greedy one")
+    print(f"seeded generate {sampler.describe()}: decode_chunk 1 and 16 and spec K=4 "
+          f"(dense-head draft, acceptance 1.0) the same stream; "
+          f"{float((host != greedy).float().mean()):.3f} of its tokens differ from greedy; "
+          f"{BATCH * GEN / dt:.1f} new tok/s at decode_chunk 16", flush=True)
+    stream = engine_stream(cfg.vocab_size, N_REQUESTS, PROMPT, GEN, 1, 0)
+    fins = {}
+    for c in (1, ENGINE_CHUNK):
+        eng = dense.engine(SLOTS, PROMPT + GEN, sampler=sampler, decode_chunk=c)
+        for p, g, a in stream:
+            eng.submit(p, g, arrival=a)
+        fins[c] = eng.run()
+        eng.close()
+    if fins[ENGINE_CHUNK] != fins[1]:
+        raise AssertionError("seeded engine: decode_chunk 4 gave other streams than 1")
+    print(f"seeded engine: {len(fins[1])} requests over {SLOTS} slots, decode_chunk "
+          f"{ENGINE_CHUNK} the streams of decode_chunk 1", flush=True)
+    ms = {}
+    for label, smp in (("greedy", Sampler()), ("seeded", sampler),
+                       ("seeded top_p 0.95", Sampler(**dict(SEEDED, top_p=0.95)))):
+        dense.generate(prompts, GEN, sampler=smp, decode_chunk=16)
+        loop = next(v for k, v in dense._loops.items() if k[0] == "chunk" and k[4] == smp)
+        ms[label] = megastep_ms(loop, 16)
+    logits = torch.randn(shape, device=dev)
+    sort_ms = timer.ms(lambda: torch.sort(logits, dim=-1, descending=True))
+    filt_ms = timer.ms(lambda: sampling.filter_logits(Sampler(**dict(SEEDED, top_p=0.95)),
+                                                      logits))
+    for loop in dense._loops.values():
+        loop.close()
+    dense._loops.clear()
+    print(f"seeded captured step (B={BATCH}, V={cfg.vocab_size}, decode_chunk 16): "
+          f"{ {k: round(v, 3) for k, v in ms.items()} } ms/step; the top-p sort alone "
+          f"{sort_ms:.3f} ms ({sort_ms / ms['seeded top_p 0.95']:.3f} of the top_p step), "
+          f"the whole filter {filt_ms:.3f} ms", flush=True)
 
 
 def cache_gib(cache):
@@ -2256,6 +2463,7 @@ def main() -> None:
     runs, recs, lm, frozen, kparams, loop_args = timed("main path", main_path, dev, timer)
     loop_ms = timed("decode loop", decode_loop_phase, *loop_args)
     timed("spec generate", spec_phase, *loop_args[:5], loop_ms)
+    timed("seeded sampling", seeded_phase, lm, loop_args[2], timer)
     del loop_args
     refresh_launches, recs["race_update"] = timed("refresh f32", refresh_phase, dev, timer, lm,
                                                   kparams, None)
@@ -2281,8 +2489,11 @@ def main() -> None:
     timed("gemma2 long prefill", gemma_long_prefill, glm, timer)
     del glm
     free_card()
-    for arch, n_layers in PLAIN_ARCHS:
-        timed(arch, arch_phase, dev, arch, n_layers)
+    for arch, n_layers, per_layer in PLAIN_ARCHS:
+        timed(arch, arch_phase, dev, arch, n_layers, per_layer)
+    for arch, n_layers in MOE_ARCHS:
+        timed(arch, arch_phase, dev, arch, n_layers, True,
+              jamba_phase if arch.startswith("jamba") else None)
     print(f"phase seconds: {phase_seconds}")
     long = flash["long prefill, global"]
     recs["flash_attn"] = dict(flash["main prefill, global"],

@@ -1,9 +1,11 @@
 """The ``LM`` facade: backbone params + config + a logit head, on a device.
 
-    from repro_torch.api import LM, SketchHead
+    from repro_torch.api import LM, Sampler, SketchHead
 
     lm = LM.from_config("rwkv6-1.6b")                     # on the card
     tokens = lm.generate(prompts, max_new_tokens=16)
+    tokens = lm.generate(prompts, 16, sampler=Sampler(temperature=0.9,
+                                                      top_k=12, seed=7))
     tokens = lm.generate(prompts, 16, decode_chunk=16)    # one megastep
     tokens = lm.generate(prompts, 16, spec_decode=4)      # drafts, dense verify
     lm = lm.with_head(SketchHead.load("head.npz"))        # sketched decode
@@ -46,7 +48,7 @@ class LM:
     memoize their decode loops in the LM (on the card a captured CUDA
     graph, holding this LM's params and head).  A loop owns the call's
     decode cache, so the memo is bounded: at most one loop per (kind,
-    spec depth, batch size, eos_id/pad_id), a call with another
+    spec depth, sampler, batch size, eos_id/pad_id), a call with another
     ``max_seq`` replacing that loop, and at most
     ``launch.decode_loop.MAX_LOOPS`` (4) loops in all, the least recently
     used dropped first (its cache and graph freed).  ``with_head`` starts
@@ -63,7 +65,8 @@ class LM:
     @classmethod
     def from_config(cls, arch: str, *, smoke: bool = False, device="cuda",
                     generator: Optional[torch.Generator] = None,
-                    head=None, params: Any = None) -> "LM":
+                    head=None, params: Any = None,
+                    n_layers: Optional[int] = None) -> "LM":
         """Build an LM from a ported arch config.
 
         Args:
@@ -74,6 +77,8 @@ class LM:
             ``device``; seed 0 when omitted).
           head: the serving head (dense when omitted).
           params: backbone params to serve instead of a random init.
+          n_layers: serve the arch at this depth (whole periods of its
+            pattern) at full width; the config's own depth when omitted.
 
         Raises:
           KeyError: the arch is not ported.
@@ -83,6 +88,8 @@ class LM:
         from repro_torch.models.model import init_model
 
         cfg = get_config(arch, smoke=smoke)
+        if n_layers is not None:
+            cfg = cfg.scaled(n_layers=n_layers)
         device = check_device(device)
         if params is None:
             if generator is None:
@@ -95,11 +102,13 @@ class LM:
         return dataclasses.replace(self, head=head.to(self.device))
 
     def generate(self, prompts, max_new_tokens: int, *,
-                 eos_id: Optional[int] = None, pad_id: int = 0,
+                 sampler=None, eos_id: Optional[int] = None, pad_id: int = 0,
                  decode_chunk: int = 1, spec_decode: int = 0,
                  return_stats: bool = False):
-        """Greedy bulk prefill + decode: (B, P) prompts → (B, P +
-        max_new_tokens) int64 tokens (prompt included).  With ``eos_id``,
+        """Bulk prefill + decode: (B, P) prompts → (B, P + max_new_tokens)
+        int64 tokens (prompt included), picked by ``sampler`` (a
+        ``Sampler``; greedy when omitted; a seeded one gives the same
+        stream at every ``decode_chunk`` and ``spec_decode``).  With ``eos_id``,
         a sequence that emits it is finished and later positions hold
         ``pad_id``.  ``decode_chunk=K`` (> 1) decodes K tokens per
         megastep (``launch/decode_loop.py``), with the same tokens.
@@ -115,7 +124,8 @@ class LM:
         if prompts.dim() == 1:
             prompts = prompts[None]
         return generate(self.params, self.cfg, prompts, max_new_tokens,
-                        head=self.head, eos_id=eos_id, pad_id=pad_id,
+                        head=self.head, sampler=sampler, eos_id=eos_id,
+                        pad_id=pad_id,
                         decode_chunk=decode_chunk, spec_decode=spec_decode,
                         return_stats=return_stats, loops=self._loops)
 

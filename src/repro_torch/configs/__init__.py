@@ -12,6 +12,8 @@ _MODULES = {
     "stablelm-12b": "repro_torch.configs.stablelm_12b",
     "command-r-35b": "repro_torch.configs.command_r_35b",
     "musicgen-large": "repro_torch.configs.musicgen_large",
+    "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
+    "jamba-v0.1-52b": "repro_torch.configs.jamba_v01_52b",
 }
 
 

@@ -13,7 +13,8 @@ states travel the same way: :func:`teacher_from_numpy` (an MLP's list of
 ``{"points", "alphas", "proj"}``) and :func:`sketch_state_from_numpy` (a
 ``RepresenterSketch`` state ``{"hash", "array", "mass"}``), each checking
 the keys it expects.  :func:`decode_cache_from_numpy` carries a decode
-cache (``{"periods": {"pos<j>": KVCache | RWKVCache}}``, numpy leaves).
+cache (``{"periods": {"pos<j>": KVCache | MambaCache | RWKVCache}}``,
+numpy leaves).
 """
 
 from __future__ import annotations
@@ -73,11 +74,13 @@ def sketch_state_from_numpy(state, device="cuda") -> dict:
 def decode_cache_from_numpy(cache, device="cuda") -> dict:
     """A decode cache of the port from the JAX package's (``{"periods":
     {"pos<j>": cache}}``, numpy leaves): each layer cache becomes the
-    port's ``KVCache`` or ``RWKVCache`` of the same name and fields."""
+    port's ``KVCache``, ``MambaCache`` or ``RWKVCache`` of the same name
+    and fields."""
     from repro_torch.models.attention import KVCache
+    from repro_torch.models.mamba import MambaCache
     from repro_torch.models.rwkv import RWKVCache
 
-    kinds = {c.__name__: c for c in (KVCache, RWKVCache)}
+    kinds = {c.__name__: c for c in (KVCache, MambaCache, RWKVCache)}
     periods = {}
     for name, layer in _checked(dict(cache), ("periods",),
                                 "a decode cache")["periods"].items():

@@ -14,10 +14,14 @@ replays it K times, so one capture serves every K; on the CPU the same
 step runs eagerly on the same buffers.  A capture that fails raises.
 
 Semantics are the JAX package's, bit for bit inside the port: each step
-feeds the previous token through ``serve_step_`` and takes the argmax;
-with ``masked``, retired rows emit ``pad_id`` and their cache rows freeze;
-a scalar ``pos`` (static generate) advances by 1 a step, a (B,) ``pos``
-(the engine) where a slot is active, the EOS step included.
+feeds the previous token through ``serve_step_`` and samples the next
+(the argmax, or a seeded draw that splits the carried key once: the
+key is a static (2,) device tensor the step updates in place, which
+``load`` sets before a run); with ``masked``, retired rows emit
+``pad_id`` and their cache rows freeze; a scalar ``pos`` (static generate)
+advances by 1 a step, a (B,) ``pos`` (the engine) where a slot is active,
+the EOS step included.  The key chain is the one the per-token loop walks,
+so a seed gives the same stream at every K.
 
 A replayed graph runs kernels without passing through their Python
 wrappers, so the capture records each wrapper's ``launches`` delta and
@@ -26,14 +30,17 @@ every replay adds it back: the counts still say what ran on the card.
 :class:`SpecLoop` is the speculative twin (the JAX package's
 ``jitted_spec_megastep``): the serving head drafts K tokens through K
 replays of one captured step, each recording its final hidden, its draft
-token and what the rollback needs (``models.model.cache_snapshot_``);
-then, on the device and with no host sync, the dense head verifies every
-drafted position (``dense_verify_logits``, one (B, 1, d) unembed a
-position, the dense step's own product), the longest matching prefix
-plus the bonus token commits, ``m`` = the least over active rows, and the
-cache rewinds to step ``m`` (``cache_rollback_``).  The tokens are the
-dense head's, bit for bit; the draft head only sets how many commit a
-tick.  The host fetches ``m`` with the block, once a tick.
+token, its keys before and after its sample, and what the rollback needs
+(``models.model.cache_snapshot_``); then, on the device and with no host
+sync, the dense head verifies every drafted position
+(``dense_verify_logits``, one (B, 1, d) unembed a position, the dense
+step's own product) by replaying the sampler on the recorded pre-sample
+keys, the longest matching prefix plus the bonus token commits, ``m`` =
+the least over active rows, the cache rewinds to step ``m``
+(``cache_rollback_``) and the key to step ``m - 1``'s post-sample key.
+The tokens are the dense head's, bit for bit, greedy or seeded; the draft
+head only sets how many commit a tick.  The host fetches ``m`` with the
+block, once a tick.
 
 A loop owns a full decode cache (on the card, a graph pool too), so the
 memo that ``generate`` keeps (``LM._loops``) is bounded: one loop per
@@ -81,7 +88,7 @@ class DecodeLoop:
       head: the serving head (``DenseHead`` or a ``SketchHead``); a
         per-tenant spec takes its bank as ``head_params``.
       cache: the static decode cache (B rows); the loop writes into it.
-      sampler: greedy ``Sampler``.
+      sampler: the ``Sampler`` (greedy when omitted).
       masked: carry a (B,) active mask (engine slots, EOS retirement).
       eos_id / pad_id: with ``masked``, rows that emit ``eos_id`` retire;
         retired rows emit ``pad_id``.
@@ -120,6 +127,7 @@ class DecodeLoop:
                                device=self.device)
         self.active = (torch.ones(b, dtype=torch.bool, device=self.device)
                        if masked else None)
+        self.key = self.sampler.init_key(self.device)
         self.head_params = None
         if head_params is not None:
             self.head_params = dict(head_params)
@@ -134,7 +142,7 @@ class DecodeLoop:
         logits, _ = serve_step_(self.params, self.cache, self.tok[:, None],
                                 self.cfg, head=self.head, active=self.active,
                                 pos=self.pos, head_params=self.head_params)
-        nxt = self.sampler.sample(logits)
+        nxt = self._sample(logits)
         if self.active is not None:
             nxt = torch.where(self.active, nxt, self.pad_id)
         if self.per_slot:
@@ -144,6 +152,14 @@ class DecodeLoop:
         if self.eos_id is not None:
             self.active &= nxt != self.eos_id
         self.tok.copy_(nxt)
+
+    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
+        """The step's tokens; a seeded draw writes the split key back into
+        the static ``key``."""
+        key, nxt = self.sampler.sample(self.key, logits)
+        if key is not self.key:
+            self.key.copy_(key)
+        return nxt
 
     def _capture(self) -> None:
         dev = self.device
@@ -171,11 +187,13 @@ class DecodeLoop:
         self._step()
 
     def close(self) -> None:
-        """Release the captured graph (its private pool) and the static
-        buffers; the loop cannot run after this."""
+        """Release the captured graph (its private pool), the static
+        buffers and the model it holds (params and head), so that a closed
+        loop keeps no device memory alive; the loop cannot run after this."""
         if self.graph is not None:
             self.graph.reset()
         self.graph = self.cache = self.head_params = None
+        self.params = self.head = None
 
     def _replay(self) -> None:
         """One step: a replay of the captured graph (adding each wrapper's
@@ -200,11 +218,15 @@ class DecodeLoop:
                 dst.copy_(src)
 
     @torch.inference_mode()
-    def load(self, tok, pos, active=None, head_params=None) -> None:
+    def load(self, tok, pos, active=None, head_params=None,
+             key=None) -> None:
         """Set the carry for the next :meth:`run`: the last tokens (B,),
-        ``pos`` (scalar or (B,)), ``active`` (B,) of a masked loop, and a
-        per-tenant head's binding (its bank must be the captured one)."""
+        ``pos`` (scalar or (B,)), ``active`` (B,) of a masked loop, a
+        per-tenant head's binding (its bank must be the captured one) and
+        the sampler's chain ``key`` (kept from the last run when None)."""
         dev = self.device
+        if key is not None:
+            self.key.copy_(key)
         self.tok.copy_(torch.as_tensor(tok).to(dev, torch.int64))
         self.pos.copy_(torch.as_tensor(pos).to(dev, torch.int64))
         if self.active is not None:
@@ -265,6 +287,8 @@ class SpecLoop(DecodeLoop):
         self.hiddens = torch.zeros((k, b, cfg.d_model), dtype=torch.float32,
                                    device=dev)
         self.drafts = torch.zeros((k, b), dtype=torch.int64, device=dev)
+        self.pre_keys = torch.zeros((k, 2), dtype=torch.int64, device=dev)
+        self.post_keys = torch.zeros((k, 2), dtype=torch.int64, device=dev)
         self.snap = model.init_spec_snapshot(cfg, cache, k)
         self.draft_logits = self.verify_logits = None
         if record_logits:
@@ -281,7 +305,7 @@ class SpecLoop(DecodeLoop):
     def close(self) -> None:
         super().close()
         self.snap = self.hiddens = self.drafts = self.draft_logits = None
-        self.verify_logits = None
+        self.verify_logits = self.pre_keys = self.post_keys = None
 
     def _step(self) -> None:
         b = self.tok.shape[0]
@@ -291,7 +315,9 @@ class SpecLoop(DecodeLoop):
             self.params, self.cache, self.tok[:, None], self.cfg,
             head=self.head, active=self.active, pos=self.pos,
             return_hidden=True)
-        nxt = self.sampler.sample(logits)
+        self.pre_keys.index_copy_(0, self.step, self.key[None])
+        nxt = self._sample(logits)
+        self.post_keys.index_copy_(0, self.step, self.key[None])
         if self.active is not None:
             nxt = torch.where(self.active, nxt, self.pad_id)
         if self.per_slot:
@@ -325,7 +351,10 @@ class SpecLoop(DecodeLoop):
                                           self.cfg)           # (k, B, V)
         if self.draft_logits is not None:
             self.verify_logits = dense
-        verify = torch.stack([self.sampler.sample(d) for d in dense])
+        # The sampler replayed on each draft step's pre-sample key: where
+        # the prefix matched, the dense draw dense decode would make.
+        verify = torch.stack([self.sampler.sample(self.pre_keys[i], d)[1]
+                              for i, d in enumerate(dense)])
         active = self.active
         if active is not None:
             verify = torch.where(active[None], verify, self.pad_id)
@@ -350,7 +379,9 @@ class SpecLoop(DecodeLoop):
         if active is not None and self.eos_id is not None:
             active &= ~(hits & (steps < m)).any(0)
         model.cache_rollback_(self.cfg, self.cache, self.snap, m, k)
-        self.tok.copy_(block.index_select(0, (m - 1).reshape(1))[0])
+        last = (m - 1).reshape(1)
+        self.tok.copy_(block.index_select(0, last)[0])
+        self.key.copy_(self.post_keys.index_select(0, last)[0])
         self.pos.copy_(pos_in + (adv if self.per_slot else m))
         return block, m, acc, adv
 
@@ -452,8 +483,10 @@ def decode_chunks(params: dict, cache: dict, first_logits: torch.Tensor, *,
                          loops=loops)
     if cache is not loop.cache:
         loop.load_cache(cache)
-    tok0 = sampler.sample(first_logits)
-    loop.load(tok0, start_pos, None if not masked else tok0 != eos_id)
+    key, tok0 = sampler.sample(sampler.init_key(first_logits.device),
+                               first_logits)
+    loop.load(tok0, start_pos, None if not masked else tok0 != eos_id,
+              key=key)
     blocks, todo, steps = [tok0[:, None]], gen_len - 1, 0
     while todo > 0:
         k = min(chunk, todo)
@@ -494,8 +527,10 @@ def spec_decode_chunks(params: dict, cache: dict, first_logits: torch.Tensor,
                          spec_k=spec_k, loops=loops)
     if cache is not loop.cache:
         loop.load_cache(cache)
-    tok0 = sampler.sample(first_logits)
-    loop.load(tok0, start_pos, None if not masked else tok0 != eos_id)
+    key, tok0 = sampler.sample(sampler.init_key(first_logits.device),
+                               first_logits)
+    loop.load(tok0, start_pos, None if not masked else tok0 != eos_id,
+              key=key)
     blocks, todo = [tok0[:, None]], gen_len - 1
     stats = {"decode_steps": 0, "verify_calls": 0, "draft_tokens": 0,
              "accepted_draft_tokens": 0}

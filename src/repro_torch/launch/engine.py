@@ -16,7 +16,8 @@ request queue instead:
   (``launch/decode_loop.py``: K steps, the sampler and EOS retirement on
   the device, a CUDA graph of one step replayed K times on the card),
   clamped so that no slot overshoots its budget and no arrival waits past
-  its tick while a slot is free; greedy streams do not change with K.
+  its tick while a slot is free; the streams (greedy or seeded) do not
+  change with K.
 * **retire** — a sequence leaves on EOS or its own ``max_new_tokens``; the
   tick's retired slots are reset together (``cache_slot_reset_``) to fresh
   rows.
@@ -39,17 +40,22 @@ every active slot agrees on commit; the clock advances by ``m``, and the
 streams are the dense engine's.
 
 With ``paged=True`` the attention caches live in page arenas addressed
-through a host page table (``launch/paging.py``), rwkv's state in one row
-a slot: identical prompts hit the prefix cache and skip their prefill
-(the entry's pages are mapped shared, its state rows and first logits
-restored), a shared page is copied before a decode write lands on it
-(copy-on-write), and each tick gathers every slot's view, runs the same
-in-place decode step and commits the written position back.  The streams
-are the contiguous engine's.
+through a host page table (``launch/paging.py``), a recurrent state (rwkv,
+mamba) in one row a slot: identical prompts hit the prefix cache and skip
+their prefill (the entry's pages are mapped shared, its state rows and
+first logits restored), a shared page is copied before a decode write
+lands on it (copy-on-write), and each tick gathers every slot's view, runs
+the same in-place decode step and commits the written position back.  The
+streams are the contiguous engine's.
+
+Token selection is the ``sampler``'s (greedy by default): a seeded one
+walks the JAX package's key chain, the root key from the engine's
+construction, one sample (one split) per admission group over its rows in
+arrival order and per decode step over every slot; megasteps and
+speculative ticks carry the key on the device and hand it back.
 
 Scheduling is the JAX package's ``launch/engine.py``; the model compute
-sits behind ``EngineBackend``.  Not ported here: seeded sampling (ROADMAP
-module item 5).
+sits behind ``EngineBackend``.
 """
 
 from __future__ import annotations
@@ -192,50 +198,60 @@ class EngineBackend:
             pos=torch.as_tensor(pos, device=dev), head_params=head_params)
 
     def megastep(self, pool: dict, tokens: np.ndarray, pos: np.ndarray,
-                 active: np.ndarray, k: int, sampler: Sampler,
-                 eos_id: Optional[int], head_params=None):
-        """K decode steps of every slot, the sampler and EOS retirement on
-        the device, written into ``pool`` (``launch/decode_loop.py``; one
-        capture per pool and spec on the card).  Returns the (k, n_slots)
-        token block, ``pool``, and the last tokens and ``pos`` as numpy
-        arrays: the block and the carry come in one copy."""
-        key = (id(pool), sampler, eos_id)      # the loop holds its pool
-        loop = self._loops.get(key)
+                 active: np.ndarray, key: torch.Tensor, k: int,
+                 sampler: Sampler, eos_id: Optional[int], head_params=None):
+        """K decode steps of every slot, the sampler (from chain ``key``)
+        and EOS retirement on the device, written into ``pool``
+        (``launch/decode_loop.py``; one capture per pool and spec on the
+        card).  Returns the (k, n_slots) token block, ``pool``, the last
+        tokens and ``pos`` as numpy arrays (the block and the carry come in
+        one copy), and the chain's key after the K samples."""
+        memo = (id(pool), sampler, eos_id)     # the loop holds its pool
+        loop = self._loops.get(memo)
         if loop is None:
             loop = DecodeLoop(self.params, self.cfg, self.head, pool,
                               sampler=sampler, masked=True, eos_id=eos_id,
                               per_slot=True, head_params=head_params)
-            self._loops[key] = loop
-        loop.load(tokens, pos, active, head_params)
+            self._loops[memo] = loop
+        loop.load(tokens, pos, active, head_params, key=key)
         out = torch.cat([loop.run(k), loop.pos[None]]).cpu().numpy()
         return (out[:k].astype(np.int32), pool, out[k - 1].astype(np.int32),
-                out[k].astype(np.int32))
+                out[k].astype(np.int32), loop.key.clone())
 
 
     def spec_megastep(self, pool: dict, tokens: np.ndarray, pos: np.ndarray,
-                      active: np.ndarray, k: int, sampler: Sampler,
-                      eos_id: Optional[int], k_max: Optional[int] = None):
+                      active: np.ndarray, key: torch.Tensor, k: int,
+                      sampler: Sampler, eos_id: Optional[int],
+                      k_max: Optional[int] = None):
         """One speculative tick of every slot (``decode_loop.SpecLoop``, one
         loop per pool and spec, ``k_max`` deep): ``k`` draft steps through
         the head, the dense verify, the commit of ``m`` steps, all on the
-        device, written into ``pool``.  Returns the (k, n_slots) verify
-        block, ``m``, each slot's accepted drafts, ``pool``, and the last
-        tokens and ``pos``, all from one copy to the host."""
-        key = ("spec", id(pool), sampler, eos_id)
-        loop = self._loops.get(key)
+        device, written into ``pool``, from chain ``key``.  Returns the
+        (k, n_slots) verify block, ``m``, each slot's accepted drafts,
+        ``pool``, the last tokens and ``pos`` (from one copy to the host),
+        and the key after the ``m`` committed samples."""
+        memo = ("spec", id(pool), sampler, eos_id)
+        loop = self._loops.get(memo)
         if loop is None:
             loop = SpecLoop(self.params, self.cfg, self.head, pool,
                             k=k_max or k, sampler=sampler, masked=True,
                             eos_id=eos_id, per_slot=True)
-            self._loops[key] = loop
-        loop.load(tokens, pos, active)
+            self._loops[memo] = loop
+        loop.load(tokens, pos, active, key=key)
         block, m, acc, _ = loop.run(k)
         b = block.shape[1]
         out = torch.cat([m.reshape(1), block.reshape(-1), acc, loop.tok,
                          loop.pos]).cpu().numpy().astype(np.int32)
         rest = out[1 + k * b:]
         return (out[1:1 + k * b].reshape(k, b), int(out[0]), rest[:b], pool,
-                rest[b:2 * b], rest[2 * b:])
+                rest[b:2 * b], rest[2 * b:], loop.key.clone())
+
+    def close(self) -> None:
+        """Release the megastep and speculative loops (their captured
+        graphs, graph pools and static buffers)."""
+        for loop in self._loops.values():
+            loop.close()
+        self._loops.clear()
 
     # -- the paged pool ------------------------------------------------------
 
@@ -296,8 +312,9 @@ class EngineBackend:
             torch.as_tensor(dst_ids, device=dev).long())
 
     def state_rows(self, filled: dict, row: int):
-        """Copies of one prefilled row's rwkv state (what a prefix-cache
-        entry keeps), or None for a model without rwkv layers."""
+        """Copies of one prefilled row's recurrent state (what a
+        prefix-cache entry keeps), or None for a model without rwkv or
+        mamba layers."""
         rows = model_mod.extract_state_rows(self.cfg, filled, row)
         if all(c is None for c in rows["periods"].values()):
             return None
@@ -313,7 +330,8 @@ class ServeEngine:
     """Continuous-batching engine over a ``backend`` and ``n_slots`` cache
     rows.  ``submit()`` requests, then ``run()`` (or ``step()`` tick by
     tick); ``finished[rid]`` holds each request's generated tokens (prompt
-    excluded).  Greedy: the sampler takes each row's first maximum.
+    excluded), picked by ``sampler`` (greedy when omitted; a seeded one
+    carries its key chain in ``_key``, rooted at construction).
 
     ``decode_chunk=K`` (> 1) decodes each tick as a megastep of up to K
     steps (``_chunk_for``) through ``backend.megastep``; ``spec_decode=K``
@@ -371,6 +389,7 @@ class ServeEngine:
         self.max_seq = max_seq
         self.eos_id = eos_id
         self.sampler = sampler or Sampler()
+        self._key = self.sampler.init_key(getattr(backend, "device", "cpu"))
         self.decode_chunk = decode_chunk
         self.spec_decode = spec_decode
         self.paged = paged
@@ -448,7 +467,9 @@ class ServeEngine:
 
     def _sample(self, logits: torch.Tensor) -> np.ndarray:
         self.stats["host_syncs"] += 1
-        return self.sampler.sample(logits).cpu().numpy().astype(np.int32)
+        self._key, toks = self.sampler.sample(
+            self._key.to(logits.device), logits)
+        return toks.cpu().numpy().astype(np.int32)
 
     def _pop_admission_batch(self) -> List[Request]:
         batch: List[Request] = []
@@ -757,9 +778,11 @@ class ServeEngine:
         walk the (chunk, n_slots) block for retirements (a row that emits
         EOS mid-chunk is frozen on the device; its later entries are
         padding and are skipped)."""
-        block, self.pool, self.last_tok, self.pos = self.backend.megastep(
-            self.pool, self.last_tok, self.pos, active, chunk, self.sampler,
-            self.eos_id, head_params=self._head_params_now())
+        block, self.pool, self.last_tok, self.pos, self._key = (
+            self.backend.megastep(
+                self.pool, self.last_tok, self.pos, active, self._key, chunk,
+                self.sampler, self.eos_id,
+                head_params=self._head_params_now()))
         self.stats["host_syncs"] += 1
         self.stats["decode_steps"] += chunk
         for s in active_slots:
@@ -774,10 +797,10 @@ class ServeEngine:
         dense verify, and the ``m`` committed steps walked as in
         ``_decode_megastep`` (an EOS mid-block retires; a retired row's
         later entries are padding).  Returns ``m``, the clock's advance."""
-        block, m, acc, self.pool, self.last_tok, self.pos = (
+        block, m, acc, self.pool, self.last_tok, self.pos, self._key = (
             self.backend.spec_megastep(
-                self.pool, self.last_tok, self.pos, active, draft_k,
-                self.sampler, self.eos_id, k_max=self.spec_decode))
+                self.pool, self.last_tok, self.pos, active, self._key,
+                draft_k, self.sampler, self.eos_id, k_max=self.spec_decode))
         self.stats["host_syncs"] += 1
         self.stats["decode_steps"] += draft_k      # the backbone's steps
         self.stats["verify_calls"] += 1
@@ -837,6 +860,13 @@ class ServeEngine:
         if self.paged:
             self._sync_page_stats()
         self.now += advanced
+
+    def close(self) -> None:
+        """Release the backend's captured loops, if it keeps any (on the
+        card, their graphs and graph pools); a later megastep or
+        speculative tick builds a new one."""
+        if hasattr(self.backend, "close"):
+            self.backend.close()
 
     def run(self) -> Dict[int, List[int]]:
         """Tick until the queue drains and every slot retires."""

@@ -166,7 +166,7 @@ class PagePool:
 @dataclasses.dataclass
 class PrefixEntry:
     """One cached prompt: the pages holding its prefilled keys and values,
-    the constant-size recurrent state rows (rwkv: no positional axis, so
+    the constant-size recurrent state rows (rwkv, mamba: no positional axis, so
     they ride the prefix cache, not the page pool), and the prompt's
     last-position logits (so a hit skips the prefill and samples the first
     token from the stored row, bit for bit)."""

@@ -1,5 +1,6 @@
-"""Serving launcher: greedy, dense or sketched head, as one static batch
-or (``--engine``) a request stream through the continuous-batching engine.
+"""Serving launcher: dense or sketched head, greedy or seeded sampling, as
+one static batch or (``--engine``) a request stream through the
+continuous-batching engine.
 
 A single bulk prefill ingests every prompt through the dense head, then
 the decode loop emits tokens step by step; with ``--sketch-head`` each
@@ -13,7 +14,10 @@ head verifies them: the dense head's tokens, and the banner prints the
 acceptance rate).  ``--engine --paged --page-size N`` keeps the engine's
 caches in a page pool with a prefix cache (the same streams; repeated
 prompts skip their prefill; the banner prints prefix hits and
-copy-on-write copies).  The
+copy-on-write copies).  ``--temperature`` (0: greedy), ``--top-k`` and
+``--top-p`` sample on the key chain of ``--seed`` (which also seeds the
+random backbone and the prompts), the same stream at every
+``--decode-chunk`` and ``--spec-decode``.  The
 head is loaded from a ``--head-path`` archive saved by either package, or,
 without one, distilled from the dense unembed in process (a short
 distillation, then a freeze).  ``--engine`` serves a synthetic stream
@@ -24,10 +28,11 @@ bank each) through a ``HeadCache``, requests round-robin over tenants.
 
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       [--arch {rwkv6-1.6b,gemma2-27b,granite-8b,stablelm-12b,command-r-35b,
-               musicgen-large}] [--smoke] \\
+               musicgen-large,mixtral-8x7b,jamba-v0.1-52b}] [--smoke] \\
       [--sketch-head [--head-path head.npz]] [--backend fused] \\
       [--quant int8] [--batch 4 --prompt-len 32 --gen 16] [--device cuda] \\
-      [--decode-chunk 16 | --spec-decode 4] \\
+      [--decode-chunk 16 | --spec-decode 4] \
+      [--temperature 0.9 --top-k 12 --top-p 0.95 --seed 7] \\
       [--engine --requests 12 --arrival-every 1 --stats-json [--tenants 3]
        [--paged --page-size 16]]
 """
@@ -65,7 +70,10 @@ def generate(params: dict, cfg, prompts: torch.Tensor, gen_len: int, *,
 
     The first new token comes from the prefill's dense logits, each later
     one from a decode step through ``head`` (``gen_len - 1`` steps, each
-    writing the cache in place).  With ``eos_id``, a finished sequence's
+    writing the cache in place); ``sampler`` (greedy when omitted) picks
+    them, a seeded one on the key chain of its seed: the root key samples
+    the first token and every later sample splits the carried key once,
+    the JAX package's chain, whatever ``decode_chunk`` or ``spec_decode``.  With ``eos_id``, a finished sequence's
     later positions hold ``pad_id``, its cache rows freeze, and the loop
     ends once every row is done.  The prefill writes into the one decode
     cache of the call (``prefill_step_``).
@@ -140,8 +148,9 @@ def _decode_host_loop(params, cache, logits, *, cfg, head, sampler, gen_len,
     out = []
     finished = torch.zeros(b, dtype=torch.bool, device=logits.device)
     steps = 0
+    key = sampler.init_key(logits.device)
     for t in range(gen_len):
-        nxt = sampler.sample(logits)
+        key, nxt = sampler.sample(key, logits)
         if eos_id is not None:
             nxt = torch.where(finished, torch.full_like(nxt, pad_id), nxt)
             finished = finished | (nxt == eos_id)
@@ -258,14 +267,14 @@ def engine_stream(vocab_size: int, n_requests: int, prompt_len: int,
     return stream
 
 
-def run_engine(lm, args, head_cache=None) -> None:
+def run_engine(lm, args, head_cache=None, sampler=None) -> None:
     """Serve ``engine_stream`` through ``lm.engine`` over ``args.batch``
     slots (with ``head_cache``, request i to tenant ``i % args.tenants``);
     prints the run and, with ``args.stats_json``, one ``STATS_JSON {…}``
     line."""
     n_requests = args.requests or 2 * args.batch
     engine = lm.engine(n_slots=args.batch,
-                       max_seq=args.prompt_len + args.gen,
+                       max_seq=args.prompt_len + args.gen, sampler=sampler,
                        head_cache=head_cache, decode_chunk=args.decode_chunk,
                        spec_decode=args.spec_decode, paged=args.paged,
                        page_size=args.page_size)
@@ -284,7 +293,8 @@ def run_engine(lm, args, head_cache=None) -> None:
         torch.cuda.synchronize(dev)
     dur = time.perf_counter() - t0
     n_generated = sum(len(v) for v in finished.values())
-    print(f"arch={lm.cfg.name} head={lm.head.describe()} device={dev} engine "
+    print(f"arch={lm.cfg.name} head={lm.head.describe()} device={dev} "
+          f"sampler={engine.sampler.describe()} engine "
           f"served {len(finished)} requests over {args.batch} slots: "
           f"{n_generated} new tokens in {dur:.3f}s "
           f"({n_generated / dur:.1f} new tok/s), "
@@ -333,8 +343,8 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="rwkv6-1.6b",
                     help="a ported architecture: rwkv6-1.6b, gemma2-27b, "
-                         "granite-8b, stablelm-12b, command-r-35b or "
-                         "musicgen-large")
+                         "granite-8b, stablelm-12b, command-r-35b, "
+                         "musicgen-large, mixtral-8x7b or jamba-v0.1-52b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -383,8 +393,16 @@ def main(argv=None) -> None:
                          "heads (one shared distillation, a hash bank each) "
                          "through an LRU HeadCache; requests round-robin "
                          "over tenants (not with --head-path)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0 = greedy)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="sample among the k largest logits (0: all)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="sample from the smallest nucleus of mass >= p "
+                         "(1: all)")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the random backbone and prompts")
+                    help="seed of the sampler's key chain, and of the "
+                         "random backbone and prompts")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if (args.stats_json or args.paged) and not args.engine:
@@ -411,6 +429,11 @@ def main(argv=None) -> None:
     if (args.quant or args.backend) and not args.sketch_head:
         ap.error("--quant/--backend apply to the sketch head; add "
                  "--sketch-head")
+    try:
+        sampler = Sampler(temperature=args.temperature, top_k=args.top_k,
+                          top_p=args.top_p, seed=args.seed)
+    except ValueError as e:
+        ap.error(str(e))
     device = check_device(args.device)
 
     gen = torch.Generator(device).manual_seed(args.seed)
@@ -430,7 +453,7 @@ def main(argv=None) -> None:
             lm.params, lm.cfg, args.head_path, args.backend,
             quant=args.quant))
     if args.engine:
-        run_engine(lm, args, head_cache)
+        run_engine(lm, args, head_cache, sampler)
         return
     prompts = torch.randint(0, lm.cfg.vocab_size,
                             (args.batch, args.prompt_len), generator=gen,
@@ -438,13 +461,15 @@ def main(argv=None) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t0 = time.perf_counter()
-    out, stats = lm.generate(prompts, args.gen, decode_chunk=args.decode_chunk,
+    out, stats = lm.generate(prompts, args.gen, sampler=sampler,
+                             decode_chunk=args.decode_chunk,
                              spec_decode=args.spec_decode, return_stats=True)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dur = time.perf_counter() - t0
     print(f"arch={lm.cfg.name} head={lm.head.describe()} device={device} "
-          f"served {args.batch} seqs x {args.gen} new tokens in {dur:.3f}s "
+          f"sampler={sampler.describe()} served {args.batch} seqs x "
+          f"{args.gen} new tokens in {dur:.3f}s "
           f"({args.batch * args.gen / dur:.1f} new tok/s, decode chunk "
           f"{args.decode_chunk})")
     if args.spec_decode:

@@ -1,14 +1,18 @@
 """Per-layer block: init, decode cache and forward of the ported kinds.
 
 A layer is a mixer followed by an FFN, pre-norm residual style: rwkv's
-time-mix and channel-mix (its own FFN), or causal self-attention
-(``attn``, ``attn_local`` with the config's window, ``attn_global``
-without one) followed by a dense SwiGLU FFN.  ``apply_layer`` returns a new
-cache; its decode twin ``apply_layer_`` writes into the one it is given.
+time-mix and channel-mix (its own FFN), or the Mamba-1 mixer or causal
+self-attention (``attn``, ``attn_local`` with the config's window,
+``attn_global`` without one) followed by its FFN: a dense SwiGLU, or the
+MoE FFN where ``cfg.ffn_kind`` of the layer's pattern position says
+``"moe"`` (the aux loss is dropped: serving has no use for it).
+``apply_layer`` returns a new cache; its decode twin ``apply_layer_``
+writes into the one it is given.
 
 Paged dispatch: the attention kinds keep their caches in page arenas
-(``paged_*``), rwkv's constant-size state stays one row a slot in a state
-tree; a layer belongs to exactly one of the two."""
+(``paged_*``), the recurrent kinds' (rwkv, mamba) constant-size state
+stays one row a slot in a state tree; a layer belongs to exactly one of
+the two."""
 
 from __future__ import annotations
 
@@ -18,11 +22,15 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.config import PORTED_KINDS, AttentionConfig, ModelConfig
 from repro_torch.models.layers import init_dense, rms_norm, swiglu
+from repro_torch.models.moe import init_moe, moe_ffn
 
 ATTN_KINDS = ("attn", "attn_local", "attn_global")
+#: The kinds whose cache is a constant-size recurrent state, one row a slot.
+RECURRENT_KINDS = ("rwkv", "mamba")
 
 
 def _check_kind(kind: str) -> None:
@@ -42,8 +50,10 @@ def _attn_cfg(cfg: ModelConfig, kind: str) -> AttentionConfig:
 
 
 def init_layer(generator: torch.Generator, cfg: ModelConfig, kind: str,
-               lead: tuple = ()) -> dict:
-    """Params of one layer (``lead`` stacks layers on leading axes)."""
+               lead: tuple = (), ffn: str = "dense") -> dict:
+    """Params of one layer (``lead`` stacks layers on leading axes);
+    ``ffn`` ("dense" or "moe", ``cfg.ffn_kind`` of its pattern position)
+    picks the FFN after a mamba or attention mixer."""
     _check_kind(kind)
     d = cfg.d_model
     zeros = lambda: torch.zeros((*lead, d), dtype=torch.float32,
@@ -52,40 +62,48 @@ def init_layer(generator: torch.Generator, cfg: ModelConfig, kind: str,
         return {"norm1": zeros(), "norm2": zeros(),
                 "mixer": rwkv_mod.init_rwkv(generator, d, cfg.d_ff,
                                             lead=lead)}
-    return {"norm1": zeros(), "norm2": zeros(),
-            "mixer": attn_mod.init_attention(generator, d,
-                                             _attn_cfg(cfg, kind), lead=lead),
-            "ffn": {"w_gate": init_dense(generator, (d, cfg.d_ff), lead=lead),
-                    "w_up": init_dense(generator, (d, cfg.d_ff), lead=lead),
-                    "w_down": init_dense(generator, (cfg.d_ff, d),
-                                         lead=lead)}}
+    if kind == "mamba":
+        mixer = mamba_mod.init_mamba(generator, d, cfg.mamba, lead=lead)
+    else:
+        mixer = attn_mod.init_attention(generator, d, _attn_cfg(cfg, kind),
+                                        lead=lead)
+    if ffn == "moe":
+        f = init_moe(generator, d, cfg.moe, lead=lead)
+    else:
+        f = {"w_gate": init_dense(generator, (d, cfg.d_ff), lead=lead),
+             "w_up": init_dense(generator, (d, cfg.d_ff), lead=lead),
+             "w_down": init_dense(generator, (cfg.d_ff, d), lead=lead)}
+    return {"norm1": zeros(), "norm2": zeros(), "mixer": mixer, "ffn": f}
 
 
 def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
                      lead: tuple = (), device="cuda"):
-    """Zero decode cache of one layer: rwkv's recurrent state, or a
-    ``KVCache`` of ``max_seq`` (a ring of ``min(max_seq, window)`` on a
-    windowed layer)."""
+    """Zero decode cache of one layer: rwkv's or mamba's recurrent state,
+    or a ``KVCache`` of ``max_seq`` (a ring of ``min(max_seq, window)`` on
+    a windowed layer)."""
     _check_kind(kind)
     if kind == "rwkv":
         return rwkv_mod.init_rwkv_cache(batch, cfg.d_model, lead=lead,
                                         device=device)
+    if kind == "mamba":
+        return mamba_mod.init_mamba_cache(batch, cfg.d_model, cfg.mamba,
+                                          lead=lead, device=device)
     return attn_mod.init_cache(batch, max_seq, _attn_cfg(cfg, kind),
                                lead=lead, device=device)
 
 
 def cache_needs_snapshot(cfg: ModelConfig, kind: str, cache) -> bool:
     """Whether a speculative rollback must record this layer's cache (one
-    layer's, (B, S, ...)) at each draft step: rwkv's recurrent state has no
-    position to rewind, and a rolling SWA ring (``window <= size``) loses
-    the previous lap's entry, still inside the window, to each draft
-    write.  A plain KV cache rewinds by position alone: draft writes past
+    layer's, (B, S, ...)) at each draft step: a recurrent state (rwkv,
+    mamba) has no position to rewind, and a rolling SWA ring
+    (``window <= size``) loses the previous lap's entry, still inside the
+    window, to each draft write.  A plain KV cache rewinds by position alone: draft writes past
     the rewound position are masked and overwritten before they are read.
     """
     _check_kind(kind)
     if cache is None:
         return False
-    if kind == "rwkv":
+    if kind in RECURRENT_KINDS:
         return True
     a = _attn_cfg(cfg, kind)
     return bool(a.window) and a.window <= cache.k.shape[1]
@@ -93,10 +111,10 @@ def cache_needs_snapshot(cfg: ModelConfig, kind: str, cache) -> bool:
 
 def paged_geometry(cfg: ModelConfig, kind: str, max_seq: int):
     """``(size, ring)`` of one layer's paged cache (the per-slot length and
-    whether decode writes roll, ``pos % size``), or None for rwkv, whose
-    state is not paged."""
+    whether decode writes roll, ``pos % size``), or None for the
+    recurrent kinds, whose state is not paged."""
     _check_kind(kind)
-    if kind == "rwkv":
+    if kind in RECURRENT_KINDS:
         return None
     a = _attn_cfg(cfg, kind)
     size = min(max_seq, a.window) if a.window else max_seq
@@ -105,7 +123,7 @@ def paged_geometry(cfg: ModelConfig, kind: str, max_seq: int):
 
 def init_paged_layer_cache(cfg: ModelConfig, kind: str, num_pages: int,
                            page_size: int, lead: tuple = (), device="cuda"):
-    """Zero page arenas of one layer (None for rwkv)."""
+    """Zero page arenas of one layer (None for the recurrent kinds)."""
     if paged_geometry(cfg, kind, 1) is None:
         return None
     return attn_mod.init_paged_cache(num_pages, page_size,
@@ -115,12 +133,12 @@ def init_paged_layer_cache(cfg: ModelConfig, kind: str, num_pages: int,
 
 def init_paged_state_cache(cfg: ModelConfig, kind: str, n_slots: int,
                            lead: tuple = (), device="cuda"):
-    """Zero state rows of one layer (rwkv only; None for the paged kinds)."""
+    """Zero state rows of one layer (the recurrent kinds; None for the
+    paged kinds)."""
     _check_kind(kind)
-    if kind != "rwkv":
+    if kind not in RECURRENT_KINDS:
         return None
-    return rwkv_mod.init_rwkv_cache(n_slots, cfg.d_model, lead=lead,
-                                    device=device)
+    return init_layer_cache(cfg, kind, n_slots, 1, lead=lead, device=device)
 
 
 def _wpos(cfg: ModelConfig, kind: str, pos: torch.Tensor,
@@ -166,14 +184,25 @@ def paged_copy_pages(kind: str, cache, src_ids: torch.Tensor,
     return cache
 
 
+def _ffn(params: dict, h: torch.Tensor, cfg: ModelConfig,
+         ffn: str) -> torch.Tensor:
+    """The layer's FFN on the normed stream: the MoE FFN (its aux loss
+    dropped) or the dense SwiGLU."""
+    f = params["ffn"]
+    if ffn == "moe":
+        return moe_ffn(f, h, cfg.moe)[0]
+    return swiglu(h, f["w_gate"], f["w_up"], f["w_down"])
+
+
 def apply_layer(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
                 *, positions: Optional[torch.Tensor] = None, cache=None,
-                cache_pos=None) -> Tuple[torch.Tensor, object]:
+                cache_pos=None, ffn: str = "dense"
+                ) -> Tuple[torch.Tensor, object]:
     """One layer on the residual stream x (B, S, d). Returns (x, new cache).
 
     ``positions`` ((S,) or (B, S); ``arange(S)`` when omitted) and
     ``cache_pos`` (see ``attention.attention``) are read by the attention
-    kinds only."""
+    kinds only; ``ffn`` is the layer's ``cfg.ffn_kind``."""
     _check_kind(kind)
     eps = cfg.norm_eps
     h = rms_norm(x, params["norm1"], eps)
@@ -193,15 +222,18 @@ def apply_layer(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
                 tm_last.to(cache.tm_prev.dtype), cm_last.to(cache.cm_prev.dtype),
                 new_state.to(cache.state.dtype))
         return x + delta2, new_cache
-    if positions is None:
-        positions = torch.arange(x.shape[1], device=x.device)
-    delta, new_cache = attn_mod.attention(
-        params["mixer"], h, positions, _attn_cfg(cfg, kind), cache=cache,
-        cache_pos=cache_pos)
+    if kind == "mamba":
+        delta, new_cache = mamba_mod.mamba_block(params["mixer"], h,
+                                                 cfg.mamba, cache=cache)
+    else:
+        if positions is None:
+            positions = torch.arange(x.shape[1], device=x.device)
+        delta, new_cache = attn_mod.attention(
+            params["mixer"], h, positions, _attn_cfg(cfg, kind), cache=cache,
+            cache_pos=cache_pos)
     x = x + delta
     h2 = rms_norm(x, params["norm2"], eps)
-    f = params["ffn"]
-    return x + swiglu(h2, f["w_gate"], f["w_up"], f["w_down"]), new_cache
+    return x + _ffn(params, h2, cfg, ffn), new_cache
 
 
 def _commit_(dst: torch.Tensor, new: torch.Tensor,
@@ -218,7 +250,8 @@ def _commit_(dst: torch.Tensor, new: torch.Tensor,
 def apply_layer_(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
                  *, positions: Optional[torch.Tensor], cache,
                  cache_pos: Optional[torch.Tensor],
-                 active: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 active: Optional[torch.Tensor] = None,
+                 ffn: str = "dense") -> torch.Tensor:
     """The in-place decode twin of :func:`apply_layer`: one token a row, the
     layer's new cache written into ``cache`` (where ``active``, when
     given), the residual stream returned.  ``positions`` (B, 1) and
@@ -239,9 +272,15 @@ def apply_layer_(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
         _commit_(cache.cm_prev, cm_last, active)
         _commit_(cache.state, new_state, active)
         return x + delta2
-    delta = attn_mod.attention_(params["mixer"], h, positions,
-                                _attn_cfg(cfg, kind), cache, cache_pos, active)
+    if kind == "mamba":
+        delta, new = mamba_mod.mamba_block(params["mixer"], h, cfg.mamba,
+                                           cache=cache)
+        _commit_(cache.conv, new.conv, active)
+        _commit_(cache.ssm, new.ssm, active)
+    else:
+        delta = attn_mod.attention_(params["mixer"], h, positions,
+                                    _attn_cfg(cfg, kind), cache, cache_pos,
+                                    active)
     x = x + delta
     h2 = rms_norm(x, params["norm2"], eps)
-    f = params["ffn"]
-    return x + swiglu(h2, f["w_gate"], f["w_up"], f["w_down"])
+    return x + _ffn(params, h2, cfg, ffn)

@@ -1,5 +1,6 @@
-"""Model, attention and sketch-head configuration, limited to the ported
-block kinds (``rwkv``, ``attn``, ``attn_local``, ``attn_global``).
+"""Model, attention, MoE, Mamba and sketch-head configuration, limited to
+the ported block kinds (``rwkv``, ``mamba``, ``attn``, ``attn_local``,
+``attn_global``).
 
 Own copy of the JAX package's ``models/config.py`` dataclasses: the fields,
 names and defaults are the same, so a ``SketchHeadConfig`` round-trips
@@ -12,9 +13,10 @@ import dataclasses
 from typing import Optional, Tuple
 
 
-#: The block kinds the port runs: rwkv's time-mix + channel-mix, and causal
-#: self-attention (GQA, optional window and softcap) + a dense SwiGLU FFN.
-PORTED_KINDS = ("rwkv", "attn", "attn_local", "attn_global")
+#: The block kinds the port runs: rwkv's time-mix + channel-mix, and the
+#: Mamba-1 mixer or causal self-attention (GQA, optional window and
+#: softcap), each followed by a dense SwiGLU or an MoE FFN.
+PORTED_KINDS = ("rwkv", "mamba", "attn", "attn_local", "attn_global")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,6 +28,26 @@ class AttentionConfig:
     logit_softcap: Optional[float] = None  # gemma2-style attn-score softcap
     rope_theta: float = 10000.0
     use_rope: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    n_shared_experts: int = 0
+    capacity_factor: float = 1.25
+    router_dtype: str = "float32"
+    # Routing-group size (tokens compete for capacity within a group).
+    group_size: int = 2048
+
+
+@dataclasses.dataclass(frozen=True)
+class MambaConfig:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: Optional[int] = None  # default ceil(d_model / 16)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,7 +65,8 @@ class ModelConfig:
     """A decoder backbone: ``pattern`` repeated ``n_periods`` times.
 
     Only the :data:`PORTED_KINDS` are ported; rwkv's channel-mix is its
-    FFN, the attention kinds are followed by a dense SwiGLU FFN.
+    FFN, the other kinds are followed by a dense SwiGLU FFN or, on the
+    layers :meth:`ffn_kind` names, the MoE FFN of ``moe``.
     """
     name: str
     n_layers: int
@@ -52,6 +75,9 @@ class ModelConfig:
     vocab_size: int
     pattern: Tuple[str, ...]
     attention: Optional[AttentionConfig] = None
+    moe: Optional[MoEConfig] = None
+    mamba: Optional[MambaConfig] = None
+    moe_every: int = 0          # every k-th layer has the MoE FFN (0: none)
     final_logit_softcap: Optional[float] = None
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
@@ -70,6 +96,15 @@ class ModelConfig:
     @property
     def n_periods(self) -> int:
         return self.n_layers // len(self.pattern)
+
+    def ffn_kind(self, layer_idx: int) -> str:
+        """'moe' or 'dense' for the FFN following block ``layer_idx``."""
+        if self.moe is None or self.moe_every == 0:
+            return "dense"
+        if self.moe_every == 1:
+            return "moe"
+        return ("moe" if layer_idx % self.moe_every == self.moe_every - 1
+                else "dense")
 
     def scaled(self, **overrides) -> "ModelConfig":
         """A reduced copy for smoke tests."""

@@ -3,9 +3,11 @@
 Parameters keep the JAX package's tree: ``embed``, ``head``,
 ``final_norm``, and ``periods/pos<j>`` holding each pattern position's
 layer params stacked over the ``n_periods`` periods.  The JAX package's
-``lax.scan`` over periods is a loop over that stacking axis here; decode
-caches are stacked the same way, one NamedTuple (``RWKVCache`` or
-``KVCache``) of (n_periods, B, …) leaves per pattern position.
+``lax.scan`` over periods is a loop over that stacking axis here, each
+period running its pattern positions in order (layer ``i·|pattern| + j``
+is period i's position j); decode caches are stacked the same way, one
+NamedTuple (``RWKVCache``, ``MambaCache`` or ``KVCache``) of
+(n_periods, B, …) leaves per pattern position.
 
 The functions without a trailing ``_`` mirror the JAX package's pure
 functions and never write into a cache they are given.  Their in-place
@@ -48,14 +50,15 @@ def init_model(cfg: ModelConfig, generator: torch.Generator) -> dict:
                                     scale=0.02)
     params["periods"] = {
         f"pos{j}": blocks.init_layer(generator, cfg, kind,
-                                     lead=(cfg.n_periods,))
+                                     lead=(cfg.n_periods,),
+                                     ffn=cfg.ffn_kind(j))
         for j, kind in enumerate(cfg.pattern)}
     return params
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int,
                       device="cuda") -> dict:
-    """Zero decode cache, stacked over periods: rwkv state, or KV caches of
+    """Zero decode cache, stacked over periods: rwkv or mamba state, or KV caches of
     ``max_seq`` positions (rings of ``min(max_seq, window)`` on windowed
     layers)."""
     return {"periods": {
@@ -101,7 +104,7 @@ def _each_leaf(cache: dict):
 
 def _leaf_pairs(dst: dict, src: dict):
     """(dst leaf, src leaf) pairs by layer name, over the layers ``dst``
-    holds: a paged engine's state tree holds only its rwkv layers, while a
+    holds: a paged engine's state tree holds only its recurrent layers, while a
     prefilled ``src`` holds every layer."""
     for name, c in dst["periods"].items():
         if c is not None:
@@ -127,8 +130,8 @@ def cache_slot_insert(cfg: ModelConfig, pool: dict, src: dict,
     """A copy of ``pool`` with the rows of a freshly prefilled cache in
     ``slots``: row i of ``src`` goes to pool slot ``slots[i]``.  Rows of
     other slots are copied unchanged, bit for bit, which is what makes
-    admission mid-decode safe.  ``cfg`` is unused by the rwkv cache; kept
-    for the JAX package's signature."""
+    admission mid-decode safe.  ``cfg`` is unused (the leaves carry the
+    layout); kept for the JAX package's signature."""
     del cfg
 
     def insert(old, new):
@@ -213,29 +216,28 @@ def backbone(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     x = embed_scaled(tokens, params["embed"], cfg.d_model)
     positions, cache_pos = _positions(tokens.shape[1], cache_pos,
                                       tokens.device)
-    new_periods = {}
-    for j, kind in enumerate(cfg.pattern):
-        name = f"pos{j}"
-        stacked = params["periods"][name]
-        layer_caches = []
-        for i in range(cfg.n_periods):
+    layer_caches = {f"pos{j}": [] for j in range(len(cfg.pattern))}
+    for i in range(cfg.n_periods):              # layer order: period-major
+        for j, kind in enumerate(cfg.pattern):
+            name = f"pos{j}"
             layer_cache = (None if cache is None
                            else _index(cache["periods"][name], i))
-            x, nc = blocks.apply_layer(_index(stacked, i), x, cfg, kind,
-                                       positions=positions, cache=layer_cache,
-                                       cache_pos=cache_pos)
+            x, nc = blocks.apply_layer(_index(params["periods"][name], i), x,
+                                       cfg, kind, positions=positions,
+                                       cache=layer_cache, cache_pos=cache_pos,
+                                       ffn=cfg.ffn_kind(j))
             if in_place:
                 for dst, leaf in zip(cache["periods"][name], nc):
                     dst[i].copy_(leaf)
             else:
-                layer_caches.append(nc)
-        if cache is not None and not in_place:
-            new_periods[name] = type(layer_caches[0])(
-                *(torch.stack(leaf) for leaf in zip(*layer_caches)))
+                layer_caches[name].append(nc)
     if in_place:
         return x, cache
-    new_cache = {"periods": new_periods} if cache is not None else None
-    return x, new_cache
+    if cache is None:
+        return x, None
+    return x, {"periods": {
+        name: type(cs[0])(*(torch.stack(leaf) for leaf in zip(*cs)))
+        for name, cs in layer_caches.items()}}
 
 
 def final_hidden(params: dict, x: torch.Tensor, cfg: ModelConfig
@@ -287,7 +289,7 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     """One decode step on the newest tokens (B, 1): returns (logits (B, V)
     — or the (B, d) final hidden with ``return_hidden`` — and the updated
     cache).  ``cache_pos`` (tokens already cached: an int, or (B,) per
-    slot) is required by the attention kinds; rwkv's state needs none."""
+    slot) is required by the attention kinds; a recurrent state needs none."""
     if cache_pos is None and any(k in blocks.ATTN_KINDS for k in cfg.pattern):
         raise ValueError(f"{cfg.name}: decode_step needs cache_pos (tokens "
                          "already cached) for its attention layers")
@@ -328,14 +330,14 @@ def decode_step_(params: dict, cache: dict, tokens: torch.Tensor,
     if cache_pos is not None:
         pos = _slot_positions(cache_pos, b, tokens.device)
         positions = pos[:, None]
-    for j, kind in enumerate(cfg.pattern):
-        name = f"pos{j}"
-        stacked, caches = params["periods"][name], cache["periods"][name]
-        for i in range(cfg.n_periods):
-            x = blocks.apply_layer_(_index(stacked, i), x, cfg, kind,
-                                    positions=positions,
-                                    cache=_index(caches, i), cache_pos=pos,
-                                    active=active)
+    for i in range(cfg.n_periods):              # layer order: period-major
+        for j, kind in enumerate(cfg.pattern):
+            name = f"pos{j}"
+            x = blocks.apply_layer_(_index(params["periods"][name], i), x,
+                                    cfg, kind, positions=positions,
+                                    cache=_index(cache["periods"][name], i),
+                                    cache_pos=pos, active=active,
+                                    ffn=cfg.ffn_kind(j))
     return _output(params, x, cfg, return_hidden)[:, -1], cache
 
 
@@ -354,7 +356,7 @@ class RingSnapshot(NamedTuple):
 def init_spec_snapshot(cfg: ModelConfig, cache: dict, k: int) -> dict:
     """Static rollback buffers for ``k`` draft steps over ``cache``: for
     each layer whose cache cannot be rewound by position
-    (``blocks.cache_needs_snapshot``), rwkv's whole state (K, *leaf) or a
+    (``blocks.cache_needs_snapshot``), a recurrent whole state (K, *leaf) or a
     ring's :class:`RingSnapshot`; None for the others.
 
     A ring keeps only the slots the steps overwrite, (K, P, B, n_kv, dh)
@@ -367,7 +369,7 @@ def init_spec_snapshot(cfg: ModelConfig, cache: dict, k: int) -> dict:
         c = cache["periods"][name]
         if not blocks.cache_needs_snapshot(cfg, kind, _index(c, 0)):
             periods[name] = None
-        elif kind == "rwkv":
+        elif kind in blocks.RECURRENT_KINDS:
             periods[name] = type(c)(*(leaf.new_zeros((k, *leaf.shape))
                                       for leaf in c))
         else:
@@ -382,7 +384,7 @@ def init_spec_snapshot(cfg: ModelConfig, cache: dict, k: int) -> dict:
 def cache_snapshot_(cfg: ModelConfig, cache: dict, snap: dict,
                     step: torch.Tensor, pos: torch.Tensor) -> None:
     """Before draft step ``step`` ((1,) int64 on the device), record into
-    slot ``step`` of ``snap`` what the step is about to change: rwkv's
+    slot ``step`` of ``snap`` what the step is about to change: a recurrent
     state, and each ring's rows at ``pos % size`` (``pos``: (B,) device
     positions the step writes).  Device indices only, so a captured step
     can run it."""
@@ -406,7 +408,7 @@ def cache_rollback_(cfg: ModelConfig, cache: dict, snap: dict,
                     m: torch.Tensor, k: int) -> None:
     """Rewind ``cache`` after ``k`` draft steps to its state after the
     first ``m`` (a 0-d int64 device tensor, 1 <= m <= k), in place, with
-    no host sync: rwkv's state from its snapshot before step ``m`` (kept
+    no host sync: a recurrent state from its snapshot before step ``m`` (kept
     when m == k), each ring's slots written by steps m..k-1 restored, the
     last step first (steps may share a slot when the ring is shorter than
     k).  Plain KV caches keep the draft's writes past the rewound
@@ -446,7 +448,7 @@ def cache_rollback_(cfg: ModelConfig, cache: dict, snap: dict,
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                      device="cuda") -> dict:
-    """Zero page arenas, one per attention layer (None for rwkv); one page
+    """Zero page arenas, one per attention layer (None for rwkv and mamba); one page
     id addresses the same physical page in every arena."""
     return {"periods": {
         f"pos{j}": blocks.init_paged_layer_cache(
@@ -456,7 +458,7 @@ def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
 
 
 def init_paged_state(cfg: ModelConfig, n_slots: int, device="cuda") -> dict:
-    """Zero state rows (n_periods, n_slots, ...) for the rwkv layers only."""
+    """Zero state rows (n_periods, n_slots, ...) for the recurrent layers only."""
     return {"periods": {
         f"pos{j}": blocks.init_paged_state_cache(
             cfg, kind, n_slots, lead=(cfg.n_periods,), device=device)
@@ -517,15 +519,16 @@ def merge_paged_view(cfg: ModelConfig, view: dict, state: dict) -> dict:
 
 
 def extract_paged_state(cfg: ModelConfig, cache: dict) -> dict:
-    """The rwkv half of a full cache tree (the same tensors; None for the
-    paged kinds)."""
+    """The recurrent half (rwkv, mamba) of a full cache tree (the same
+    tensors; None for the paged kinds)."""
     return {"periods": {
-        f"pos{j}": cache["periods"][f"pos{j}"] if kind == "rwkv" else None
+        f"pos{j}": (cache["periods"][f"pos{j}"]
+                    if kind in blocks.RECURRENT_KINDS else None)
         for j, kind in enumerate(cfg.pattern)}}
 
 
 def extract_state_rows(cfg: ModelConfig, cache: dict, row: int) -> dict:
-    """Copies of batch row ``row`` of the rwkv layers of a prefilled cache,
+    """Copies of batch row ``row`` of the recurrent layers of a prefilled cache,
     (n_periods, 1, ...) a leaf: the constant-size state a prefix-cache
     entry keeps."""
     state = extract_paged_state(cfg, cache)

@@ -8,6 +8,25 @@
   terms' magnitudes; the transform ``q = h·A`` adds d terms to the chain
   and ``+ b`` and ``/ r`` one rounding each.  :func:`check_hash_indices`
   asserts this for every mismatch.
+* MoE routing: the f32 router logits ``x·R`` of two implementations may
+  sum in different orders, each within ``γ_d·Σ_i |x_i·R_ie|`` of the exact
+  value.  A top-k choice made on those logits can differ from the exact
+  one only by swapping a chosen expert e for an unchosen f with
+  ``l_e − l_f`` within ``γ_d·(M_e + M_f)``, so the exact k-th and
+  (k+1)-th largest logits of that token lie within ``2·γ_d·max_e M_e``
+  (:func:`check_router_choices`).
+* Seeded sampling: the two packages draw the same keys, bits and uniforms
+  bit for bit, but ``-log(-log(u))`` goes through each library's f32
+  ``log`` (within an ulp or two, 2u relative for each): the Gumbel score
+  ``g + l`` of each implementation is within ``E = 4u·(1 + |g| + |g + l|)``
+  of its exact value (the first log's relative error passes to the second
+  as an absolute one, the second rounds, and so does the sum).  A token
+  may differ only where the two winners' exact scores are within
+  ``2·(E_a + E_b)``.  A top-p cut may differ only where the mass before a
+  token of the descending sort lies within ``2·(2·γ_V + 4u)`` of ``top_p``
+  (each side's softmax within ``γ_V + 3u`` of each probability, its cumsum
+  within ``γ_V``); :func:`top_p_near_cut` finds those rows and
+  :func:`check_sampled_tokens` asserts the rule for every mismatch.
 * Logits: a mean of the same L f32 terms summed in two orders differs by
   at most ``2·(γ_L + 2u)·max|term|`` (:func:`gather_atol`).
 * Sketch folds (``race_update``): a count plus the sum of M weights is a
@@ -126,6 +145,81 @@ def check_hash_indices(got: torch.Tensor, want: torch.Tensor, x, w, b,
             f"got {int(got[bb, ll])}, want {int(want[bb, ll])}, "
             f"t={t[bb, ll].tolist()}, distance to an integer "
             f"{dist[bb, ll].tolist()} > bound {tol[bb, ll].tolist()}")
+    return n_bad
+
+
+def router_tol(x: torch.Tensor, router: torch.Tensor):
+    """``(logits, tol)``: the exact router logits of tokens x (..., d) in
+    float64 and, per token (...,), ``2·γ_d·max_e Σ_i |x_i·R_ie|``."""
+    x64, r64 = x.to(torch.float64), router.to(torch.float64)
+    mag = x64.abs() @ r64.abs()
+    return x64 @ r64, 2.0 * _gamma(x.shape[-1]) * mag.amax(dim=-1)
+
+
+def check_router_choices(got: torch.Tensor, want: torch.Tensor,
+                         x: torch.Tensor, router: torch.Tensor,
+                         k: int) -> int:
+    """Assert the routing rule for every token whose (..., E) expert mask
+    differs between ``got`` and ``want`` (x: the router's input tokens
+    (..., d)); returns the number of such tokens."""
+    mismatch = (got.bool() != want.bool()).any(dim=-1).cpu()
+    n_bad = int(mismatch.sum())
+    if not n_bad:
+        return 0
+    logits, tol = router_tol(x, router)
+    top = torch.topk(logits, k + 1, dim=-1).values
+    gap = (top[..., k - 1] - top[..., k]).cpu()
+    unexplained = mismatch & (gap > tol.cpu())
+    if bool(unexplained.any()):
+        i = tuple(int(v) for v in unexplained.nonzero()[0])
+        raise AssertionError(
+            f"{int(unexplained.sum())} of {n_bad} tokens routed differently "
+            f"are not at a top-{k} tie; first at {i}: the k-th and (k+1)-th "
+            f"logits {gap[i]:.6g} apart > bound {float(tol[i]):.3g}")
+    return n_bad
+
+
+def top_p_near_cut(logits: torch.Tensor, top_p: float) -> torch.Tensor:
+    """(B,) bool: rows of the f32 logits (B, V) (the input of the top-p
+    filter) where the mass before some token of the descending sort lies
+    within ``2·(2·γ_V + 4u)`` of ``top_p``, so the two packages' nuclei may
+    differ."""
+    desc = torch.sort(logits.to(torch.float64), dim=-1,
+                      descending=True).values
+    p = torch.softmax(desc, dim=-1)
+    before = torch.cumsum(p, dim=-1) - p
+    tol = 2.0 * (2.0 * _gamma(logits.shape[-1]) + 4.0 * U32)
+    return ((before - top_p).abs() <= tol).any(dim=-1)
+
+
+def check_sampled_tokens(got: torch.Tensor, want: torch.Tensor,
+                         logits: torch.Tensor, uniforms: torch.Tensor,
+                         near_cut: Optional[torch.Tensor] = None) -> int:
+    """Assert the sampling rule for every row where the (B,) tokens differ:
+    ``logits`` are the categorical's (B, V) f32 input (after temperature
+    and filters), ``uniforms`` the draw's (B, V) uniforms on [tiny, 1),
+    ``near_cut`` the rows whose top-p nucleus may differ
+    (:func:`top_p_near_cut`).  Returns the number of mismatched rows."""
+    mismatch = (got.long() != want.long()).cpu()
+    if near_cut is not None:
+        mismatch &= ~near_cut.cpu()
+    n_bad = int(mismatch.sum())
+    if not n_bad:
+        return 0
+    g = -torch.log(-torch.log(uniforms.to(torch.float64)))
+    s = g + logits.to(torch.float64)
+    err = 4.0 * U32 * (1.0 + g.abs() + s.abs())
+    rows = torch.arange(s.shape[0])
+    a, b = got.long().cpu(), want.long().cpu()
+    s, err = s.cpu(), err.cpu()
+    gap = (s[rows, a] - s[rows, b]).abs()
+    unexplained = mismatch & (gap > 2.0 * (err[rows, a] + err[rows, b]))
+    if bool(unexplained.any()):
+        r = int(unexplained.nonzero()[0])
+        raise AssertionError(
+            f"{int(unexplained.sum())} of {n_bad} sampled tokens differ "
+            f"beyond the Gumbel rounding; first at row {r}: got {int(a[r])}, "
+            f"want {int(b[r])}, scores {float(gap[r]):.6g} apart")
     return n_bad
 
 

@@ -418,3 +418,125 @@ def test_cuda_engine_launches_fused_decode_once_per_tick(cuda):
     out = engine.run()
     assert fused_decode_logits.launches == engine.stats["decode_steps"] > 0
     assert sorted(len(v) for v in out.values()) == [3, 4, 5, 6]
+
+
+# ------------------------------------------------- jamba: mamba, attn, MoE
+
+JAMBA = "jamba-v0.1-52b"
+
+
+@pytest.fixture(scope="module")
+def jamba(jx):
+    """jamba's smoke config (mamba and attention layers, MoE FFNs on every
+    second layer): the JAX config, params and the port's LM."""
+    jcfg, cfg = jx["config"](JAMBA, smoke=True), get_config(JAMBA, smoke=True)
+    jparams = jx["model"].init_model(jx["jax"].random.PRNGKey(0), jcfg)
+    params = params_from_numpy(jx["jax"].tree.map(np.asarray, jparams), "cpu")
+    return jcfg, cfg, LM.from_config(JAMBA, smoke=True, device="cpu",
+                                     params=params)
+
+
+def _noise_cache(jx, jcfg, cfg, batch, seed):
+    """The same noise in a port cache and a JAX cache of jamba's layout
+    (a ``KVCache`` or a ``MambaCache`` per pattern position)."""
+    rng = np.random.default_rng(seed)
+    fresh = model.init_decode_cache(cfg, batch, 8, device="cpu")
+    jfresh = jx["model"].init_decode_cache(jcfg, batch, 8)
+    port, jax_ = {}, {}
+    for name, c in fresh["periods"].items():
+        leaves = [rng.standard_normal(tuple(x.shape)).astype(np.float32)
+                  for x in c]
+        port[name] = type(c)(*(torch.from_numpy(a).to(x.dtype)
+                               for a, x in zip(leaves, c)))
+        jc = jfresh["periods"][name]
+        jax_[name] = type(jc)(*(jx["jnp"].asarray(np.asarray(
+            t.float().numpy()), j.dtype) for t, j in zip(port[name], jc)))
+    return {"periods": port}, {"periods": jax_}
+
+
+def _equal_to_jax(got, want):
+    for name, c in want["periods"].items():
+        assert type(got["periods"][name]).__name__ == type(c).__name__
+        for g, w in zip(got["periods"][name], c):
+            np.testing.assert_array_equal(g.float().numpy(),
+                                          np.asarray(w, np.float32))
+
+
+def test_jamba_cache_slot_ops_match_jax(jx, jamba):
+    """Insert, reset and row expansion of a cache with attention and mamba
+    layers, bit for bit against the JAX package's."""
+    jcfg, cfg, _ = jamba
+    jnp = jx["jnp"]
+    pool, jpool = _noise_cache(jx, jcfg, cfg, 4, 0)
+    src, jsrc = _noise_cache(jx, jcfg, cfg, 2, 1)
+    slots = [3, 1]
+    _equal_to_jax(model.cache_slot_insert(cfg, pool, src, slots),
+                  jx["model"].cache_slot_insert(jcfg, jpool, jsrc,
+                                                jnp.asarray(slots, "int32")))
+    _equal_to_jax(model.cache_slot_reset(cfg, pool, [0, 2]),
+                  jx["model"].cache_slot_reset(jcfg, jpool,
+                                               jnp.asarray([0, 2], "int32")))
+    inv = [1, 0, 1]
+    _equal_to_jax(model.cache_expand_rows(cfg, src, inv),
+                  jx["model"].cache_expand_rows(jcfg, jsrc,
+                                                jnp.asarray(inv, "int32")))
+    reset = model.cache_slot_reset_(cfg, pool, [0, 2])
+    fresh = model.init_decode_cache(cfg, 4, 8, device="cpu")
+    for name, c in reset["periods"].items():
+        for leaf, f in zip(c, fresh["periods"][name]):
+            assert torch.equal(leaf[:, [0, 2]], f[:, [0, 2]])
+
+
+@pytest.mark.parametrize("head", ["dense", "fused"])
+def test_jamba_engine_matches_static_generate(jamba, head):
+    """Synchronized arrivals: the engine's tokens are generate's, the mamba
+    state and the attention cache moved by the slot ops."""
+    _, cfg, lm = jamba
+    if head != "dense":
+        lm = lm.with_head(_head(cfg, head))
+    b, p, g = 2, 5, 4
+    prompts = np.stack([_prompt(i, p, cfg.vocab_size) for i in range(b)])
+    expected = lm.generate(prompts, g)[:, p:].numpy()
+    engine = lm.engine(b, p + g)
+    rids = [engine.submit(prompts[i], g) for i in range(b)]
+    out = engine.run()
+    for i, rid in enumerate(rids):
+        np.testing.assert_array_equal(out[rid], expected[i])
+
+
+def test_jamba_engine_staggered_matches_solo_generate(jamba):
+    """Recycled slots: a reset mamba row starts from a zero state, and each
+    request of a staggered stream emits its solo tokens."""
+    _, cfg, lm = jamba
+    engine = lm.engine(2, 16)
+    reqs = []
+    for i, (plen, gen, arrival) in enumerate([(4, 6, 0), (6, 3, 0),
+                                              (5, 8, 2), (4, 2, 5)]):
+        prompt = _prompt(20 + i, plen, cfg.vocab_size)
+        reqs.append((engine.submit(prompt, gen, arrival=arrival), prompt, gen))
+    out = engine.run()
+    for rid, prompt, gen in reqs:
+        assert out[rid] == lm.generate(prompt[None], gen)[0, len(prompt):].tolist()
+    fresh = model.init_decode_cache(cfg, 2, 16, device="cpu")
+    for name, c in engine.pool["periods"].items():
+        for leaf, f in zip(c, fresh["periods"][name]):
+            assert torch.equal(leaf, f), name
+
+
+def test_engine_close_releases_its_loops(jamba):
+    """``close`` releases the megastep and speculative loops (their caches
+    and, on the card, graphs) the backend memoized; the streams stay the
+    per-token engine's."""
+    _, cfg, lm = jamba
+    reqs = [(_prompt(30 + i, 5, cfg.vocab_size), 4) for i in range(3)]
+    base = lm.serve(reqs, n_slots=2)
+    for kw in (dict(decode_chunk=3), dict(spec_decode=2)):
+        engine = lm.engine(2, 9, **kw)
+        for prompt, gen in reqs:
+            engine.submit(prompt, gen)
+        assert engine.run() == base
+        loops = list(engine.backend._loops.values())
+        assert loops
+        engine.close()
+        assert not engine.backend._loops
+        assert all(loop.cache is None and loop.params is None for loop in loops)

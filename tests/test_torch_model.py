@@ -25,10 +25,12 @@ import jax.numpy as jnp
 from repro.configs import get_config as jax_config
 from repro.models import blocks as jblocks
 from repro.models import model as jmodel
+from repro.models import moe as jmoe
 from repro.models.config import SketchHeadConfig as JaxSketchHeadConfig
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.models import blocks, model
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import SketchHeadConfig
 from repro_torch.parity import assert_bf16_backbone_close
 
@@ -51,7 +53,8 @@ def _f32(a):
 
 @pytest.mark.parametrize("arch", [ARCH, "gemma2-27b", "granite-8b",
                                   "stablelm-12b", "command-r-35b",
-                                  "musicgen-large"])
+                                  "musicgen-large", "mixtral-8x7b",
+                                  "jamba-v0.1-52b"])
 @pytest.mark.parametrize("smoke", [False, True])
 def test_config_matches_jax(smoke, arch):
     """Field by field; the port's own dataclasses (``AttentionConfig``)
@@ -69,7 +72,7 @@ def test_config_matches_jax(smoke, arch):
 
 def test_unported_arch_names_what_is_ported():
     with pytest.raises(KeyError, match="rwkv6-1.6b.*gemma2-27b"):
-        get_config("jamba-v0.1-52b")
+        get_config("deepseek-v3-671b")
 
 
 def test_convert_carries_bf16_bits(setup):
@@ -178,3 +181,197 @@ def test_decode_step_hidden_matches_jax(setup):
                                return_hidden=True)
     assert got.shape == (3, cfg.d_model) and got.dtype == torch.float32
     assert_bf16_backbone_close(got.numpy(), np.asarray(want))
+
+
+# ------------------------------------------- layer order, MoE and Mamba archs
+
+def test_layer_order_matches_jax_over_periods():
+    """gemma2's smoke config at 6 layers (3 periods of a local and a global
+    layer): the layers run period by period, as the JAX package's scan
+    runs them, in the forward and in the in-place decode step (bf16
+    backbone rule)."""
+    jcfg = jax_config("gemma2-27b", smoke=True).scaled(n_layers=6)
+    cfg = get_config("gemma2-27b", smoke=True).scaled(n_layers=6)
+    jparams = jmodel.init_model(jax.random.PRNGKey(0), jcfg)
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    toks = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 12))
+    toks = toks.astype(np.int32)
+    want, _, _ = jmodel.forward(jparams, jnp.asarray(toks), jcfg, remat=False)
+    got, _ = model.forward(params, torch.from_numpy(toks), cfg)
+    assert_bf16_backbone_close(got.numpy(), np.asarray(want))
+    jcache = jmodel.init_decode_cache(jcfg, 2, 13)
+    _, jcache, _ = jmodel.forward(jparams, jnp.asarray(toks), jcfg,
+                                  cache=jcache,
+                                  cache_pos=jnp.zeros((), jnp.int32),
+                                  remat=False)
+    jlog, _ = jmodel.decode_step(jparams, jcache, jnp.asarray(toks[:, :1]),
+                                 jnp.asarray(12, jnp.int32), jcfg)
+    cache = model.init_decode_cache(cfg, 2, 13, device="cpu")
+    _, cache = model.forward(params, torch.from_numpy(toks), cfg,
+                             cache=cache, cache_pos=0)
+    log, _ = model.decode_step_(params, cache, torch.from_numpy(toks[:, :1]),
+                                cfg, cache_pos=12)
+    assert_bf16_backbone_close(log.numpy(), np.asarray(jlog))
+
+
+MOE_ARCHS = ["mixtral-8x7b", "jamba-v0.1-52b"]
+
+
+@pytest.fixture(scope="module")
+def moe_setup():
+    built = {}
+
+    def get(arch):
+        if arch not in built:
+            jcfg, cfg = jax_config(arch, smoke=True), get_config(arch,
+                                                                 smoke=True)
+            jparams = jmodel.init_model(jax.random.PRNGKey(0), jcfg)
+            params = params_from_numpy(jax.tree.map(np.asarray, jparams),
+                                       "cpu")
+            toks = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                     (3, 40))
+            built[arch] = (jcfg, cfg, jparams, params, toks.astype(np.int32))
+        return built[arch]
+
+    return get
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_arch_params_match_jax(moe_setup, arch):
+    """The init tree (shapes and dtypes: the router and mamba's ``a_log``,
+    ``d_skip``, ``conv_b``, ``dt_bias`` f32, the rest bf16) and the
+    conversion of the JAX params, leaf for leaf and bit for bit."""
+    _, cfg, jparams, params, _ = moe_setup(arch)
+    ours = model.init_model(cfg, torch.Generator("cpu").manual_seed(0))
+    jflat = {jax.tree_util.keystr(p): l
+             for p, l in jax.tree_util.tree_leaves_with_path(jparams)}
+    for tree in (ours, params):
+        flat = {jax.tree_util.keystr(p): l
+                for p, l in jax.tree_util.tree_leaves_with_path(tree)}
+        assert set(flat) == set(jflat)
+        for k, leaf in jflat.items():
+            assert tuple(flat[k].shape) == leaf.shape, k
+            assert str(flat[k].dtype).split(".")[-1] == str(leaf.dtype), k
+    for k, leaf in jflat.items():
+        t = params
+        for key in k.strip("[]'").split("']['"):
+            t = t[key]
+        np.testing.assert_array_equal(t.float().numpy(), _f32(leaf))
+
+
+def _record_moe(monkeypatch, module, log):
+    """Wrap ``module.moe_ffn`` to keep each call's input tokens."""
+    inner = module.moe_ffn
+
+    def recording(params, x, cfg):
+        log.append((np.array(jnp.asarray(x).astype(jnp.float32))
+                    if not torch.is_tensor(x) else x.float().numpy(),
+                    np.array(params["router"], np.float32)))
+        return inner(params, x, cfg)
+
+    monkeypatch.setattr(module, "moe_ffn", recording)
+
+
+def _masks(x, router, k):
+    """Exact top-k threshold masks of the (B, S, d) tokens' f32 logits."""
+    logits = torch.from_numpy(x).double() @ torch.from_numpy(router).double()
+    return logits >= torch.topk(logits, k, dim=-1).values[..., -1:]
+
+
+def _assert_flip_explained(xp, xj, router, k, tokens):
+    """A routing that differs between two inputs (the port's and the JAX
+    package's residual at one layer, bf16 ulps apart) may differ only
+    where the exact top-k gap at one input is within what the two inputs
+    move the logits (twice the largest change) plus both f32 bounds."""
+    from repro_torch.parity import router_tol
+    r = torch.from_numpy(router)
+    lj, tj = router_tol(torch.from_numpy(xj), r)
+    lp, tp = router_tol(torch.from_numpy(xp), r)
+    top = torch.topk(lj, k + 1, dim=-1).values
+    gap = top[..., k - 1] - top[..., k]
+    moved = 2.0 * (lp - lj).abs().amax(dim=-1) + tj + tp
+    assert bool((gap[tokens] <= moved[tokens]).all()), (
+        f"routing differs at tokens whose top-{k} gap {gap[tokens]} exceeds "
+        f"what the inputs explain {moved[tokens]}")
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_arch_layer_chain_matches_jax(moe_setup, arch, monkeypatch):
+    """Teacher-forced layer by layer: each layer of the port takes the JAX
+    package's residual (its layers run op by op, rounding where the port
+    rounds) and matches the JAX layer within one bf16 ulp on every batch
+    row whose routing agrees; the routing on the JAX layer's own MoE input
+    agrees with the port's router except within ``check_router_choices``'
+    bound."""
+    from repro.models import blocks as jblocks
+    from repro_torch.parity import check_router_choices
+    jcfg, cfg, jparams, params, toks = moe_setup(arch)
+    jlog, tlog = [], []
+    _record_moe(monkeypatch, jblocks, jlog)
+    _record_moe(monkeypatch, blocks, tlog)
+    x = jnp.asarray(jparams["embed"])[jnp.asarray(toks)] * jnp.asarray(
+        cfg.d_model ** 0.5, jnp.bfloat16)
+    s = toks.shape[1]
+    for i in range(cfg.n_periods):
+        for j, kind in enumerate(cfg.pattern):
+            ffn = cfg.ffn_kind(j)
+            jlayer = jax.tree.map(lambda t: t[i], jparams["periods"][f"pos{j}"])
+            with jax.disable_jit():
+                jy, _, _ = jblocks.apply_layer(jlayer, x, jnp.arange(s), jcfg,
+                                               kind, ffn)
+            y, _ = blocks.apply_layer(
+                model._index(params["periods"][f"pos{j}"], i),
+                params_from_numpy(np.asarray(x), "cpu"), cfg, kind, ffn=ffn)
+            rows = np.ones(toks.shape[0], bool)
+            if ffn == "moe":
+                (xj, router), (xp, _) = jlog[-1], tlog[-1]
+                k = cfg.moe.top_k
+                jmask = torch.from_numpy(np.array(jmoe._topk_mask(
+                    jnp.asarray(xj) @ jnp.asarray(router), k)))
+                ours = moe_mod.route({"router": torch.from_numpy(router)},
+                                     torch.from_numpy(xj), cfg.moe)[1]
+                check_router_choices(ours, jmask, torch.from_numpy(xj),
+                                     torch.from_numpy(router), k)
+                pm, jm = _masks(xp, router, k), _masks(xj, router, k)
+                diff = (pm != jm).any(-1)
+                if bool(diff.any()):
+                    _assert_flip_explained(xp, xj, router, k, diff)
+                rows = ~diff.any(-1).numpy()
+            want, got = _f32(jy), y.float().numpy()
+            np.testing.assert_allclose(got[rows], want[rows], rtol=BF16_ULP,
+                                       atol=BF16_ULP * np.abs(want).max())
+            x = jy
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_arch_forward_matches_jax(moe_setup, arch, monkeypatch):
+    """The whole teacher-forced forward against the JAX package's, op by op
+    (``jax.disable_jit``; XLA's compiled forward skips bf16 roundings and
+    then routes some tokens otherwise, even against itself op by op).
+    Routing is a threshold, so a token whose top-k gap is smaller than the
+    layers' bf16 drift may route otherwise and its row then diverges: the
+    rows whose routing agrees at every MoE layer meet the bf16 backbone
+    rule, and every row that diverges does so at a token whose gap the
+    two residuals explain (``_assert_flip_explained``)."""
+    from repro.models import blocks as jblocks
+    jcfg, cfg, jparams, params, toks = moe_setup(arch)
+    jlog, tlog = [], []
+    _record_moe(monkeypatch, jblocks, jlog)
+    _record_moe(monkeypatch, blocks, tlog)
+    with jax.disable_jit():
+        want, _, _ = jmodel.forward(jparams, jnp.asarray(toks), jcfg,
+                                    remat=False)
+    got, _ = model.forward(params, torch.from_numpy(toks), cfg)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert len(jlog) == len(tlog) > 0
+    k = cfg.moe.top_k
+    agree = np.ones(toks.shape[0], bool)
+    for (xj, router), (xp, _) in zip(jlog, tlog):
+        diff = (_masks(xp, router, k) != _masks(xj, router, k)).any(-1)
+        new = diff.any(-1).numpy() & agree
+        if new.any():
+            _assert_flip_explained(xp, xj, router, k,
+                                   diff & torch.from_numpy(new)[:, None])
+        agree &= ~new
+    assert agree.any(), "every row routed otherwise somewhere"
+    assert_bf16_backbone_close(got.numpy()[agree], np.asarray(want)[agree])

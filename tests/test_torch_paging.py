@@ -5,7 +5,8 @@ engine (page-table gather, the same in-place decode step as the
 contiguous engine, the commit of the written position) emits the
 contiguous engine's streams bit for bit, on unique and on repeated
 prompts, for gemma2-27b (a SWA ring beside global attention: two page
-geometries) and rwkv6-1.6b (state only, no arena); repeated prompts hit
+geometries), rwkv6-1.6b (state only, no arena) and jamba-v0.1-52b (mamba
+state rows beside one paged attention layer, MoE FFNs); repeated prompts hit
 the prefix cache and skip their prefill, and shared pages are copied
 before a divergent write (COW).  Page hygiene on the device: the zero page
 reads zero after traffic, and an insert leaves every other page bitwise
@@ -34,7 +35,7 @@ from repro_torch.launch.paging import ZERO_PAGE, PagePool, PrefixCache
 from repro_torch.models import model
 from repro_torch.models.config import SketchHeadConfig
 
-ARCHS = ["gemma2-27b", "rwkv6-1.6b"]
+ARCHS = ["gemma2-27b", "rwkv6-1.6b", "jamba-v0.1-52b"]
 HEAD_CFG = SketchHeadConfig(n_rows=32, n_buckets=8, k=1, proj_dim=16,
                             bandwidth=2.0)
 
@@ -134,7 +135,7 @@ def test_paged_matches_contiguous_repeated_prompts(served):
     assert 0 < st["prefix_hits"] <= st["prefix_queries"] == 12
     assert st["prefill_batches"] < c_engine.stats["prefill_batches"]
     assert 0 < st["pages_in_use"] <= st["pages_in_use_peak"]
-    if "attn_local" in served.cfg.pattern:
+    if any(k.startswith("attn") for k in served.cfg.pattern):
         assert st["cow_copies"] > 0
     else:
         assert st["cow_copies"] == 0        # rwkv: no arena to write

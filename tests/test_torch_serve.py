@@ -200,17 +200,29 @@ def test_greedy_tokens_exact_on_identical_logits():
     logits[:, 17] = logits[:, 250] = logits.max() + 1.0   # a tie: first wins
     logits[3, :] = 0.0                                     # all tied
     _, want = JaxSampler().sample(jax.random.PRNGKey(0), jnp.asarray(logits))
-    got = Sampler().sample(torch.from_numpy(logits))
+    key = Sampler().init_key()
+    key_out, got = Sampler().sample(key, torch.from_numpy(logits))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert got[0] == 17 and got[3] == 0
+    assert key_out is key                     # greedy never splits the key
 
 
 def test_sampler_is_greedy_only():
-    assert Sampler().describe() == "greedy"
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Sampler(temperature=0.8)
-    with pytest.raises(ValueError):
-        Sampler(temperature=-1.0)
+    """The reference's checks and ``describe()``: the same ``ValueError``
+    for a negative temperature or top_k and a top_p outside (0, 1], and
+    the same summary for every policy (a seeded one no longer raises)."""
+    for bad in (dict(temperature=-1.0), dict(top_k=-1), dict(top_p=0),
+                dict(top_p=1.5)):
+        with pytest.raises(ValueError) as ours:
+            Sampler(**bad)
+        with pytest.raises(ValueError) as theirs:
+            JaxSampler(**bad)
+        assert str(ours.value) == str(theirs.value)
+    for spec in (dict(), dict(temperature=0.8, top_k=40, seed=1),
+                 dict(temperature=1.0, top_p=0.9, seed=3),
+                 dict(temperature=0.5, top_k=3, top_p=0.25)):
+        assert Sampler(**spec).describe() == JaxSampler(**spec).describe()
+    assert not Sampler(temperature=0.8).is_greedy
 
 
 # ------------------------------------------------------------- generate

@@ -15,8 +15,10 @@ every draft, so rejection mid-block is the steady state.  Within the port:
 the same streams as dense decode, EOS mid-block, a dense-head draft that
 accepts everything (its verify logits equal to its draft logits bit for
 bit), gemma2's SWA ring wrapped (prompt 12 > window 8, and K = 16 > the
-ring: draft steps that share a ring slot), the bounded loop memo, and the
-validation errors.
+ring: draft steps that share a ring slot), jamba's mamba rows restored
+from their snapshots (the tokens dense decode's, the rolled-back cache
+that of the committed dense steps bit for bit), the bounded loop memo,
+and the validation errors.
 
 The ``cuda`` cases run the captured draft step on the card and skip
 without one; they import no JAX (``python -m pytest --noconftest -m
@@ -43,7 +45,8 @@ KS = [1, 4, 16]
 BACKENDS = ["fused", "two_kernel", "ref"]
 HEAD = dict(n_rows=32, n_buckets=8, k=1, proj_dim=16, bandwidth=2.0)
 HEAD_CFG = SketchHeadConfig(**HEAD)
-PROMPT = {"rwkv6-1.6b": 5, "gemma2-27b": 12}    # gemma2: past its window 8
+PROMPT = {"rwkv6-1.6b": 5, "gemma2-27b": 12,    # gemma2: past its window 8
+          "jamba-v0.1-52b": 6}
 GEN = 9
 
 
@@ -223,6 +226,61 @@ def test_engine_spec_staggered_matches_solo_generate(served):
     assert engine.sched.n_free == 2
 
 
+# ------------------------------------------------- jamba: mamba rollback
+
+
+@pytest.mark.parametrize("k", [4, 16])
+def test_jamba_spec_rolls_back_mamba_state(served, k):
+    """jamba smoke (mamba and attention layers, MoE FFNs): the random head
+    rejects drafts mid-block, so every tick restores the mamba rows from
+    their snapshots; the tokens are dense decode's."""
+    s = served("jamba-v0.1-52b")
+    prompts = torch.from_numpy(np.array(s["prompts"]))
+    dense = s["lms"]["dense"].generate(prompts, GEN)
+    got, stats = s["lms"]["fused"].generate(prompts, GEN, spec_decode=k,
+                                            return_stats=True)
+    assert torch.equal(got, dense)
+    assert stats["verify_calls"] >= 2
+    assert stats["accepted_draft_tokens"] < stats["draft_tokens"]
+
+
+def test_jamba_rollback_equals_dense_steps(served):
+    """One speculative tick that commits m < K steps leaves the cache (the
+    mamba conv and state rows, the KV cache up to the rewound position)
+    bit for bit where m dense decode steps leave it."""
+    from repro_torch.launch.steps import prefill_step_, serve_step_
+    s = served("jamba-v0.1-52b")
+    lm, dense = s["lms"]["fused"], s["lms"]["dense"]
+    cfg, p = lm.cfg, s["prompts"].shape[1]
+    prompts = torch.from_numpy(np.array(s["prompts"]))
+    with torch.inference_mode():
+        cache = model.init_decode_cache(cfg, 3, p + GEN, device="cpu")
+        logits, cache = prefill_step_(lm.params, prompts, cfg, cache)
+        ref = model.init_decode_cache(cfg, 3, p + GEN, device="cpu")
+        _, ref = prefill_step_(lm.params, prompts, cfg, ref)
+        tok = logits.argmax(-1)
+        loop = SpecLoop(lm.params, cfg, lm.head, cache, k=4, masked=False,
+                        per_slot=False)
+        loop.load(tok, p)
+        block, m, _, _ = loop.run(4)
+        m = int(m)
+        assert m < 4, "the random head accepted every draft"
+        step_tok = tok
+        for i in range(m):
+            lg, ref = serve_step_(dense.params, ref, step_tok[:, None], cfg,
+                                  pos=p + i)
+            step_tok = lg.argmax(-1)
+            assert torch.equal(step_tok, block[i])
+    for j, kind in enumerate(cfg.pattern):
+        name = f"pos{j}"
+        for got, want in zip(loop.cache["periods"][name],
+                             ref["periods"][name]):
+            if kind == "mamba":
+                assert torch.equal(got, want), name
+            else:                # positions past the rewound one are masked
+                assert torch.equal(got[:, :, :p + m], want[:, :, :p + m])
+
+
 # ------------------------------------------------------ EOS mid-block
 
 
@@ -262,7 +320,8 @@ def test_eos_mid_block_engine(served):
 # ------------------------------------------------- a dense-head draft
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "gemma2-27b"])
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "gemma2-27b",
+                                  "jamba-v0.1-52b"])
 @pytest.mark.parametrize("gen_len,k", [(2, 1), (7, 3), (12, 4)])
 def test_dense_draft_accepts_everything(served, arch, gen_len, k):
     """With the dense head as the draft, every draft is its own verify:
