@@ -8,6 +8,7 @@
                                                       top_k=12, seed=7))
     tokens = lm.generate(prompts, 16, decode_chunk=16)    # one megastep
     tokens = lm.generate(prompts, 16, spec_decode=4)      # drafts, dense verify
+    tokens = lm.generate(prompts, 16, encoder_states=enc) # cross-attention archs
     lm = lm.with_head(SketchHead.load("head.npz"))        # sketched decode
     finished = lm.serve([(prompt, 16, arrival), ...])     # continuous batching
 """
@@ -104,7 +105,7 @@ class LM:
     def generate(self, prompts, max_new_tokens: int, *,
                  sampler=None, eos_id: Optional[int] = None, pad_id: int = 0,
                  decode_chunk: int = 1, spec_decode: int = 0,
-                 return_stats: bool = False):
+                 return_stats: bool = False, encoder_states=None):
         """Bulk prefill + decode: (B, P) prompts → (B, P + max_new_tokens)
         int64 tokens (prompt included), picked by ``sampler`` (a
         ``Sampler``; greedy when omitted; a seeded one gives the same
@@ -117,17 +118,23 @@ class LM:
         the dense head's, bit for bit; it excludes ``decode_chunk > 1``.
         ``return_stats=True`` returns ``(tokens, stats)``: the decode
         steps, and with ``spec_decode`` the verify calls, draft tokens and
-        accepted draft tokens."""
+        accepted draft tokens.  ``encoder_states`` (B, T, d_model) are
+        what an arch's cross-attention layers attend to (the vision
+        frontend is a stub: the caller brings the states)."""
         from repro_torch.launch.serve import generate
 
         prompts = torch.as_tensor(prompts, device=self.device).long()
         if prompts.dim() == 1:
             prompts = prompts[None]
+        if encoder_states is not None:
+            encoder_states = torch.as_tensor(encoder_states,
+                                             device=self.device)
         return generate(self.params, self.cfg, prompts, max_new_tokens,
                         head=self.head, sampler=sampler, eos_id=eos_id,
                         pad_id=pad_id,
                         decode_chunk=decode_chunk, spec_decode=spec_decode,
-                        return_stats=return_stats, loops=self._loops)
+                        return_stats=return_stats, loops=self._loops,
+                        encoder_states=encoder_states)
 
     # -- continuous batching -------------------------------------------------
 

@@ -1,4 +1,5 @@
-"""Architecture registry: ``--arch <id>`` → ModelConfig (ported archs only)."""
+"""Architecture registry: ``--arch <id>`` → ModelConfig, every arch of the
+JAX package's registry."""
 
 from __future__ import annotations
 
@@ -14,14 +15,16 @@ _MODULES = {
     "musicgen-large": "repro_torch.configs.musicgen_large",
     "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
     "jamba-v0.1-52b": "repro_torch.configs.jamba_v01_52b",
+    "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
+    "llama-3.2-vision-11b": "repro_torch.configs.llama32_vision_11b",
 }
 
 
 def get_config(name: str, smoke: bool = False) -> ModelConfig:
-    """The full (or ``smoke``) config of a ported architecture.
+    """The full (or ``smoke``) config of an architecture.
 
     Raises:
-      KeyError: ``name`` is not ported; the message names what is.
+      KeyError: ``name`` is unknown; the message names the ported archs.
     """
     if name not in _MODULES:
         raise KeyError(f"arch {name!r} is not ported to repro_torch; "

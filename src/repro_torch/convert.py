@@ -13,8 +13,10 @@ states travel the same way: :func:`teacher_from_numpy` (an MLP's list of
 ``{"points", "alphas", "proj"}``) and :func:`sketch_state_from_numpy` (a
 ``RepresenterSketch`` state ``{"hash", "array", "mass"}``), each checking
 the keys it expects.  :func:`decode_cache_from_numpy` carries a decode
-cache (``{"periods": {"pos<j>": KVCache | MambaCache | RWKVCache}}``,
-numpy leaves).
+cache (``{"prologue": [cache, ...], "periods": {"pos<j>": cache}}`` with
+``KVCache``, ``MLACache``, ``MambaCache`` or ``RWKVCache`` layer caches,
+or None, numpy leaves).  A deepseek-style ``prologue`` list of params
+travels as a list.
 """
 
 from __future__ import annotations
@@ -73,20 +75,35 @@ def sketch_state_from_numpy(state, device="cuda") -> dict:
 
 def decode_cache_from_numpy(cache, device="cuda") -> dict:
     """A decode cache of the port from the JAX package's (``{"periods":
-    {"pos<j>": cache}}``, numpy leaves): each layer cache becomes the
-    port's ``KVCache``, ``MambaCache`` or ``RWKVCache`` of the same name
-    and fields."""
+    {"pos<j>": cache}}`` and, with a dense prologue, ``"prologue": [cache,
+    ...]``; numpy leaves): each layer cache becomes the port's
+    ``KVCache``, ``MLACache``, ``MambaCache`` or ``RWKVCache`` of the same
+    name and fields (None stays None), bit for bit.  A prologue layer's
+    (B, ...) leaves become the port's stack of one, (1, B, ...)."""
     from repro_torch.models.attention import KVCache
     from repro_torch.models.mamba import MambaCache
+    from repro_torch.models.mla import MLACache
     from repro_torch.models.rwkv import RWKVCache
 
-    kinds = {c.__name__: c for c in (KVCache, MambaCache, RWKVCache)}
-    periods = {}
-    for name, layer in _checked(dict(cache), ("periods",),
-                                "a decode cache")["periods"].items():
+    kinds = {c.__name__: c for c in (KVCache, MLACache, MambaCache,
+                                     RWKVCache)}
+
+    def layer_cache(name, layer, lead):
+        if layer is None:
+            return None
         cls = kinds.get(type(layer).__name__)
         if cls is None or tuple(layer._fields) != cls._fields:
             raise ValueError(f"{name}: no port cache for "
                              f"{type(layer).__name__}")
-        periods[name] = cls(*(_leaf(a, device) for a in layer))
-    return {"periods": periods}
+        return cls(*(_leaf(np.asarray(a).reshape(lead + np.shape(a)), device)
+                     for a in layer))
+
+    cache = dict(cache)
+    keys = ("prologue", "periods") if "prologue" in cache else ("periods",)
+    _checked(cache, keys, "a decode cache")
+    out = {"periods": {name: layer_cache(name, layer, ())
+                       for name, layer in cache["periods"].items()}}
+    if "prologue" in cache:
+        out["prologue"] = [layer_cache(f"prologue[{i}]", layer, (1,))
+                           for i, layer in enumerate(cache["prologue"])]
+    return out

@@ -8,7 +8,9 @@ block (plus the small carry) crosses to the host, once: the JAX package's
 
 :class:`DecodeLoop` holds one decode step on static buffers: the decode
 cache (written in place by ``serve_step_``), the last token, ``pos``,
-``active`` and, for per-tenant heads, the slot → bank-row binding.  On a
+``active``, for per-tenant heads the slot → bank-row binding and, for an
+arch with ``xattn`` layers, the encoder states (``load`` copies them in
+before the replays: a captured graph may hold no copy from the host).  On a
 CUDA device the step is captured once as a CUDA graph and each megastep
 replays it K times, so one capture serves every K; on the CPU the same
 step runs eagerly on the same buffers.  A capture that fails raises.
@@ -97,6 +99,8 @@ class DecodeLoop:
       head_params: a per-tenant head's bank and ``"tenant_ids"`` (from
         ``HeadCache.bank_params``): the bank tensors are captured as they
         are, ``tenant_ids`` into a static buffer that :meth:`load` fills.
+      encoder_states: (B, T, d) states of the ``xattn`` layers: copied
+        into a static buffer that :meth:`load` refills.
 
     Everything runs in ``torch.inference_mode``: the static buffers are
     inference tensors, and a cache given in (an engine's pool) is written
@@ -114,10 +118,11 @@ class DecodeLoop:
     def __init__(self, params: dict, cfg: ModelConfig, head, cache: dict,
                  *, sampler: Optional[Sampler] = None, masked: bool,
                  eos_id: Optional[int] = None, pad_id: int = 0,
-                 per_slot: bool, head_params: Optional[dict] = None):
+                 per_slot: bool, head_params: Optional[dict] = None,
+                 encoder_states: Optional[torch.Tensor] = None):
         if eos_id is not None and not masked:
             raise ValueError("eos_id retirement needs masked=True")
-        leaf = next(iter(cache["periods"].values()))[0]
+        leaf = next(model.cache_leaves(cache))
         self.device, b = leaf.device, leaf.shape[1]
         self.params, self.cfg, self.head, self.cache = params, cfg, head, cache
         self.sampler = sampler or Sampler()
@@ -132,7 +137,9 @@ class DecodeLoop:
         if head_params is not None:
             self.head_params = dict(head_params)
             self.head_params["tenant_ids"] = head_params["tenant_ids"].clone()
-        self.shapes = _shapes(cache)
+        self.enc = (None if encoder_states is None
+                    else encoder_states.to(self.device, copy=True))
+        self.shapes = _shapes(cache, encoder_states)
         self.graph = None
         self.launches = [0] * len(COUNTED)      # per replay, by COUNTED
         if self.device.type == "cuda":
@@ -141,7 +148,8 @@ class DecodeLoop:
     def _step(self) -> None:
         logits, _ = serve_step_(self.params, self.cache, self.tok[:, None],
                                 self.cfg, head=self.head, active=self.active,
-                                pos=self.pos, head_params=self.head_params)
+                                pos=self.pos, head_params=self.head_params,
+                                encoder_states=self.enc)
         nxt = self._sample(logits)
         if self.active is not None:
             nxt = torch.where(self.active, nxt, self.pad_id)
@@ -192,7 +200,7 @@ class DecodeLoop:
         loop keeps no device memory alive; the loop cannot run after this."""
         if self.graph is not None:
             self.graph.reset()
-        self.graph = self.cache = self.head_params = None
+        self.graph = self.cache = self.head_params = self.enc = None
         self.params = self.head = None
 
     def _replay(self) -> None:
@@ -213,20 +221,28 @@ class DecodeLoop:
     @torch.inference_mode()
     def load_cache(self, cache: dict) -> None:
         """Copy ``cache`` (same shapes) into the static cache."""
-        for name, c in self.cache["periods"].items():
-            for dst, src in zip(c, cache["periods"][name]):
-                dst.copy_(src)
+        for dst, src in zip(model.cache_leaves(self.cache),
+                            model.cache_leaves(cache)):
+            dst.copy_(src)
 
     @torch.inference_mode()
     def load(self, tok, pos, active=None, head_params=None,
-             key=None) -> None:
+             key=None, encoder_states=None) -> None:
         """Set the carry for the next :meth:`run`: the last tokens (B,),
         ``pos`` (scalar or (B,)), ``active`` (B,) of a masked loop, a
-        per-tenant head's binding (its bank must be the captured one) and
-        the sampler's chain ``key`` (kept from the last run when None)."""
+        per-tenant head's binding (its bank must be the captured one),
+        the sampler's chain ``key`` and the encoder states (each kept
+        from the last run when None)."""
         dev = self.device
         if key is not None:
             self.key.copy_(key)
+        if encoder_states is not None:
+            want = None if self.enc is None else tuple(self.enc.shape)
+            if want != tuple(encoder_states.shape):
+                raise ValueError(f"this decode loop holds encoder states of "
+                                 f"shape {want}, got "
+                                 f"{tuple(encoder_states.shape)}")
+            self.enc.copy_(encoder_states)
         self.tok.copy_(torch.as_tensor(tok).to(dev, torch.int64))
         self.pos.copy_(torch.as_tensor(pos).to(dev, torch.int64))
         if self.active is not None:
@@ -277,10 +293,11 @@ class SpecLoop(DecodeLoop):
     def __init__(self, params: dict, cfg: ModelConfig, head, cache: dict,
                  *, k: int, sampler: Optional[Sampler] = None, masked: bool,
                  eos_id: Optional[int] = None, pad_id: int = 0,
-                 per_slot: bool, record_logits: bool = False):
+                 per_slot: bool, record_logits: bool = False,
+                 encoder_states: Optional[torch.Tensor] = None):
         if k < 1:
             raise ValueError(f"a spec loop needs k >= 1, got {k}")
-        leaf = next(iter(cache["periods"].values()))[0]
+        leaf = next(model.cache_leaves(cache))
         dev, b = leaf.device, leaf.shape[1]
         self.k = k
         self.step = torch.zeros(1, dtype=torch.int64, device=dev)
@@ -296,7 +313,7 @@ class SpecLoop(DecodeLoop):
                                             dtype=torch.float32, device=dev)
         super().__init__(params, cfg, head, cache, sampler=sampler,
                          masked=masked, eos_id=eos_id, pad_id=pad_id,
-                         per_slot=per_slot)
+                         per_slot=per_slot, encoder_states=encoder_states)
 
     def _warm_step(self) -> None:
         self.step.zero_()               # keep the step index inside the buffers
@@ -314,7 +331,7 @@ class SpecLoop(DecodeLoop):
         logits, _, hidden = serve_step_(
             self.params, self.cache, self.tok[:, None], self.cfg,
             head=self.head, active=self.active, pos=self.pos,
-            return_hidden=True)
+            return_hidden=True, encoder_states=self.enc)
         self.pre_keys.index_copy_(0, self.step, self.key[None])
         nxt = self._sample(logits)
         self.post_keys.index_copy_(0, self.step, self.key[None])
@@ -386,17 +403,18 @@ class SpecLoop(DecodeLoop):
         return block, m, acc, adv
 
 
-def _shapes(cache: dict) -> tuple:
-    return tuple(tuple(leaf.shape) for c in cache["periods"].values()
-                 for leaf in c)
+def _shapes(cache: dict, encoder_states=None) -> tuple:
+    """The static buffers' shapes: the cache's leaves, and the encoder
+    states' (None without them)."""
+    return (tuple(tuple(leaf.shape) for leaf in model.cache_leaves(cache)),
+            None if encoder_states is None else tuple(encoder_states.shape))
 
 
 def _zeros_like(cache: dict, device) -> dict:
     """A zero cache of ``cache``'s shapes and dtypes on ``device`` (the
     template may live on the meta device)."""
-    return {"periods": {name: type(c)(*(
-        torch.zeros(x.shape, dtype=x.dtype, device=device) for x in c))
-        for name, c in cache["periods"].items()}}
+    return model.map_cache(
+        lambda x: torch.zeros(x.shape, dtype=x.dtype, device=device), cache)
 
 
 def memo_loop(loops: Optional[dict], key: tuple, shapes: tuple, build):
@@ -423,36 +441,44 @@ def memo_loop(loops: Optional[dict], key: tuple, shapes: tuple, build):
 def generate_loop(params: dict, cfg: ModelConfig, *, head, sampler: Sampler,
                   template: dict, device, masked: bool,
                   eos_id: Optional[int] = None, pad_id: int = 0,
-                  spec_k: int = 0, loops: Optional[dict] = None):
+                  spec_k: int = 0, loops: Optional[dict] = None,
+                  encoder_states: Optional[torch.Tensor] = None):
     """The static-batch loop over a decode cache shaped as ``template``
     (a cache, or one made on the meta device): a :class:`DecodeLoop`, or
     with ``spec_k`` a :class:`SpecLoop` of that depth, from the memo
     ``loops`` (one loop per kind, depth, batch size and retirement spec;
     see :func:`memo_loop`).  ``generate`` prefills into the loop's own
-    cache (``loop.cache``), so no second cache is made."""
+    cache (``loop.cache``), so no second cache is made.  With
+    ``encoder_states`` the loop keeps a static buffer of their shape, which
+    ``load`` fills."""
     device = torch.device(device)
-    b = next(iter(template["periods"].values()))[0].shape[1]
+    b = next(model.cache_leaves(template)).shape[1]
     key = ("spec" if spec_k else "chunk", spec_k, cfg, head, sampler, b,
            masked, eos_id, pad_id, str(device))
 
     def build():
         cache = _zeros_like(template, device)
+        enc = (None if encoder_states is None
+               else torch.zeros_like(encoder_states, device=device))
         if spec_k:
             return SpecLoop(params, cfg, head, cache, k=spec_k,
                             sampler=sampler, masked=masked, eos_id=eos_id,
-                            pad_id=pad_id, per_slot=False)
+                            pad_id=pad_id, per_slot=False,
+                            encoder_states=enc)
         return DecodeLoop(params, cfg, head, cache, sampler=sampler,
                           masked=masked, eos_id=eos_id, pad_id=pad_id,
-                          per_slot=False)
+                          per_slot=False, encoder_states=enc)
 
-    return memo_loop(loops, key, _shapes(template), build)
+    return memo_loop(loops, key, _shapes(template, encoder_states), build)
 
 
 def decode_chunks(params: dict, cache: dict, first_logits: torch.Tensor, *,
                   cfg: ModelConfig, head, sampler: Sampler, gen_len: int,
                   start_pos: int, chunk: int, eos_id: Optional[int] = None,
                   pad_id: int = 0, loops: Optional[dict] = None,
-                  stats: Optional[dict] = None) -> torch.Tensor:
+                  stats: Optional[dict] = None,
+                  encoder_states: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
     """The static-batch decode loop as megasteps of ``chunk`` steps.
 
     The first token comes from the prefill's ``first_logits``, then the
@@ -469,6 +495,7 @@ def decode_chunks(params: dict, cache: dict, first_logits: torch.Tensor, *,
         fresh loop is built when None.  The loops hold the params and head
         they were built on, so the dict belongs to one model and head.
       stats: a dict that gets the decode steps run (``decode_steps``).
+      encoder_states: (B, T, d) states of the ``xattn`` layers.
 
     Returns:
       (B, gen_len) int64 tokens (prompt excluded), on the device.
@@ -480,13 +507,13 @@ def decode_chunks(params: dict, cache: dict, first_logits: torch.Tensor, *,
     loop = generate_loop(params, cfg, head=head, sampler=sampler,
                          template=cache, device=first_logits.device,
                          masked=masked, eos_id=eos_id, pad_id=pad_id,
-                         loops=loops)
+                         loops=loops, encoder_states=encoder_states)
     if cache is not loop.cache:
         loop.load_cache(cache)
     key, tok0 = sampler.sample(sampler.init_key(first_logits.device),
                                first_logits)
     loop.load(tok0, start_pos, None if not masked else tok0 != eos_id,
-              key=key)
+              key=key, encoder_states=encoder_states)
     blocks, todo, steps = [tok0[:, None]], gen_len - 1, 0
     while todo > 0:
         k = min(chunk, todo)
@@ -505,7 +532,8 @@ def spec_decode_chunks(params: dict, cache: dict, first_logits: torch.Tensor,
                        *, cfg: ModelConfig, head, sampler: Sampler,
                        gen_len: int, start_pos: int, spec_k: int,
                        eos_id: Optional[int] = None, pad_id: int = 0,
-                       loops: Optional[dict] = None):
+                       loops: Optional[dict] = None,
+                       encoder_states: Optional[torch.Tensor] = None):
     """The static-batch speculative decode loop (``generate(spec_decode=K)``).
 
     As :func:`decode_chunks`, but each tick is a :class:`SpecLoop` tick of
@@ -524,13 +552,14 @@ def spec_decode_chunks(params: dict, cache: dict, first_logits: torch.Tensor,
     loop = generate_loop(params, cfg, head=head, sampler=sampler,
                          template=cache, device=first_logits.device,
                          masked=masked, eos_id=eos_id, pad_id=pad_id,
-                         spec_k=spec_k, loops=loops)
+                         spec_k=spec_k, loops=loops,
+                         encoder_states=encoder_states)
     if cache is not loop.cache:
         loop.load_cache(cache)
     key, tok0 = sampler.sample(sampler.init_key(first_logits.device),
                                first_logits)
     loop.load(tok0, start_pos, None if not masked else tok0 != eos_id,
-              key=key)
+              key=key, encoder_states=encoder_states)
     blocks, todo = [tok0[:, None]], gen_len - 1
     stats = {"decode_steps": 0, "verify_calls": 0, "draft_tokens": 0,
              "accepted_draft_tokens": 0}

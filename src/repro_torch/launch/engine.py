@@ -39,8 +39,8 @@ every occupied slot, the dense head verifies them, and the ``m`` steps
 every active slot agrees on commit; the clock advances by ``m``, and the
 streams are the dense engine's.
 
-With ``paged=True`` the attention caches live in page arenas addressed
-through a host page table (``launch/paging.py``), a recurrent state (rwkv,
+With ``paged=True`` the attention and MLA caches live in page arenas
+addressed through a host page table (``launch/paging.py``), a recurrent state (rwkv,
 mamba) in one row a slot: identical prompts hit the prefix cache and skip
 their prefill (the entry's pages are mapped shared, its state rows and
 first logits restored), a shared page is copied before a decode write
@@ -55,7 +55,8 @@ arrival order and per decode step over every slot; megasteps and
 speculative ticks carry the key on the device and hand it back.
 
 Scheduling is the JAX package's ``launch/engine.py``; the model compute
-sits behind ``EngineBackend``.
+sits behind ``EngineBackend``.  As there, an arch with cross-attention
+layers (encoder states) is refused: a request carries no states.
 """
 
 from __future__ import annotations
@@ -154,10 +155,19 @@ class EngineBackend:
     """The model compute behind the engine, on ``device``: prefill into a
     fresh cache, slot insert / reset / row expansion into the pool in
     place, one decode step through ``head`` (or through ``head_params``
-    given per call), and a megastep of K of them."""
+    given per call), and a megastep of K of them.
+
+    Raises:
+      NotImplementedError: ``cfg`` has encoder states (``xattn`` layers),
+        which the engine's requests do not carry (as in the JAX package).
+    """
 
     def __init__(self, params, cfg: ModelConfig, *, head=None,
                  device="cuda"):
+        if cfg.n_encoder_tokens:
+            raise NotImplementedError(
+                "engine serving of encoder-conditioned archs needs "
+                "per-request encoder states; use launch.serve.generate")
         self.params = params
         self.cfg = cfg
         self.head = head or DenseHead()
@@ -316,7 +326,7 @@ class EngineBackend:
         prefix-cache entry keeps), or None for a model without rwkv or
         mamba layers."""
         rows = model_mod.extract_state_rows(self.cfg, filled, row)
-        if all(c is None for c in rows["periods"].values()):
+        if all(c is None for _, c in model_mod.cache_stacks(rows)):
             return None
         return rows
 
@@ -407,8 +417,8 @@ class ServeEngine:
             self.page_pool = PagePool(num_pages, n_slots, npp)
             self.prefix = PrefixCache(self.page_pool)
             self._geoms = backend.paged_geometries(max_seq)
-            self._has_state = any(c is not None
-                                  for c in self.state["periods"].values())
+            self._has_state = any(
+                c is not None for _, c in model_mod.cache_stacks(self.state))
         else:
             self.pool = backend.init_pool(n_slots, max_seq)
         self.head_cache = head_cache

@@ -16,7 +16,8 @@ caches in a page pool with a prefix cache (the same streams; repeated
 prompts skip their prefill; the banner prints prefix hits and
 copy-on-write copies).  ``--temperature`` (0: greedy), ``--top-k`` and
 ``--top-p`` sample on the key chain of ``--seed`` (which also seeds the
-random backbone and the prompts), the same stream at every
+random backbone, the prompts and, for an arch with cross-attention
+layers, its stub encoder states), the same stream at every
 ``--decode-chunk`` and ``--spec-decode``.  The
 head is loaded from a ``--head-path`` archive saved by either package, or,
 without one, distilled from the dense unembed in process (a short
@@ -28,7 +29,8 @@ bank each) through a ``HeadCache``, requests round-robin over tenants.
 
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       [--arch {rwkv6-1.6b,gemma2-27b,granite-8b,stablelm-12b,command-r-35b,
-               musicgen-large,mixtral-8x7b,jamba-v0.1-52b}] [--smoke] \\
+               musicgen-large,mixtral-8x7b,jamba-v0.1-52b,deepseek-v3-671b,
+               llama-3.2-vision-11b}] [--smoke] \\
       [--sketch-head [--head-path head.npz]] [--backend fused] \\
       [--quant int8] [--batch 4 --prompt-len 32 --gen 16] [--device cuda] \\
       [--decode-chunk 16 | --spec-decode 4] \
@@ -54,7 +56,7 @@ from repro_torch.launch.decode_loop import (decode_chunks, generate_loop,
                                             spec_decode_chunks)
 from repro_torch.launch.steps import prefill_step_, serve_step_
 from repro_torch.models.config import SketchHeadConfig
-from repro_torch.models.model import init_decode_cache
+from repro_torch.models.model import cache_leaves, init_decode_cache
 
 #: The head that ``--sketch-head`` distills for an arch without its own.
 QUICK_HEAD = SketchHeadConfig(n_rows=128, n_buckets=16, k=1, proj_dim=32,
@@ -65,7 +67,8 @@ def generate(params: dict, cfg, prompts: torch.Tensor, gen_len: int, *,
              head=None, sampler: Optional[Sampler] = None,
              eos_id: Optional[int] = None, pad_id: int = 0,
              decode_chunk: int = 1, spec_decode: int = 0,
-             return_stats: bool = False, loops: Optional[dict] = None):
+             return_stats: bool = False, loops: Optional[dict] = None,
+             encoder_states: Optional[torch.Tensor] = None):
     """Bulk prefill + decode. prompts (B, P) → tokens (B, P + gen_len).
 
     The first new token comes from the prefill's dense logits, each later
@@ -92,7 +95,9 @@ def generate(params: dict, cfg, prompts: torch.Tensor, gen_len: int, *,
 
     ``loops`` memoizes the loops of ``decode_chunk > 1`` and
     ``spec_decode``, which own the call's decode cache (see
-    ``decode_loop.memo_loop`` for the bound).
+    ``decode_loop.memo_loop`` for the bound).  ``encoder_states`` (B, T,
+    d) are what an arch's ``xattn`` layers attend to, in the prefill and
+    at every decode step.
 
     Raises:
       ValueError: ``decode_chunk < 1``, ``spec_decode < 0``, or both
@@ -116,16 +121,18 @@ def generate(params: dict, cfg, prompts: torch.Tensor, gen_len: int, *,
                                  template=template, device=prompts.device,
                                  masked=eos_id is not None, eos_id=eos_id,
                                  pad_id=pad_id, spec_k=spec_decode,
-                                 loops=loops)
+                                 loops=loops, encoder_states=encoder_states)
             cache = loop.cache
-            for leaf in (x for c in cache["periods"].values() for x in c):
+            for leaf in cache_leaves(cache):
                 leaf.zero_()
         else:
             cache = init_decode_cache(cfg, b, p + gen_len,
                                       device=prompts.device)
-        logits, cache = prefill_step_(params, prompts, cfg, cache)
+        logits, cache = prefill_step_(params, prompts, cfg, cache,
+                                      encoder_states=encoder_states)
         kw = dict(cfg=cfg, head=head, sampler=sampler, gen_len=gen_len,
-                  start_pos=p, eos_id=eos_id, pad_id=pad_id)
+                  start_pos=p, eos_id=eos_id, pad_id=pad_id,
+                  encoder_states=encoder_states)
         if spec_decode:
             tail, stats = spec_decode_chunks(params, cache, logits,
                                              spec_k=spec_decode, loops=loops,
@@ -141,7 +148,7 @@ def generate(params: dict, cfg, prompts: torch.Tensor, gen_len: int, *,
 
 
 def _decode_host_loop(params, cache, logits, *, cfg, head, sampler, gen_len,
-                      start_pos, eos_id, pad_id):
+                      start_pos, eos_id, pad_id, encoder_states):
     """The per-token decode loop (``decode_chunk=1``): returns ((B,
     gen_len) tokens, {"decode_steps"})."""
     b = logits.shape[0]
@@ -164,7 +171,7 @@ def _decode_host_loop(params, cache, logits, *, cfg, head, sampler, gen_len,
         logits, cache = serve_step_(
             params, cache, nxt[:, None], cfg, head=head,
             active=~finished if eos_id is not None else None,
-            pos=start_pos + t)
+            pos=start_pos + t, encoder_states=encoder_states)
         steps += 1
     return torch.cat(out, dim=1), {"decode_steps": steps}
 
@@ -342,9 +349,10 @@ def main(argv=None) -> None:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="rwkv6-1.6b",
-                    help="a ported architecture: rwkv6-1.6b, gemma2-27b, "
+                    help="an architecture: rwkv6-1.6b, gemma2-27b, "
                          "granite-8b, stablelm-12b, command-r-35b, "
-                         "musicgen-large, mixtral-8x7b or jamba-v0.1-52b")
+                         "musicgen-large, mixtral-8x7b, jamba-v0.1-52b, "
+                         "deepseek-v3-671b or llama-3.2-vision-11b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -458,12 +466,20 @@ def main(argv=None) -> None:
     prompts = torch.randint(0, lm.cfg.vocab_size,
                             (args.batch, args.prompt_len), generator=gen,
                             device=device)
+    enc = None
+    if lm.cfg.n_encoder_tokens:
+        # The vision frontend is a stub: random states stand in for its
+        # patch embeddings.
+        enc = torch.randn((args.batch, lm.cfg.n_encoder_tokens,
+                           lm.cfg.d_model), generator=gen,
+                          device=device).to(torch.bfloat16)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t0 = time.perf_counter()
     out, stats = lm.generate(prompts, args.gen, sampler=sampler,
                              decode_chunk=args.decode_chunk,
-                             spec_decode=args.spec_decode, return_stats=True)
+                             spec_decode=args.spec_decode, return_stats=True,
+                             encoder_states=enc)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dur = time.perf_counter() - t0

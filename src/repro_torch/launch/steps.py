@@ -3,7 +3,9 @@
 ``serve_step`` never writes into the cache it is given; its in-place twin
 ``serve_step_`` consumes the cache and writes the step into it (the decode
 loops of ``generate``, the engine and ``launch/decode_loop.py`` run it),
-and so does ``prefill_step_``, the prefill into a zeroed cache.
+and so does ``prefill_step_``, the prefill into a zeroed cache.  Each
+takes ``encoder_states`` (B, T, d), what an arch's ``xattn`` layers
+attend to.
 """
 
 from __future__ import annotations
@@ -20,25 +22,28 @@ from repro_torch.models.model import (backbone, decode_step, decode_step_,
 
 
 def prefill_step(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-                 cache: dict) -> Tuple[torch.Tensor, dict]:
+                 cache: dict, encoder_states: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, dict]:
     """The whole (B, P) prompt in one forward pass that fills the cache;
     returns the last position's logits (B, V) through the dense head and
     the filled cache.  Only the last position is unembedded (and
     softcapped): the (B, P, V) logits of the other positions are never
     made."""
-    x, new_cache = backbone(params, tokens, cfg, cache=cache, cache_pos=0)
+    x, new_cache = backbone(params, tokens, cfg, cache=cache, cache_pos=0,
+                            encoder_states=encoder_states)
     h = final_hidden(params, x, cfg)
     return dense_logits(params, h[:, -1], cfg), new_cache
 
 
 def prefill_step_(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-                  cache: dict) -> Tuple[torch.Tensor, dict]:
+                  cache: dict, encoder_states: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, dict]:
     """In-place twin of :func:`prefill_step`: ``cache`` must be zero (a
     fresh cache, or one zeroed in place); each layer's rows are written
     into it, and it is returned with the same logits.  No second cache is
     made: beside ``cache`` only one layer's new rows are live at a time."""
     x, cache = backbone(params, tokens, cfg, cache=cache, cache_pos=0,
-                        in_place=True)
+                        in_place=True, encoder_states=encoder_states)
     h = final_hidden(params, x, cfg)
     return dense_logits(params, h[:, -1], cfg), cache
 
@@ -46,7 +51,8 @@ def prefill_step_(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
 def serve_step(params: dict, cache: dict, tokens: torch.Tensor,
                cfg: ModelConfig, head=None,
                active: Optional[torch.Tensor] = None, *,
-               pos: Optional[torch.Tensor] = None, head_params=None
+               pos: Optional[torch.Tensor] = None, head_params=None,
+               encoder_states: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, dict]:
     """One decode step for the newest tokens (B, 1) → (logits (B, V), cache).
 
@@ -61,10 +67,12 @@ def serve_step(params: dict, cache: dict, tokens: torch.Tensor,
     """
     if head is None or not head.needs_hidden:
         logits, new_cache = decode_step(params, cache, tokens, cfg,
-                                        cache_pos=pos)
+                                        cache_pos=pos,
+                                        encoder_states=encoder_states)
     else:
         hidden, new_cache = decode_step(params, cache, tokens, cfg,
-                                        cache_pos=pos, return_hidden=True)
+                                        cache_pos=pos, return_hidden=True,
+                                        encoder_states=encoder_states)
         logits = head.apply(head.params if head_params is None
                             else head_params, hidden)
         if cfg.final_logit_softcap:
@@ -77,7 +85,8 @@ def serve_step(params: dict, cache: dict, tokens: torch.Tensor,
 def serve_step_(params: dict, cache: dict, tokens: torch.Tensor,
                 cfg: ModelConfig, head=None,
                 active: Optional[torch.Tensor] = None, *, pos=None,
-                head_params=None, return_hidden: bool = False):
+                head_params=None, return_hidden: bool = False,
+                encoder_states: Optional[torch.Tensor] = None):
     """In-place twin of :func:`serve_step`: ``cache`` is consumed, the step
     written into it (inactive rows unchanged), and returned with the
     (B, V) logits, which equal ``serve_step``'s bit for bit.  ``pos`` may
@@ -89,10 +98,12 @@ def serve_step_(params: dict, cache: dict, tokens: torch.Tensor,
     for bit the unembed it runs otherwise."""
     if (head is None or not head.needs_hidden) and not return_hidden:
         logits, cache = decode_step_(params, cache, tokens, cfg,
-                                     cache_pos=pos, active=active)
+                                     cache_pos=pos, active=active,
+                                     encoder_states=encoder_states)
         return logits, cache
     hidden, cache = decode_step_(params, cache, tokens, cfg, cache_pos=pos,
-                                 return_hidden=True, active=active)
+                                 return_hidden=True, active=active,
+                                 encoder_states=encoder_states)
     if head is None or not head.needs_hidden:
         logits = dense_verify_logits(params, hidden, cfg)
     else:

@@ -1,7 +1,7 @@
-"""Causal self-attention: GQA, sliding window, softcap, RoPE, KV cache.
+"""Causal self-attention (GQA, sliding window, softcap, RoPE, KV cache) and
+cross-attention to encoder states.
 
-The JAX package's ``models/attention.py`` without cross-attention.  Two
-regimes:
+The JAX package's ``models/attention.py``.  Two self-attention regimes:
 
 * **Bulk prefill into a fresh cache, and the cacheless forward**: the
   attention of the whole prompt is causal attention over its own q, k, v
@@ -22,13 +22,19 @@ its in-place twin ``attention_`` (one decode token, per-slot positions on
 the device) writes the new keys and values into the cache it is given,
 which is what a captured decode step needs (``launch/decode_loop.py``).
 
+Cross-attention (``kv_source=``, the ``xattn`` layers): the keys and
+values are the encoder states' projections, with no RoPE, no mask and no
+cache; a non-causal softmax over every encoder position in f32 plain
+PyTorch, as the JAX package computes it (``flash_attn`` is causal).
+
 The paged variants (``init_paged_cache``, ``paged_view``, ``paged_commit``,
 ``paged_insert``) keep the keys and values of every slot in one
 ``(num_pages, page_size, n_kv, head_dim)`` arena per layer, addressed
 through a host page table (``launch/paging.py``); page 0 is the reserved
 zero page, so a view gathered through unmapped entries equals a fresh
 cache row.  The arenas stack the periods on a leading axis, as the decode
-caches do.
+caches do.  The view, commit and insert move each leaf of the cache tuple
+alike, so they serve MLA's latent arenas (``models/mla.py``) too.
 """
 
 from __future__ import annotations
@@ -84,11 +90,12 @@ def init_paged_cache(num_pages: int, page_size: int, cfg: AttentionConfig,
 
 def paged_view(cache: KVCache, pt: torch.Tensor, size: int) -> KVCache:
     """Per-slot contiguous rows gathered from period-stacked arenas
-    (P, num_pages, ps, n_kv, dh) through the (B, npp_max) page table:
-    (P, B, size, n_kv, dh), fresh tensors.  This layer reads the first
-    ``ceil(size / ps)`` entries; unmapped (0) entries read the zero page,
-    so the view equals a contiguous pool row at the same depth."""
-    ps = cache.k.shape[2]
+    (P, num_pages, ps, ...) through the (B, npp_max) page table:
+    (P, B, size, ...), fresh tensors, for each leaf of the cache tuple.
+    This layer reads the first ``ceil(size / ps)`` entries; unmapped (0)
+    entries read the zero page, so the view equals a contiguous pool row
+    at the same depth."""
+    ps = cache[0].shape[2]
     npp = -(-size // ps)
     idx = pt[:, :npp].long()
 
@@ -98,7 +105,7 @@ def paged_view(cache: KVCache, pt: torch.Tensor, size: int) -> KVCache:
                       *pages.shape[3:])
         return v[:, :, :size].contiguous()
 
-    return KVCache(gather(cache.k), gather(cache.v))
+    return type(cache)(*(gather(pages) for pages in cache))
 
 
 def paged_commit(cache: KVCache, view: KVCache, pt: torch.Tensor,
@@ -108,27 +115,27 @@ def paged_commit(cache: KVCache, view: KVCache, pt: torch.Tensor,
     (``pos % size`` on a ring, else ``pos`` clamped to the last slot, as
     ``attention_`` writes).  An unmapped slot (a free one: the masked step
     restored its row) writes the gathered zeros onto the zero page."""
-    ps = cache.k.shape[2]
+    ps = cache[0].shape[2]
     bi = torch.arange(pt.shape[0], device=wpos.device)
     phys = pt.long()[bi, wpos // ps]
     off = wpos % ps
-    for pages, rows in ((cache.k, view.k), (cache.v, view.v)):
+    for pages, rows in zip(cache, view):
         pages[:, phys, off] = rows[:, bi, wpos].to(pages.dtype)
     return cache
 
 
 def paged_insert(cache: KVCache, src: KVCache,
                  pt_rows: torch.Tensor) -> KVCache:
-    """Scatter freshly prefilled rows (P, G, size, n_kv, dh) into their
+    """Scatter freshly prefilled rows (P, G, size, ...) into their
     newly mapped pages, in place (``pt_rows``: the requests' (G, npp_max)
     page-table rows).  Positions past the prompt are still zero after the
     prefill, so unmapped trailing entries write zeros onto the zero
     page."""
-    ps = cache.k.shape[2]
-    size = src.k.shape[2]
+    ps = cache[0].shape[2]
+    size = src[0].shape[2]
     npp = -(-size // ps)
     idx = pt_rows[:, :npp].long()
-    for pages, rows in ((cache.k, src.k), (cache.v, src.v)):
+    for pages, rows in zip(cache, src):
         pad = npp * ps - size
         if pad:
             rows = torch.cat([rows, rows.new_zeros(
@@ -218,18 +225,43 @@ def _ring_positions(size: int, cache_pos, device) -> torch.Tensor:
     return torch.where(k_pos >= 0, k_pos, _INT32_MAX)
 
 
+def cross_attention(params: dict, x: torch.Tensor, kv_source: torch.Tensor,
+                    cfg: AttentionConfig) -> torch.Tensor:
+    """x (B, S, d) attending to every state of ``kv_source`` (B, T, d):
+    grouped heads, no RoPE, no mask, the softmax and both products in
+    f32, the output cast to x's dtype before the output projection."""
+    b, s, _ = x.shape
+    t = kv_source.shape[1]
+    groups = cfg.n_heads // cfg.n_kv_heads
+    q = (x @ params["wq"]).reshape(b, s, cfg.n_kv_heads, groups, cfg.head_dim)
+    k = (kv_source @ params["wk"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
+    v = (kv_source @ params["wv"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
+    scores = torch.einsum("bqkgd,bskd->bkgqs",
+                          q.to(torch.float32) * cfg.head_dim ** -0.5,
+                          k.to(torch.float32))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.to(torch.float32))
+    out = out.reshape(b, s, cfg.n_heads * cfg.head_dim).to(x.dtype)
+    return out @ params["wo"]
+
+
 def attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
-              cfg: AttentionConfig, *, cache: Optional[KVCache] = None,
+              cfg: AttentionConfig, *, kv_source: Optional[torch.Tensor] = None,
+              cache: Optional[KVCache] = None,
               cache_pos=None) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """The attention block on x (B, S, d): returns (output, updated cache).
 
     Args:
       positions: (S,) or, with a per-slot ``cache_pos``, (B, S) absolute
         token positions (RoPE and the masks).
+      kv_source: encoder states (B, T, d) to cross-attend to
+        (:func:`cross_attention`: no positions, no cache; None returned).
       cache: this layer's ``KVCache`` or None (cacheless forward).
       cache_pos: tokens already cached: an int (or 0-d tensor), or a (B,)
         tensor for per-slot decode (one token per slot).
     """
+    if kv_source is not None:
+        return cross_attention(params, x, kv_source, cfg), None
     b, s, _ = x.shape
     q = (x @ params["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
     k = (x @ params["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)

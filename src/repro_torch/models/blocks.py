@@ -1,18 +1,19 @@
-"""Per-layer block: init, decode cache and forward of the ported kinds.
+"""Per-layer block: init, decode cache and forward of every block kind.
 
 A layer is a mixer followed by an FFN, pre-norm residual style: rwkv's
-time-mix and channel-mix (its own FFN), or the Mamba-1 mixer or causal
+time-mix and channel-mix (its own FFN), or the Mamba-1 mixer, causal
 self-attention (``attn``, ``attn_local`` with the config's window,
-``attn_global`` without one) followed by its FFN: a dense SwiGLU, or the
-MoE FFN where ``cfg.ffn_kind`` of the layer's pattern position says
-``"moe"`` (the aux loss is dropped: serving has no use for it).
-``apply_layer`` returns a new cache; its decode twin ``apply_layer_``
-writes into the one it is given.
+``attn_global`` without one), Multi-head Latent Attention (``mla``) or
+cross-attention to the encoder states (``xattn``: no window, no RoPE, no
+cache) followed by its FFN: a dense SwiGLU, or the MoE FFN where the
+caller's ``ffn`` says ``"moe"`` (the aux loss is dropped: serving has no
+use for it).  ``apply_layer`` returns a new cache; its decode twin
+``apply_layer_`` writes into the one it is given.
 
-Paged dispatch: the attention kinds keep their caches in page arenas
-(``paged_*``), the recurrent kinds' (rwkv, mamba) constant-size state
-stays one row a slot in a state tree; a layer belongs to exactly one of
-the two."""
+Paged dispatch: the kinds whose cache has a sequence axis (self-attention,
+MLA) keep it in page arenas (``paged_*``), the recurrent kinds' (rwkv,
+mamba) constant-size state stays one row a slot in a state tree, and
+``xattn`` has neither; a layer belongs to at most one of the two."""
 
 from __future__ import annotations
 
@@ -23,12 +24,16 @@ import torch
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mamba as mamba_mod
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.config import PORTED_KINDS, AttentionConfig, ModelConfig
 from repro_torch.models.layers import init_dense, rms_norm, swiglu
 from repro_torch.models.moe import init_moe, moe_ffn
 
+#: The causal self-attention kinds (each runs ``flash_attn`` in a prefill).
 ATTN_KINDS = ("attn", "attn_local", "attn_global")
+#: The kinds whose cache has a sequence axis (decode needs ``cache_pos``).
+SEQ_KINDS = ATTN_KINDS + ("mla",)
 #: The kinds whose cache is a constant-size recurrent state, one row a slot.
 RECURRENT_KINDS = ("rwkv", "mamba")
 
@@ -40,10 +45,13 @@ def _check_kind(kind: str) -> None:
 
 
 def _attn_cfg(cfg: ModelConfig, kind: str) -> AttentionConfig:
-    """The layer's attention config: a global layer drops the window."""
+    """The layer's attention config: a global layer drops the window, a
+    cross-attention layer the window and RoPE."""
     a = cfg.attention
     if kind == "attn_global":
         return dataclasses.replace(a, window=None)
+    if kind == "xattn":
+        return dataclasses.replace(a, window=None, use_rope=False)
     if kind == "attn_local" and a.window is None:
         raise ValueError("attn_local requires attention.window")
     return a
@@ -52,8 +60,8 @@ def _attn_cfg(cfg: ModelConfig, kind: str) -> AttentionConfig:
 def init_layer(generator: torch.Generator, cfg: ModelConfig, kind: str,
                lead: tuple = (), ffn: str = "dense") -> dict:
     """Params of one layer (``lead`` stacks layers on leading axes);
-    ``ffn`` ("dense" or "moe", ``cfg.ffn_kind`` of its pattern position)
-    picks the FFN after a mamba or attention mixer."""
+    ``ffn`` ("dense" or "moe", ``cfg.ffn_kind`` of the layer) picks the
+    FFN after a mamba, attention or MLA mixer."""
     _check_kind(kind)
     d = cfg.d_model
     zeros = lambda: torch.zeros((*lead, d), dtype=torch.float32,
@@ -64,6 +72,8 @@ def init_layer(generator: torch.Generator, cfg: ModelConfig, kind: str,
                                             lead=lead)}
     if kind == "mamba":
         mixer = mamba_mod.init_mamba(generator, d, cfg.mamba, lead=lead)
+    elif kind == "mla":
+        mixer = mla_mod.init_mla(generator, d, cfg.mla, lead=lead)
     else:
         mixer = attn_mod.init_attention(generator, d, _attn_cfg(cfg, kind),
                                         lead=lead)
@@ -79,9 +89,15 @@ def init_layer(generator: torch.Generator, cfg: ModelConfig, kind: str,
 def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, max_seq: int,
                      lead: tuple = (), device="cuda"):
     """Zero decode cache of one layer: rwkv's or mamba's recurrent state,
-    or a ``KVCache`` of ``max_seq`` (a ring of ``min(max_seq, window)`` on
-    a windowed layer)."""
+    an ``MLACache`` or a ``KVCache`` of ``max_seq`` (a ring of
+    ``min(max_seq, window)`` on a windowed layer); None for ``xattn``,
+    whose keys and values come from the encoder states at every step."""
     _check_kind(kind)
+    if kind == "xattn":
+        return None
+    if kind == "mla":
+        return mla_mod.init_mla_cache(batch, max_seq, cfg.mla, lead=lead,
+                                      device=device)
     if kind == "rwkv":
         return rwkv_mod.init_rwkv_cache(batch, cfg.d_model, lead=lead,
                                         device=device)
@@ -97,11 +113,12 @@ def cache_needs_snapshot(cfg: ModelConfig, kind: str, cache) -> bool:
     layer's, (B, S, ...)) at each draft step: a recurrent state (rwkv,
     mamba) has no position to rewind, and a rolling SWA ring
     (``window <= size``) loses the previous lap's entry, still inside the
-    window, to each draft write.  A plain KV cache rewinds by position alone: draft writes past
-    the rewound position are masked and overwritten before they are read.
+    window, to each draft write.  A plain KV cache and an MLA latent cache
+    rewind by position alone: draft writes past the rewound position are
+    masked and overwritten before they are read.
     """
     _check_kind(kind)
-    if cache is None:
+    if cache is None or kind == "mla":
         return False
     if kind in RECURRENT_KINDS:
         return True
@@ -112,10 +129,13 @@ def cache_needs_snapshot(cfg: ModelConfig, kind: str, cache) -> bool:
 def paged_geometry(cfg: ModelConfig, kind: str, max_seq: int):
     """``(size, ring)`` of one layer's paged cache (the per-slot length and
     whether decode writes roll, ``pos % size``), or None for the
-    recurrent kinds, whose state is not paged."""
+    recurrent kinds, whose state is not paged, and ``xattn``, which has
+    no cache."""
     _check_kind(kind)
-    if kind in RECURRENT_KINDS:
+    if kind not in SEQ_KINDS:
         return None
+    if kind == "mla":
+        return max_seq, False
     a = _attn_cfg(cfg, kind)
     size = min(max_seq, a.window) if a.window else max_seq
     return size, bool(a.window) and a.window <= size
@@ -123,9 +143,12 @@ def paged_geometry(cfg: ModelConfig, kind: str, max_seq: int):
 
 def init_paged_layer_cache(cfg: ModelConfig, kind: str, num_pages: int,
                            page_size: int, lead: tuple = (), device="cuda"):
-    """Zero page arenas of one layer (None for the recurrent kinds)."""
+    """Zero page arenas of one layer (None for the unpaged kinds)."""
     if paged_geometry(cfg, kind, 1) is None:
         return None
+    if kind == "mla":
+        return mla_mod.init_paged_cache(num_pages, page_size, cfg.mla,
+                                        lead=lead, device=device)
     return attn_mod.init_paged_cache(num_pages, page_size,
                                      _attn_cfg(cfg, kind), lead=lead,
                                      device=device)
@@ -196,13 +219,16 @@ def _ffn(params: dict, h: torch.Tensor, cfg: ModelConfig,
 
 def apply_layer(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
                 *, positions: Optional[torch.Tensor] = None, cache=None,
-                cache_pos=None, ffn: str = "dense"
+                cache_pos=None, ffn: str = "dense",
+                encoder_states: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, object]:
     """One layer on the residual stream x (B, S, d). Returns (x, new cache).
 
     ``positions`` ((S,) or (B, S); ``arange(S)`` when omitted) and
     ``cache_pos`` (see ``attention.attention``) are read by the attention
-    kinds only; ``ffn`` is the layer's ``cfg.ffn_kind``."""
+    and MLA kinds only; ``ffn`` is the layer's ``cfg.ffn_kind``.  An
+    ``xattn`` layer attends to ``encoder_states`` (B, T, d); without them
+    it is cacheless causal self-attention, as in the JAX package."""
     _check_kind(kind)
     eps = cfg.norm_eps
     h = rms_norm(x, params["norm1"], eps)
@@ -222,12 +248,20 @@ def apply_layer(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
                 tm_last.to(cache.tm_prev.dtype), cm_last.to(cache.cm_prev.dtype),
                 new_state.to(cache.state.dtype))
         return x + delta2, new_cache
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)
     if kind == "mamba":
         delta, new_cache = mamba_mod.mamba_block(params["mixer"], h,
                                                  cfg.mamba, cache=cache)
+    elif kind == "mla":
+        delta, new_cache = mla_mod.mla_attention(
+            params["mixer"], h, positions, cfg.mla, cache=cache,
+            cache_pos=cache_pos)
+    elif kind == "xattn":
+        delta, new_cache = attn_mod.attention(
+            params["mixer"], h, positions, _attn_cfg(cfg, kind),
+            kv_source=encoder_states)
     else:
-        if positions is None:
-            positions = torch.arange(x.shape[1], device=x.device)
         delta, new_cache = attn_mod.attention(
             params["mixer"], h, positions, _attn_cfg(cfg, kind), cache=cache,
             cache_pos=cache_pos)
@@ -251,12 +285,15 @@ def apply_layer_(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
                  *, positions: Optional[torch.Tensor], cache,
                  cache_pos: Optional[torch.Tensor],
                  active: Optional[torch.Tensor] = None,
-                 ffn: str = "dense") -> torch.Tensor:
+                 ffn: str = "dense",
+                 encoder_states: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
     """The in-place decode twin of :func:`apply_layer`: one token a row, the
     layer's new cache written into ``cache`` (where ``active``, when
     given), the residual stream returned.  ``positions`` (B, 1) and
-    ``cache_pos`` (B,) are device tensors (the attention kinds read them).
-    The result and the written cache equal ``apply_layer``'s followed by
+    ``cache_pos`` (B,) are device tensors (the attention and MLA kinds read
+    them); an ``xattn`` layer reads ``encoder_states``.  The result and the
+    written cache equal ``apply_layer``'s followed by
     ``mask_cache_update``, bit for bit."""
     _check_kind(kind)
     eps = cfg.norm_eps
@@ -277,6 +314,13 @@ def apply_layer_(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
                                            cache=cache)
         _commit_(cache.conv, new.conv, active)
         _commit_(cache.ssm, new.ssm, active)
+    elif kind == "mla":
+        delta = mla_mod.mla_attention_(params["mixer"], h, positions, cfg.mla,
+                                       cache, cache_pos, active)
+    elif kind == "xattn":       # no cache: the functional form writes nothing
+        delta, _ = attn_mod.attention(params["mixer"], h, positions,
+                                      _attn_cfg(cfg, kind),
+                                      kv_source=encoder_states)
     else:
         delta = attn_mod.attention_(params["mixer"], h, positions,
                                     _attn_cfg(cfg, kind), cache, cache_pos,

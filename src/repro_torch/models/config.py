@@ -1,6 +1,5 @@
-"""Model, attention, MoE, Mamba and sketch-head configuration, limited to
-the ported block kinds (``rwkv``, ``mamba``, ``attn``, ``attn_local``,
-``attn_global``).
+"""Model, attention, MLA, MoE, Mamba and sketch-head configuration, and
+the analytic parameter count.
 
 Own copy of the JAX package's ``models/config.py`` dataclasses: the fields,
 names and defaults are the same, so a ``SketchHeadConfig`` round-trips
@@ -14,9 +13,12 @@ from typing import Optional, Tuple
 
 
 #: The block kinds the port runs: rwkv's time-mix + channel-mix, and the
-#: Mamba-1 mixer or causal self-attention (GQA, optional window and
-#: softcap), each followed by a dense SwiGLU or an MoE FFN.
-PORTED_KINDS = ("rwkv", "mamba", "attn", "attn_local", "attn_global")
+#: Mamba-1 mixer, causal self-attention (GQA, optional window and
+#: softcap), Multi-head Latent Attention or cross-attention to encoder
+#: states, each followed by a dense SwiGLU or an MoE FFN.  Every kind of
+#: the JAX package's registry.
+PORTED_KINDS = ("rwkv", "mamba", "attn", "attn_local", "attn_global", "mla",
+                "xattn")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,6 +30,21 @@ class AttentionConfig:
     logit_softcap: Optional[float] = None  # gemma2-style attn-score softcap
     rope_theta: float = 10000.0
     use_rope: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-style Multi-head Latent Attention dims."""
+    n_heads: int
+    q_lora_rank: int
+    kv_lora_rank: int
+    qk_nope_head_dim: int
+    qk_rope_head_dim: int
+    v_head_dim: int
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,11 +79,14 @@ class SketchHeadConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """A decoder backbone: ``pattern`` repeated ``n_periods`` times.
+    """A decoder backbone: ``n_dense_prologue`` layers of kind
+    ``pattern[0]`` with a dense FFN, then ``pattern`` repeated
+    ``n_periods`` times.
 
-    Only the :data:`PORTED_KINDS` are ported; rwkv's channel-mix is its
-    FFN, the other kinds are followed by a dense SwiGLU FFN or, on the
-    layers :meth:`ffn_kind` names, the MoE FFN of ``moe``.
+    rwkv's channel-mix is its FFN; the other kinds are followed by a dense
+    SwiGLU FFN or, on the layers :meth:`ffn_kind` names, the MoE FFN of
+    ``moe``.  ``n_encoder_tokens`` is the number of (stub) encoder states a
+    sample brings for its ``xattn`` layers.
     """
     name: str
     n_layers: int
@@ -75,19 +95,23 @@ class ModelConfig:
     vocab_size: int
     pattern: Tuple[str, ...]
     attention: Optional[AttentionConfig] = None
+    mla: Optional[MLAConfig] = None
     moe: Optional[MoEConfig] = None
     mamba: Optional[MambaConfig] = None
     moe_every: int = 0          # every k-th layer has the MoE FFN (0: none)
     final_logit_softcap: Optional[float] = None
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
+    n_encoder_tokens: int = 0   # encoder states a sample brings (xattn)
     sketch_head: Optional[SketchHeadConfig] = None
     subquadratic: bool = False
+    n_dense_prologue: int = 0   # leading layers of kind pattern[0], dense FFN
 
     def __post_init__(self):
-        if self.n_layers % len(self.pattern):
-            raise ValueError(f"{self.name}: n_layers={self.n_layers} not "
-                             f"divisible by pattern length {len(self.pattern)}")
+        if (self.n_layers - self.n_dense_prologue) % len(self.pattern):
+            raise ValueError(f"{self.name}: n_layers={self.n_layers} minus "
+                             f"prologue {self.n_dense_prologue} not divisible "
+                             f"by pattern length {len(self.pattern)}")
         unported = set(self.pattern) - set(PORTED_KINDS)
         if unported:
             raise ValueError(f"{self.name}: block kinds {sorted(unported)} "
@@ -95,10 +119,20 @@ class ModelConfig:
 
     @property
     def n_periods(self) -> int:
-        return self.n_layers // len(self.pattern)
+        return (self.n_layers - self.n_dense_prologue) // len(self.pattern)
+
+    def layer_kind(self, layer_idx: int) -> str:
+        """The block kind of layer ``layer_idx`` (prologue layers first)."""
+        if layer_idx < self.n_dense_prologue:
+            return self.pattern[0]
+        return self.pattern[(layer_idx - self.n_dense_prologue)
+                            % len(self.pattern)]
 
     def ffn_kind(self, layer_idx: int) -> str:
-        """'moe' or 'dense' for the FFN following block ``layer_idx``."""
+        """'moe' or 'dense' for the FFN following block ``layer_idx``
+        (a prologue layer's is dense)."""
+        if layer_idx < self.n_dense_prologue:
+            return "dense"
         if self.moe is None or self.moe_every == 0:
             return "dense"
         if self.moe_every == 1:
@@ -109,3 +143,49 @@ class ModelConfig:
     def scaled(self, **overrides) -> "ModelConfig":
         """A reduced copy for smoke tests."""
         return dataclasses.replace(self, **overrides)
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """Analytic parameter count (embedding, blocks, head), as the JAX
+    package counts it."""
+    d = cfg.d_model
+    total = cfg.vocab_size * d                      # embedding
+    if not cfg.tie_embeddings:
+        total += cfg.vocab_size * d                 # head
+    for j in range(cfg.n_layers):
+        kind = cfg.layer_kind(j)
+        if kind in ("attn", "attn_local", "attn_global", "xattn"):
+            a = cfg.attention
+            total += d * a.n_heads * a.head_dim                 # q
+            total += 2 * d * a.n_kv_heads * a.head_dim          # k, v
+            total += a.n_heads * a.head_dim * d                 # o
+        elif kind == "mla":
+            m = cfg.mla
+            total += d * m.q_lora_rank + m.q_lora_rank * m.n_heads * m.qk_head_dim
+            total += d * (m.kv_lora_rank + m.qk_rope_head_dim)
+            total += m.kv_lora_rank * m.n_heads * (m.qk_nope_head_dim
+                                                   + m.v_head_dim)
+            total += m.n_heads * m.v_head_dim * d
+        elif kind == "mamba":
+            mb = cfg.mamba
+            d_in = mb.expand * d
+            dt_rank = mb.dt_rank or -(-d // 16)
+            total += d * 2 * d_in                       # in_proj
+            total += d_in * mb.d_conv                   # conv
+            total += d_in * (dt_rank + 2 * mb.d_state)  # x_proj
+            total += dt_rank * d_in + d_in              # dt_proj
+            total += 2 * d_in * mb.d_state              # A (log) and D terms
+            total += d_in * d                           # out_proj
+        elif kind == "rwkv":
+            total += 5 * d * d + 2 * 64 * d + 12 * d    # time-mix
+            total += 2 * d * cfg.d_ff + d * d           # channel-mix
+        if kind != "rwkv":           # rwkv's channel-mix is its FFN
+            if cfg.ffn_kind(j) == "moe":
+                mo = cfg.moe
+                total += d * mo.n_experts               # router
+                total += ((mo.n_experts + mo.n_shared_experts) * 3 * d
+                          * mo.d_ff_expert)
+            else:
+                total += 3 * d * cfg.d_ff               # SwiGLU
+        total += 2 * d                                  # norms
+    return total + d                                    # final norm

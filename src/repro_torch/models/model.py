@@ -1,13 +1,20 @@
 """Decoder backbone: embedding → the layer stack → final norm → head.
 
 Parameters keep the JAX package's tree: ``embed``, ``head``,
-``final_norm``, and ``periods/pos<j>`` holding each pattern position's
-layer params stacked over the ``n_periods`` periods.  The JAX package's
-``lax.scan`` over periods is a loop over that stacking axis here, each
-period running its pattern positions in order (layer ``i·|pattern| + j``
-is period i's position j); decode caches are stacked the same way, one
-NamedTuple (``RWKVCache``, ``MambaCache`` or ``KVCache``) of
-(n_periods, B, …) leaves per pattern position.
+``final_norm``, ``prologue`` (a list of the ``n_dense_prologue`` leading
+layers' params, of kind ``pattern[0]`` with a dense FFN; absent without
+them) and ``periods/pos<j>`` holding each pattern position's layer params
+stacked over the ``n_periods`` periods.  The prologue runs first, then the
+JAX package's ``lax.scan`` over periods is a loop over that stacking axis
+here, each period running its pattern positions in order (layer
+``n_dense_prologue + i·|pattern| + j`` is period i's position j).  Decode
+caches are stacked the same way, one NamedTuple (``RWKVCache``,
+``MambaCache``, ``KVCache`` or ``MLACache``) of (n_periods, B, …) leaves
+per pattern position, or None for a cacheless ``xattn`` position; a
+prologue layer's cache is a stack of one, (1, B, …) leaves, so every
+walk over a cache tree (:func:`cache_stacks`, :func:`map_cache`,
+:func:`cache_leaves`) treats the prologue layers and the periods alike.
+``encoder_states`` (B, T, d) reach every ``xattn`` layer.
 
 The functions without a trailing ``_`` mirror the JAX package's pure
 functions and never write into a cache they are given.  Their in-place
@@ -48,24 +55,85 @@ def init_model(cfg: ModelConfig, generator: torch.Generator) -> dict:
     if not cfg.tie_embeddings:
         params["head"] = init_dense(generator, (cfg.vocab_size, cfg.d_model),
                                     scale=0.02)
+    if cfg.n_dense_prologue:
+        params["prologue"] = [
+            blocks.init_layer(generator, cfg, cfg.pattern[0], ffn="dense")
+            for _ in range(cfg.n_dense_prologue)]
     params["periods"] = {
         f"pos{j}": blocks.init_layer(generator, cfg, kind,
                                      lead=(cfg.n_periods,),
-                                     ffn=cfg.ffn_kind(j))
+                                     ffn=period_ffn(cfg, j))
         for j, kind in enumerate(cfg.pattern)}
     return params
 
 
+def period_ffn(cfg: ModelConfig, j: int) -> str:
+    """The FFN kind of pattern position ``j`` (the same in every period)."""
+    return cfg.ffn_kind(cfg.n_dense_prologue + j)
+
+
+def _cache_tree(cfg: ModelConfig, make) -> dict:
+    """A cache-shaped tree of ``make(kind, lead)``: a stack of one per
+    prologue layer, then one stack per pattern position."""
+    tree = {"periods": {f"pos{j}": make(kind, (cfg.n_periods,))
+                        for j, kind in enumerate(cfg.pattern)}}
+    if cfg.n_dense_prologue:
+        tree["prologue"] = [make(cfg.pattern[0], (1,))
+                            for _ in range(cfg.n_dense_prologue)]
+    return tree
+
+
 def init_decode_cache(cfg: ModelConfig, batch: int, max_seq: int,
                       device="cuda") -> dict:
-    """Zero decode cache, stacked over periods: rwkv or mamba state, or KV caches of
+    """Zero decode cache, stacked over periods (the prologue's layers as
+    stacks of one): rwkv or mamba state, or KV and MLA caches of
     ``max_seq`` positions (rings of ``min(max_seq, window)`` on windowed
-    layers)."""
-    return {"periods": {
-        f"pos{j}": blocks.init_layer_cache(cfg, kind, batch, max_seq,
-                                           lead=(cfg.n_periods,),
-                                           device=device)
-        for j, kind in enumerate(cfg.pattern)}}
+    layers); None at ``xattn`` positions."""
+    return _cache_tree(cfg, lambda kind, lead: blocks.init_layer_cache(
+        cfg, kind, batch, max_seq, lead=lead, device=device))
+
+
+def cache_stacks(tree: dict):
+    """``(key, stack)`` of every layer stack of a cache tree, the
+    prologue's first; ``key`` is ("prologue", i) or ("periods", "pos<j>")
+    and ``tree[key[0]][key[1]]`` is the stack (None where cacheless)."""
+    for i, c in enumerate(tree.get("prologue", ())):
+        yield ("prologue", i), c
+    for name, c in tree["periods"].items():
+        yield ("periods", name), c
+
+
+def stack_kind(cfg: ModelConfig, key) -> str:
+    """The block kind of the layers of stack ``key``."""
+    return cfg.pattern[0 if key[0] == "prologue" else int(key[1][3:])]
+
+
+def _rebuild(tree: dict, fn) -> dict:
+    """A tree of ``tree``'s structure holding ``fn(key, stack)``."""
+    out = {"periods": {name: fn(("periods", name), c)
+                       for name, c in tree["periods"].items()}}
+    if "prologue" in tree:
+        out["prologue"] = [fn(("prologue", i), c)
+                           for i, c in enumerate(tree["prologue"])]
+    return out
+
+
+def map_cache(fn, *caches) -> dict:
+    """``fn`` over the stacked (n, B, …) leaves of one or more cache trees
+    of one structure, leaf by leaf (None stacks stay None)."""
+    def stack(key, c0):
+        if c0 is None:
+            return None
+        return type(c0)(*(fn(*leaves) for leaves in zip(
+            *(c[key[0]][key[1]] for c in caches))))
+    return _rebuild(caches[0], stack)
+
+
+def cache_leaves(tree: dict):
+    """Every leaf of a cache tree, stack by stack (None stacks skipped)."""
+    for _, c in cache_stacks(tree):
+        if c is not None:
+            yield from c
 
 
 def _index(tree, i: int):
@@ -77,15 +145,6 @@ def _index(tree, i: int):
     return tree[i]
 
 
-def _map_caches(fn, *caches) -> dict:
-    """``fn`` over the (n_periods, B, …) leaves of one or more decode
-    caches, leaf by leaf (any cache NamedTuple)."""
-    return {"periods": {
-        name: type(c0)(*(fn(*leaves) for leaves in zip(
-            *(c["periods"][name] for c in caches))))
-        for name, c0 in caches[0]["periods"].items()}}
-
-
 def mask_cache_update(cache: dict, new_cache: dict,
                       active: torch.Tensor) -> dict:
     """``new_cache`` where ``active`` (B,) else ``cache`` — parked rows stay
@@ -93,29 +152,23 @@ def mask_cache_update(cache: dict, new_cache: dict,
     def pick(old, new):
         mask = active.reshape(1, -1, *([1] * (new.dim() - 2)))
         return torch.where(mask, new, old)
-    return _map_caches(pick, cache, new_cache)
-
-
-def _each_leaf(cache: dict):
-    for c in cache["periods"].values():
-        if c is not None:
-            yield from c
+    return map_cache(pick, cache, new_cache)
 
 
 def _leaf_pairs(dst: dict, src: dict):
-    """(dst leaf, src leaf) pairs by layer name, over the layers ``dst``
-    holds: a paged engine's state tree holds only its recurrent layers, while a
+    """(dst leaf, src leaf) pairs by stack, over the stacks ``dst`` holds:
+    a paged engine's state tree holds only its recurrent layers, while a
     prefilled ``src`` holds every layer."""
-    for name, c in dst["periods"].items():
+    for (sec, key), c in cache_stacks(dst):
         if c is not None:
-            yield from zip(c, src["periods"][name])
+            yield from zip(c, src[sec][key])
 
 
 def mask_cache_update_(cache: dict, new_cache: dict,
                        active: torch.Tensor) -> dict:
     """In-place twin of :func:`mask_cache_update`: ``new_cache``'s rows
     where ``active`` written into ``cache``, which is returned."""
-    for old, new in zip(_each_leaf(cache), _each_leaf(new_cache)):
+    for old, new in zip(cache_leaves(cache), cache_leaves(new_cache)):
         mask = active.reshape(1, -1, *([1] * (new.dim() - 2)))
         old.copy_(torch.where(mask, new, old))
     return cache
@@ -137,7 +190,7 @@ def cache_slot_insert(cfg: ModelConfig, pool: dict, src: dict,
     def insert(old, new):
         idx = _slot_index(slots, old.device)
         return old.index_copy(1, idx, new.to(old.dtype))
-    return _map_caches(insert, pool, src)
+    return map_cache(insert, pool, src)
 
 
 def cache_slot_insert_(cfg: ModelConfig, pool: dict, src: dict,
@@ -155,7 +208,7 @@ def cache_expand_rows(cfg: ModelConfig, cache: dict, inv) -> dict:
     admission dedupe prefills each distinct prompt once and expands the
     rows back to one per request."""
     del cfg
-    return _map_caches(
+    return map_cache(
         lambda leaf: leaf.index_select(1, _slot_index(inv, leaf.device)),
         cache)
 
@@ -164,7 +217,7 @@ def cache_slot_reset(cfg: ModelConfig, pool: dict, slots) -> dict:
     """A copy of ``pool`` with ``slots`` zeroed — bitwise fresh
     ``init_decode_cache`` rows — and every other row unchanged."""
     del cfg
-    return _map_caches(
+    return map_cache(
         lambda leaf: leaf.index_fill(1, _slot_index(slots, leaf.device), 0),
         pool)
 
@@ -173,7 +226,7 @@ def cache_slot_reset_(cfg: ModelConfig, pool: dict, slots) -> dict:
     """In-place twin of :func:`cache_slot_reset`: ``slots`` of ``pool``
     zeroed, other rows not touched."""
     del cfg
-    for leaf in _each_leaf(pool):
+    for leaf in cache_leaves(pool):
         leaf.index_fill_(1, _slot_index(slots, leaf.device), 0)
     return pool
 
@@ -191,53 +244,64 @@ def _positions(s: int, cache_pos, device):
     return cache_pos + ar, cache_pos
 
 
+def _layers(params: dict, cfg: ModelConfig):
+    """``(layer params, kind, ffn, cache stack key, index in the stack)``
+    of every layer in order: the prologue, then the periods, period-major
+    (the JAX package's scan runs period by period)."""
+    for i, layer in enumerate(params.get("prologue", ())):
+        yield layer, cfg.pattern[0], "dense", ("prologue", i), 0
+    for i in range(cfg.n_periods):
+        for j, kind in enumerate(cfg.pattern):
+            name = f"pos{j}"
+            yield (_index(params["periods"][name], i), kind,
+                   period_ffn(cfg, j), ("periods", name), i)
+
+
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
             cache: Optional[dict] = None, cache_pos=None,
-            return_hidden: bool = False
+            return_hidden: bool = False,
+            encoder_states: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Run the backbone on tokens (B, S). Returns (logits (B, S, V) f32 or,
     with ``return_hidden``, final hiddens (B, S, d) f32; new cache).
 
     ``cache_pos`` is the number of tokens already cached: None (0), an int,
-    or a (B,) tensor of per-slot counters (the engine's decode)."""
+    or a (B,) tensor of per-slot counters (the engine's decode).
+    ``encoder_states`` (B, T, d) are what the ``xattn`` layers attend to."""
     x, new_cache = backbone(params, tokens, cfg, cache=cache,
-                            cache_pos=cache_pos)
+                            cache_pos=cache_pos,
+                            encoder_states=encoder_states)
     return _output(params, x, cfg, return_hidden), new_cache
 
 
 def backbone(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
              cache: Optional[dict] = None, cache_pos=None,
-             in_place: bool = False
+             in_place: bool = False,
+             encoder_states: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, Optional[dict]]:
     """:func:`forward` up to the final norm: the residual stream (B, S, d)
     in bf16 and the new cache.  With ``in_place``, each layer's new cache
-    is written into its period's rows of ``cache``, which is returned: the
-    same values, and only one layer's new cache is live beside it."""
+    is written into its rows of ``cache``, which is returned: the same
+    values, and only one layer's new cache is live beside it."""
     x = embed_scaled(tokens, params["embed"], cfg.d_model)
     positions, cache_pos = _positions(tokens.shape[1], cache_pos,
                                       tokens.device)
-    layer_caches = {f"pos{j}": [] for j in range(len(cfg.pattern))}
-    for i in range(cfg.n_periods):              # layer order: period-major
-        for j, kind in enumerate(cfg.pattern):
-            name = f"pos{j}"
-            layer_cache = (None if cache is None
-                           else _index(cache["periods"][name], i))
-            x, nc = blocks.apply_layer(_index(params["periods"][name], i), x,
-                                       cfg, kind, positions=positions,
-                                       cache=layer_cache, cache_pos=cache_pos,
-                                       ffn=cfg.ffn_kind(j))
-            if in_place:
-                for dst, leaf in zip(cache["periods"][name], nc):
-                    dst[i].copy_(leaf)
-            else:
-                layer_caches[name].append(nc)
-    if in_place:
+    made = {}
+    for layer, kind, ffn, (sec, key), i in _layers(params, cfg):
+        stack = None if cache is None else cache[sec][key]
+        x, nc = blocks.apply_layer(
+            layer, x, cfg, kind, positions=positions,
+            cache=None if stack is None else _index(stack, i),
+            cache_pos=cache_pos, ffn=ffn, encoder_states=encoder_states)
+        if in_place and nc is not None:
+            for dst, leaf in zip(stack, nc):
+                dst[i].copy_(leaf)
+        elif not in_place:
+            made.setdefault((sec, key), []).append(nc)
+    if in_place or cache is None:
         return x, cache
-    if cache is None:
-        return x, None
-    return x, {"periods": {
-        name: type(cs[0])(*(torch.stack(leaf) for leaf in zip(*cs)))
-        for name, cs in layer_caches.items()}}
+    return x, _rebuild(cache, lambda k, c: None if c is None else type(c)(
+        *(torch.stack(leaf) for leaf in zip(*made[k]))))
 
 
 def final_hidden(params: dict, x: torch.Tensor, cfg: ModelConfig
@@ -283,18 +347,26 @@ def _output(params, x, cfg, return_hidden):
                                                                   cfg)
 
 
+def _needs_cache_pos(cfg: ModelConfig) -> bool:
+    return any(k in blocks.SEQ_KINDS for k in cfg.pattern)
+
+
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
                 cfg: ModelConfig, *, cache_pos=None,
-                return_hidden: bool = False) -> Tuple[torch.Tensor, dict]:
+                return_hidden: bool = False,
+                encoder_states: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, dict]:
     """One decode step on the newest tokens (B, 1): returns (logits (B, V)
     — or the (B, d) final hidden with ``return_hidden`` — and the updated
     cache).  ``cache_pos`` (tokens already cached: an int, or (B,) per
-    slot) is required by the attention kinds; a recurrent state needs none."""
-    if cache_pos is None and any(k in blocks.ATTN_KINDS for k in cfg.pattern):
+    slot) is required by the attention and MLA kinds; a recurrent state
+    needs none."""
+    if cache_pos is None and _needs_cache_pos(cfg):
         raise ValueError(f"{cfg.name}: decode_step needs cache_pos (tokens "
                          "already cached) for its attention layers")
     out, new_cache = forward(params, tokens, cfg, cache=cache,
-                             cache_pos=cache_pos, return_hidden=return_hidden)
+                             cache_pos=cache_pos, return_hidden=return_hidden,
+                             encoder_states=encoder_states)
     return out[:, -1], new_cache
 
 
@@ -310,7 +382,8 @@ def _slot_positions(cache_pos, b: int, device) -> torch.Tensor:
 def decode_step_(params: dict, cache: dict, tokens: torch.Tensor,
                  cfg: ModelConfig, *, cache_pos=None,
                  return_hidden: bool = False,
-                 active: Optional[torch.Tensor] = None
+                 active: Optional[torch.Tensor] = None,
+                 encoder_states: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, dict]:
     """In-place twin of :func:`decode_step`: ``cache`` is consumed, each
     layer's new state written into its period's rows, and returned.
@@ -321,7 +394,7 @@ def decode_step_(params: dict, cache: dict, tokens: torch.Tensor,
     a (B,) tensor; either way it is used on the device as (B,) per-row
     positions, and a captured step keeps it a device tensor.
     """
-    if cache_pos is None and any(k in blocks.ATTN_KINDS for k in cfg.pattern):
+    if cache_pos is None and _needs_cache_pos(cfg):
         raise ValueError(f"{cfg.name}: decode_step_ needs cache_pos (tokens "
                          "already cached) for its attention layers")
     b = tokens.shape[0]
@@ -330,14 +403,13 @@ def decode_step_(params: dict, cache: dict, tokens: torch.Tensor,
     if cache_pos is not None:
         pos = _slot_positions(cache_pos, b, tokens.device)
         positions = pos[:, None]
-    for i in range(cfg.n_periods):              # layer order: period-major
-        for j, kind in enumerate(cfg.pattern):
-            name = f"pos{j}"
-            x = blocks.apply_layer_(_index(params["periods"][name], i), x,
-                                    cfg, kind, positions=positions,
-                                    cache=_index(cache["periods"][name], i),
-                                    cache_pos=pos, active=active,
-                                    ffn=cfg.ffn_kind(j))
+    for layer, kind, ffn, (sec, key), i in _layers(params, cfg):
+        stack = cache[sec][key]
+        x = blocks.apply_layer_(layer, x, cfg, kind, positions=positions,
+                                cache=None if stack is None
+                                else _index(stack, i),
+                                cache_pos=pos, active=active, ffn=ffn,
+                                encoder_states=encoder_states)
     return _output(params, x, cfg, return_hidden)[:, -1], cache
 
 
@@ -355,7 +427,7 @@ class RingSnapshot(NamedTuple):
 
 def init_spec_snapshot(cfg: ModelConfig, cache: dict, k: int) -> dict:
     """Static rollback buffers for ``k`` draft steps over ``cache``: for
-    each layer whose cache cannot be rewound by position
+    each layer stack whose cache cannot be rewound by position
     (``blocks.cache_needs_snapshot``), a recurrent whole state (K, *leaf) or a
     ring's :class:`RingSnapshot`; None for the others.
 
@@ -363,22 +435,18 @@ def init_spec_snapshot(cfg: ModelConfig, cache: dict, k: int) -> dict:
     a leaf, not the reference's whole ring each step (K x the ring): at
     gemma2-27b's 4096-slot rings that is 2 x 23 x 16 x 128 x 2 B = 188 KB
     a row a step, against 0.77 GB."""
-    periods = {}
-    for j, kind in enumerate(cfg.pattern):
-        name = f"pos{j}"
-        c = cache["periods"][name]
-        if not blocks.cache_needs_snapshot(cfg, kind, _index(c, 0)):
-            periods[name] = None
-        elif kind in blocks.RECURRENT_KINDS:
-            periods[name] = type(c)(*(leaf.new_zeros((k, *leaf.shape))
-                                      for leaf in c))
-        else:
-            rows = (k, c.k.shape[0], c.k.shape[1], *c.k.shape[3:])
-            periods[name] = RingSnapshot(
-                c.k.new_zeros(rows), c.v.new_zeros(rows),
-                torch.zeros((k, c.k.shape[1]), dtype=torch.int64,
-                            device=c.k.device))
-    return {"periods": periods}
+    def buffers(key, c):
+        kind = stack_kind(cfg, key)
+        if c is None or not blocks.cache_needs_snapshot(cfg, kind,
+                                                        _index(c, 0)):
+            return None
+        if kind in blocks.RECURRENT_KINDS:
+            return type(c)(*(leaf.new_zeros((k, *leaf.shape)) for leaf in c))
+        rows = (k, c.k.shape[0], c.k.shape[1], *c.k.shape[3:])
+        return RingSnapshot(c.k.new_zeros(rows), c.v.new_zeros(rows),
+                            torch.zeros((k, c.k.shape[1]), dtype=torch.int64,
+                                        device=c.k.device))
+    return _rebuild(cache, buffers)
 
 
 def cache_snapshot_(cfg: ModelConfig, cache: dict, snap: dict,
@@ -389,10 +457,10 @@ def cache_snapshot_(cfg: ModelConfig, cache: dict, snap: dict,
     positions the step writes).  Device indices only, so a captured step
     can run it."""
     del cfg
-    for name, s in snap["periods"].items():
+    for (sec, key), s in cache_stacks(snap):
         if s is None:
             continue
-        c = cache["periods"][name]
+        c = cache[sec][key]
         if isinstance(s, RingSnapshot):
             slot = pos % c.k.shape[2]
             bi = torch.arange(slot.shape[0], device=slot.device)
@@ -411,14 +479,14 @@ def cache_rollback_(cfg: ModelConfig, cache: dict, snap: dict,
     no host sync: a recurrent state from its snapshot before step ``m`` (kept
     when m == k), each ring's slots written by steps m..k-1 restored, the
     last step first (steps may share a slot when the ring is shorter than
-    k).  Plain KV caches keep the draft's writes past the rewound
+    k).  Plain KV and MLA caches keep the draft's writes past the rewound
     position: decode masks keys past ``cache_pos``."""
     del cfg
     keep = m >= k
-    for name, s in snap["periods"].items():
+    for (sec, key), s in cache_stacks(snap):
         if s is None:
             continue
-        c = cache["periods"][name]
+        c = cache[sec][key]
         if isinstance(s, RingSnapshot):
             bi = torch.arange(s.slot.shape[1], device=m.device)
             for j in reversed(range(k)):
@@ -437,43 +505,37 @@ def cache_rollback_(cfg: ModelConfig, cache: dict, snap: dict,
 # -- the paged pool (launch/engine.py, launch/paging.py) -------------------
 #
 # The paged engine splits the decode cache in two trees: ``pages`` holds a
-# period-stacked (n_periods, num_pages, page_size, ...) arena per attention
-# layer, addressed through the host page table; ``state`` holds rwkv's
-# (n_periods, n_slots, ...) state rows under the ordinary slot ops.  A
-# layer is in exactly one of them (None in the other).  A paged decode
-# gathers each slot's view, merges the state in, runs the in-place decode
-# step on that tree (the state is written where it lives) and commits the
-# written position back to the arenas.
+# stacked (n, num_pages, page_size, ...) arena per attention or MLA layer
+# stack, addressed through the host page table; ``state`` holds the
+# recurrent layers' (n, n_slots, ...) state rows under the ordinary slot
+# ops.  A layer is in at most one of them (None in the other; an ``xattn``
+# layer is in neither).  A paged decode gathers each slot's view, merges
+# the state in, runs the in-place decode step on that tree (the state is
+# written where it lives) and commits the written position back to the
+# arenas.
 
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                      device="cuda") -> dict:
-    """Zero page arenas, one per attention layer (None for rwkv and mamba); one page
-    id addresses the same physical page in every arena."""
-    return {"periods": {
-        f"pos{j}": blocks.init_paged_layer_cache(
-            cfg, kind, num_pages, page_size, lead=(cfg.n_periods,),
-            device=device)
-        for j, kind in enumerate(cfg.pattern)}}
+    """Zero page arenas, one per attention or MLA layer stack (None for
+    the others); one page id addresses the same physical page in every
+    arena."""
+    return _cache_tree(cfg, lambda kind, lead: blocks.init_paged_layer_cache(
+        cfg, kind, num_pages, page_size, lead=lead, device=device))
 
 
 def init_paged_state(cfg: ModelConfig, n_slots: int, device="cuda") -> dict:
-    """Zero state rows (n_periods, n_slots, ...) for the recurrent layers only."""
-    return {"periods": {
-        f"pos{j}": blocks.init_paged_state_cache(
-            cfg, kind, n_slots, lead=(cfg.n_periods,), device=device)
-        for j, kind in enumerate(cfg.pattern)}}
+    """Zero state rows (n, n_slots, ...) for the recurrent layers only."""
+    return _cache_tree(cfg, lambda kind, lead: blocks.init_paged_state_cache(
+        cfg, kind, n_slots, lead=lead, device=device))
 
 
 def paged_gather_cache(cfg: ModelConfig, pages: dict, pt: torch.Tensor,
                        max_seq: int) -> dict:
     """Each slot's contiguous view of every arena through the (B, npp)
     page table (unmapped entries read the zero page: fresh-cache bytes)."""
-    return {"periods": {
-        f"pos{j}": blocks.paged_view_cache(cfg, kind,
-                                           pages["periods"][f"pos{j}"], pt,
-                                           max_seq)
-        for j, kind in enumerate(cfg.pattern)}}
+    return _rebuild(pages, lambda key, c: blocks.paged_view_cache(
+        cfg, stack_kind(cfg, key), c, pt, max_seq))
 
 
 def paged_commit_cache(cfg: ModelConfig, pages: dict, view: dict,
@@ -481,10 +543,9 @@ def paged_commit_cache(cfg: ModelConfig, pages: dict, view: dict,
                        max_seq: int) -> dict:
     """The position each slot's decode step wrote in ``view`` (at ``pos``,
     ring-adjusted per layer) scattered back into the arenas, in place."""
-    for j, kind in enumerate(cfg.pattern):
-        name = f"pos{j}"
-        blocks.paged_commit_cache(cfg, kind, pages["periods"][name],
-                                  view["periods"][name], pt, pos, max_seq)
+    for (sec, key), c in cache_stacks(pages):
+        blocks.paged_commit_cache(cfg, stack_kind(cfg, (sec, key)), c,
+                                  view[sec][key], pt, pos, max_seq)
     return pages
 
 
@@ -492,10 +553,9 @@ def paged_insert_cache(cfg: ModelConfig, pages: dict, src: dict,
                        pt_rows: torch.Tensor) -> dict:
     """Freshly prefilled rows (the tree ``cache_slot_insert_`` takes) into
     their newly mapped pages, in place."""
-    for j, kind in enumerate(cfg.pattern):
-        name = f"pos{j}"
-        blocks.paged_insert_cache(kind, pages["periods"][name],
-                                  src["periods"][name], pt_rows)
+    for (sec, key), c in cache_stacks(pages):
+        blocks.paged_insert_cache(stack_kind(cfg, (sec, key)), c,
+                                  src[sec][key], pt_rows)
     return pages
 
 
@@ -503,9 +563,8 @@ def paged_copy_pages(cfg: ModelConfig, pages: dict, src_ids: torch.Tensor,
                      dst_ids: torch.Tensor) -> dict:
     """Whole pages ``src_ids`` → ``dst_ids`` across every arena (the
     copy-on-write fork), in place."""
-    for j, kind in enumerate(cfg.pattern):
-        blocks.paged_copy_pages(kind, pages["periods"][f"pos{j}"], src_ids,
-                                dst_ids)
+    for key, c in cache_stacks(pages):
+        blocks.paged_copy_pages(stack_kind(cfg, key), c, src_ids, dst_ids)
     return pages
 
 
@@ -513,26 +572,21 @@ def merge_paged_view(cfg: ModelConfig, view: dict, state: dict) -> dict:
     """One full cache tree from gathered views and the state rows (the
     same tensors, no copy): the tree a contiguous pool would be."""
     del cfg
-    return {"periods": {
-        name: v if v is not None else state["periods"][name]
-        for name, v in view["periods"].items()}}
+    return _rebuild(view, lambda key, v: v if v is not None
+                    else state[key[0]][key[1]])
 
 
 def extract_paged_state(cfg: ModelConfig, cache: dict) -> dict:
     """The recurrent half (rwkv, mamba) of a full cache tree (the same
-    tensors; None for the paged kinds)."""
-    return {"periods": {
-        f"pos{j}": (cache["periods"][f"pos{j}"]
-                    if kind in blocks.RECURRENT_KINDS else None)
-        for j, kind in enumerate(cfg.pattern)}}
+    tensors; None for the other kinds)."""
+    return _rebuild(cache, lambda key, c: (
+        c if stack_kind(cfg, key) in blocks.RECURRENT_KINDS else None))
 
 
 def extract_state_rows(cfg: ModelConfig, cache: dict, row: int) -> dict:
-    """Copies of batch row ``row`` of the recurrent layers of a prefilled cache,
-    (n_periods, 1, ...) a leaf: the constant-size state a prefix-cache
+    """Copies of batch row ``row`` of the recurrent layers of a prefilled
+    cache, (n, 1, ...) a leaf: the constant-size state a prefix-cache
     entry keeps."""
-    state = extract_paged_state(cfg, cache)
-    return {"periods": {
-        name: None if c is None else type(c)(
-            *(leaf[:, row:row + 1].clone() for leaf in c))
-        for name, c in state["periods"].items()}}
+    return _rebuild(extract_paged_state(cfg, cache), lambda key, c: (
+        None if c is None else type(c)(*(leaf[:, row:row + 1].clone()
+                                          for leaf in c))))

@@ -420,51 +420,64 @@ def test_cuda_engine_launches_fused_decode_once_per_tick(cuda):
     assert sorted(len(v) for v in out.values()) == [3, 4, 5, 6]
 
 
-# ------------------------------------------------- jamba: mamba, attn, MoE
+# ------------------------- jamba (mamba, attn, MoE) and deepseek (MLA, MoE)
 
 JAMBA = "jamba-v0.1-52b"
+DEEPSEEK = "deepseek-v3-671b"
 
 
-@pytest.fixture(scope="module")
-def jamba(jx):
-    """jamba's smoke config (mamba and attention layers, MoE FFNs on every
-    second layer): the JAX config, params and the port's LM."""
-    jcfg, cfg = jx["config"](JAMBA, smoke=True), get_config(JAMBA, smoke=True)
+@pytest.fixture(scope="module", params=[JAMBA, DEEPSEEK])
+def jamba(jx, request):
+    """The smoke configs of jamba (mamba and attention layers, MoE FFNs on
+    every second layer) and deepseek (a dense MLA prologue layer, then MLA
+    layers with MoE FFNs): the JAX config, params and the port's LM."""
+    arch = request.param
+    jcfg, cfg = jx["config"](arch, smoke=True), get_config(arch, smoke=True)
     jparams = jx["model"].init_model(jx["jax"].random.PRNGKey(0), jcfg)
     params = params_from_numpy(jx["jax"].tree.map(np.asarray, jparams), "cpu")
-    return jcfg, cfg, LM.from_config(JAMBA, smoke=True, device="cpu",
+    return jcfg, cfg, LM.from_config(arch, smoke=True, device="cpu",
                                      params=params)
 
 
 def _noise_cache(jx, jcfg, cfg, batch, seed):
-    """The same noise in a port cache and a JAX cache of jamba's layout
-    (a ``KVCache`` or a ``MambaCache`` per pattern position)."""
+    """The same noise in a port cache and a JAX cache of the arch's layout
+    (a ``KVCache``, ``MambaCache`` or ``MLACache`` per pattern position,
+    and per prologue layer: the port's a stack of one)."""
     rng = np.random.default_rng(seed)
     fresh = model.init_decode_cache(cfg, batch, 8, device="cpu")
     jfresh = jx["model"].init_decode_cache(jcfg, batch, 8)
-    port, jax_ = {}, {}
-    for name, c in fresh["periods"].items():
+
+    def noise(key, c):
         leaves = [rng.standard_normal(tuple(x.shape)).astype(np.float32)
                   for x in c]
-        port[name] = type(c)(*(torch.from_numpy(a).to(x.dtype)
-                               for a, x in zip(leaves, c)))
-        jc = jfresh["periods"][name]
-        jax_[name] = type(jc)(*(jx["jnp"].asarray(np.asarray(
-            t.float().numpy()), j.dtype) for t, j in zip(port[name], jc)))
-    return {"periods": port}, {"periods": jax_}
+        return type(c)(*(torch.from_numpy(a).to(x.dtype)
+                         for a, x in zip(leaves, c)))
+
+    port = model._rebuild(fresh, noise)
+    jax_ = dict(jfresh)
+    for (sec, key), c in model.cache_stacks(port):
+        jc = jfresh[sec][key]
+        jax_[sec] = list(jax_[sec]) if sec == "prologue" else dict(jax_[sec])
+        jax_[sec][key] = type(jc)(*(jx["jnp"].asarray(np.asarray(
+            t.float().numpy()).reshape(j.shape), j.dtype)
+            for t, j in zip(c, jc)))
+    return port, jax_
 
 
 def _equal_to_jax(got, want):
-    for name, c in want["periods"].items():
-        assert type(got["periods"][name]).__name__ == type(c).__name__
-        for g, w in zip(got["periods"][name], c):
-            np.testing.assert_array_equal(g.float().numpy(),
-                                          np.asarray(w, np.float32))
+    for (sec, key), c in model.cache_stacks(got):
+        w = want[sec][key]
+        assert type(c).__name__ == type(w).__name__
+        for g, x in zip(c, w):
+            np.testing.assert_array_equal(
+                g.float().numpy().reshape(np.shape(x)),
+                np.asarray(x, np.float32))
 
 
 def test_jamba_cache_slot_ops_match_jax(jx, jamba):
     """Insert, reset and row expansion of a cache with attention and mamba
-    layers, bit for bit against the JAX package's."""
+    layers (jamba), or MLA layers and a prologue (deepseek), bit for bit
+    against the JAX package's."""
     jcfg, cfg, _ = jamba
     jnp = jx["jnp"]
     pool, jpool = _noise_cache(jx, jcfg, cfg, 4, 0)
@@ -482,15 +495,14 @@ def test_jamba_cache_slot_ops_match_jax(jx, jamba):
                                                 jnp.asarray(inv, "int32")))
     reset = model.cache_slot_reset_(cfg, pool, [0, 2])
     fresh = model.init_decode_cache(cfg, 4, 8, device="cpu")
-    for name, c in reset["periods"].items():
-        for leaf, f in zip(c, fresh["periods"][name]):
-            assert torch.equal(leaf[:, [0, 2]], f[:, [0, 2]])
+    for leaf, f in zip(model.cache_leaves(reset), model.cache_leaves(fresh)):
+        assert torch.equal(leaf[:, [0, 2]], f[:, [0, 2]])
 
 
 @pytest.mark.parametrize("head", ["dense", "fused"])
 def test_jamba_engine_matches_static_generate(jamba, head):
     """Synchronized arrivals: the engine's tokens are generate's, the mamba
-    state and the attention cache moved by the slot ops."""
+    state and the attention or MLA caches moved by the slot ops."""
     _, cfg, lm = jamba
     if head != "dense":
         lm = lm.with_head(_head(cfg, head))
@@ -505,7 +517,7 @@ def test_jamba_engine_matches_static_generate(jamba, head):
 
 
 def test_jamba_engine_staggered_matches_solo_generate(jamba):
-    """Recycled slots: a reset mamba row starts from a zero state, and each
+    """Recycled slots: a reset mamba or MLA row starts from zeros, and each
     request of a staggered stream emits its solo tokens."""
     _, cfg, lm = jamba
     engine = lm.engine(2, 16)
@@ -518,9 +530,9 @@ def test_jamba_engine_staggered_matches_solo_generate(jamba):
     for rid, prompt, gen in reqs:
         assert out[rid] == lm.generate(prompt[None], gen)[0, len(prompt):].tolist()
     fresh = model.init_decode_cache(cfg, 2, 16, device="cpu")
-    for name, c in engine.pool["periods"].items():
-        for leaf, f in zip(c, fresh["periods"][name]):
-            assert torch.equal(leaf, f), name
+    for leaf, f in zip(model.cache_leaves(engine.pool),
+                       model.cache_leaves(fresh)):
+        assert torch.equal(leaf, f)
 
 
 def test_engine_close_releases_its_loops(jamba):

@@ -54,25 +54,43 @@ def _f32(a):
 @pytest.mark.parametrize("arch", [ARCH, "gemma2-27b", "granite-8b",
                                   "stablelm-12b", "command-r-35b",
                                   "musicgen-large", "mixtral-8x7b",
-                                  "jamba-v0.1-52b"])
+                                  "jamba-v0.1-52b", "deepseek-v3-671b",
+                                  "llama-3.2-vision-11b"])
 @pytest.mark.parametrize("smoke", [False, True])
 def test_config_matches_jax(smoke, arch):
-    """Field by field; the port's own dataclasses (``AttentionConfig``)
-    compare by their fields."""
+    """Field by field (the port's own dataclasses, ``AttentionConfig`` and
+    ``MLAConfig``, compare by their fields), the derived layer and FFN
+    kinds of every layer, and the analytic parameter count."""
+    from repro.models.config import param_count as jax_param_count
+    from repro_torch.models.config import param_count
     cfg, jcfg = get_config(arch, smoke=smoke), jax_config(arch, smoke=smoke)
+    assert [f.name for f in dataclasses.fields(cfg)] == [
+        f.name for f in dataclasses.fields(jcfg)]
     for f in dataclasses.fields(cfg):
         ours, theirs = getattr(cfg, f.name), getattr(jcfg, f.name)
         if dataclasses.is_dataclass(ours):
             ours, theirs = dataclasses.asdict(ours), dataclasses.asdict(theirs)
         assert ours == theirs, f.name
     assert cfg.n_periods == jcfg.n_periods
+    for j in range(cfg.n_layers):
+        assert cfg.layer_kind(j) == jcfg.layer_kind(j), j
+        assert cfg.ffn_kind(j) == jcfg.ffn_kind(j), j
+    assert param_count(cfg) == jax_param_count(jcfg)
     assert dataclasses.asdict(SketchHeadConfig()) == dataclasses.asdict(
         JaxSketchHeadConfig())
 
 
+def test_registry_ports_every_jax_arch():
+    from repro.configs import arch_names
+    from repro_torch.configs import _MODULES
+    assert list(_MODULES) and set(_MODULES) == set(arch_names())
+
+
 def test_unported_arch_names_what_is_ported():
-    with pytest.raises(KeyError, match="rwkv6-1.6b.*gemma2-27b"):
-        get_config("deepseek-v3-671b")
+    """Every arch of the JAX registry is ported, so an unknown name is
+    what raises; the message names the ported archs."""
+    with pytest.raises(KeyError, match="rwkv6-1.6b.*deepseek-v3-671b"):
+        get_config("no-such-arch")
 
 
 def test_convert_carries_bf16_bits(setup):
@@ -214,7 +232,7 @@ def test_layer_order_matches_jax_over_periods():
     assert_bf16_backbone_close(log.numpy(), np.asarray(jlog))
 
 
-MOE_ARCHS = ["mixtral-8x7b", "jamba-v0.1-52b"]
+MOE_ARCHS = ["mixtral-8x7b", "jamba-v0.1-52b", "deepseek-v3-671b"]
 
 
 @pytest.fixture(scope="module")
@@ -239,8 +257,9 @@ def moe_setup():
 @pytest.mark.parametrize("arch", MOE_ARCHS)
 def test_moe_arch_params_match_jax(moe_setup, arch):
     """The init tree (shapes and dtypes: the router and mamba's ``a_log``,
-    ``d_skip``, ``conv_b``, ``dt_bias`` f32, the rest bf16) and the
-    conversion of the JAX params, leaf for leaf and bit for bit."""
+    ``d_skip``, ``conv_b``, ``dt_bias`` f32, the rest bf16; deepseek's
+    ``prologue`` list of dense layers) and the conversion of the JAX
+    params, leaf for leaf and bit for bit."""
     _, cfg, jparams, params, _ = moe_setup(arch)
     ours = model.init_model(cfg, torch.Generator("cpu").manual_seed(0))
     jflat = {jax.tree_util.keystr(p): l
@@ -252,10 +271,12 @@ def test_moe_arch_params_match_jax(moe_setup, arch):
         for k, leaf in jflat.items():
             assert tuple(flat[k].shape) == leaf.shape, k
             assert str(flat[k].dtype).split(".")[-1] == str(leaf.dtype), k
-    for k, leaf in jflat.items():
+    assert ("prologue" in params) == bool(cfg.n_dense_prologue)
+    assert isinstance(params.get("prologue", []), list)
+    for path, leaf in jax.tree_util.tree_leaves_with_path(jparams):
         t = params
-        for key in k.strip("[]'").split("']['"):
-            t = t[key]
+        for key in path:
+            t = t[key.key if hasattr(key, "key") else key.idx]
         np.testing.assert_array_equal(t.float().numpy(), _f32(leaf))
 
 
@@ -312,35 +333,40 @@ def test_moe_arch_layer_chain_matches_jax(moe_setup, arch, monkeypatch):
     x = jnp.asarray(jparams["embed"])[jnp.asarray(toks)] * jnp.asarray(
         cfg.d_model ** 0.5, jnp.bfloat16)
     s = toks.shape[1]
+    layers = [(jl, pl, cfg.pattern[0], "dense") for jl, pl in
+              zip(jparams.get("prologue", []), params.get("prologue", []))]
     for i in range(cfg.n_periods):
         for j, kind in enumerate(cfg.pattern):
-            ffn = cfg.ffn_kind(j)
-            jlayer = jax.tree.map(lambda t: t[i], jparams["periods"][f"pos{j}"])
-            with jax.disable_jit():
-                jy, _, _ = jblocks.apply_layer(jlayer, x, jnp.arange(s), jcfg,
-                                               kind, ffn)
-            y, _ = blocks.apply_layer(
-                model._index(params["periods"][f"pos{j}"], i),
-                params_from_numpy(np.asarray(x), "cpu"), cfg, kind, ffn=ffn)
-            rows = np.ones(toks.shape[0], bool)
-            if ffn == "moe":
-                (xj, router), (xp, _) = jlog[-1], tlog[-1]
-                k = cfg.moe.top_k
-                jmask = torch.from_numpy(np.array(jmoe._topk_mask(
-                    jnp.asarray(xj) @ jnp.asarray(router), k)))
-                ours = moe_mod.route({"router": torch.from_numpy(router)},
-                                     torch.from_numpy(xj), cfg.moe)[1]
-                check_router_choices(ours, jmask, torch.from_numpy(xj),
-                                     torch.from_numpy(router), k)
-                pm, jm = _masks(xp, router, k), _masks(xj, router, k)
-                diff = (pm != jm).any(-1)
-                if bool(diff.any()):
-                    _assert_flip_explained(xp, xj, router, k, diff)
-                rows = ~diff.any(-1).numpy()
-            want, got = _f32(jy), y.float().numpy()
-            np.testing.assert_allclose(got[rows], want[rows], rtol=BF16_ULP,
-                                       atol=BF16_ULP * np.abs(want).max())
-            x = jy
+            layers.append((jax.tree.map(lambda t: t[i],
+                                        jparams["periods"][f"pos{j}"]),
+                           model._index(params["periods"][f"pos{j}"], i),
+                           kind, model.period_ffn(cfg, j)))
+    for jlayer, layer, kind, ffn in layers:
+        with jax.disable_jit():
+            jy, _, _ = jblocks.apply_layer(jlayer, x, jnp.arange(s), jcfg,
+                                           kind, ffn)
+        y, _ = blocks.apply_layer(
+            layer, params_from_numpy(np.asarray(x), "cpu"), cfg, kind,
+            ffn=ffn)
+        rows = np.ones(toks.shape[0], bool)
+        if ffn == "moe":
+            (xj, router), (xp, _) = jlog[-1], tlog[-1]
+            k = cfg.moe.top_k
+            jmask = torch.from_numpy(np.array(jmoe._topk_mask(
+                jnp.asarray(xj) @ jnp.asarray(router), k)))
+            ours = moe_mod.route({"router": torch.from_numpy(router)},
+                                 torch.from_numpy(xj), cfg.moe)[1]
+            check_router_choices(ours, jmask, torch.from_numpy(xj),
+                                 torch.from_numpy(router), k)
+            pm, jm = _masks(xp, router, k), _masks(xj, router, k)
+            diff = (pm != jm).any(-1)
+            if bool(diff.any()):
+                _assert_flip_explained(xp, xj, router, k, diff)
+            rows = ~diff.any(-1).numpy()
+        want, got = _f32(jy), y.float().numpy()
+        np.testing.assert_allclose(got[rows], want[rows], rtol=BF16_ULP,
+                                   atol=BF16_ULP * np.abs(want).max())
+        x = jy
 
 
 @pytest.mark.parametrize("arch", MOE_ARCHS)
@@ -375,3 +401,31 @@ def test_moe_arch_forward_matches_jax(moe_setup, arch, monkeypatch):
         agree &= ~new
     assert agree.any(), "every row routed otherwise somewhere"
     assert_bf16_backbone_close(got.numpy()[agree], np.asarray(want)[agree])
+
+
+def test_decode_cache_from_numpy_carries_prologue_and_mla_bits(moe_setup):
+    """deepseek's JAX cache, filled with noise (a ``prologue`` list and the
+    periods' ``MLACache``), through ``decode_cache_from_numpy``: the port's
+    tree (a prologue layer a stack of one), the shapes of its own
+    ``init_decode_cache``, and every latent bit for bit."""
+    from repro_torch.convert import decode_cache_from_numpy
+    jcfg, cfg, _, _, _ = moe_setup("deepseek-v3-671b")
+    rng = np.random.default_rng(9)
+    jcache = jax.tree.map(
+        lambda x: jnp.asarray(rng.standard_normal(x.shape), x.dtype),
+        jmodel.init_decode_cache(jcfg, 3, 44))
+    cache = decode_cache_from_numpy(jax.tree.map(np.asarray, jcache), "cpu")
+    mine = model.init_decode_cache(cfg, 3, 44, device="cpu")
+    assert len(cache["prologue"]) == len(jcache["prologue"]) == 1
+    pairs = [(c, jc, (1,)) for c, jc in zip(cache["prologue"],
+                                           jcache["prologue"])]
+    pairs.append((cache["periods"]["pos0"], jcache["periods"]["pos0"], ()))
+    for ours, theirs, lead in pairs:
+        assert type(ours).__name__ == "MLACache" == type(theirs).__name__
+        for a, b in zip(ours, theirs):
+            assert tuple(a.shape) == lead + b.shape
+            assert a.dtype == torch.bfloat16
+            np.testing.assert_array_equal(a.reshape(b.shape).float().numpy(),
+                                          _f32(b))
+    assert [x.shape for x in model.cache_leaves(cache)] == [
+        x.shape for x in model.cache_leaves(mine)]

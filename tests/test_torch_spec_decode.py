@@ -16,9 +16,10 @@ the same streams as dense decode, EOS mid-block, a dense-head draft that
 accepts everything (its verify logits equal to its draft logits bit for
 bit), gemma2's SWA ring wrapped (prompt 12 > window 8, and K = 16 > the
 ring: draft steps that share a ring slot), jamba's mamba rows restored
-from their snapshots (the tokens dense decode's, the rolled-back cache
-that of the committed dense steps bit for bit), the bounded loop memo,
-and the validation errors.
+from their snapshots and deepseek's MLA latent (a dense prologue layer's
+among it) rewound by position (the tokens dense decode's, the rolled-back
+cache that of the committed dense steps bit for bit), the bounded loop
+memo, and the validation errors.
 
 The ``cuda`` cases run the captured draft step on the card and skip
 without one; they import no JAX (``python -m pytest --noconftest -m
@@ -46,7 +47,7 @@ BACKENDS = ["fused", "two_kernel", "ref"]
 HEAD = dict(n_rows=32, n_buckets=8, k=1, proj_dim=16, bandwidth=2.0)
 HEAD_CFG = SketchHeadConfig(**HEAD)
 PROMPT = {"rwkv6-1.6b": 5, "gemma2-27b": 12,    # gemma2: past its window 8
-          "jamba-v0.1-52b": 6}
+          "jamba-v0.1-52b": 6, "deepseek-v3-671b": 6}
 GEN = 9
 
 
@@ -152,6 +153,23 @@ def test_gemma2_wrapped_ring_matches_jax_and_dense(served, k):
     assert stats == jstats
 
 
+@pytest.mark.parametrize("k", [4])
+def test_deepseek_spec_matches_jax_and_dense(served, k):
+    """deepseek smoke: fused drafts over the MLA latent cache (rejected
+    mid-block: the latent rewound by position, the prologue's with it)
+    give the JAX package's spec tokens and stats, and the port's dense
+    tokens."""
+    s = served("deepseek-v3-671b")
+    prompts = torch.from_numpy(np.array(s["prompts"]))
+    dense = s["lms"]["dense"].generate(prompts, GEN)
+    got, stats = s["lms"]["fused"].generate(prompts, GEN, spec_decode=k,
+                                            return_stats=True)
+    want, jstats = _jax_generate(s, "fused", k)
+    assert torch.equal(got, dense)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert stats == jstats
+
+
 def test_rejection_mid_block_accounting(served):
     """The random head's drafts are rejected mid-block: real rejections,
     at least one commit a verify, the JAX package's accounting, and the
@@ -226,14 +244,17 @@ def test_engine_spec_staggered_matches_solo_generate(served):
     assert engine.sched.n_free == 2
 
 
-# ------------------------------------------------- jamba: mamba rollback
+# ------------------------ jamba: mamba rollback; deepseek: the MLA latent
+
+ROLLBACK_ARCHS = ["jamba-v0.1-52b", "deepseek-v3-671b"]
 
 
 @pytest.mark.parametrize("k", [4, 16])
 def test_jamba_spec_rolls_back_mamba_state(served, k):
     """jamba smoke (mamba and attention layers, MoE FFNs): the random head
     rejects drafts mid-block, so every tick restores the mamba rows from
-    their snapshots; the tokens are dense decode's."""
+    their snapshots; the tokens are dense decode's (deepseek's MLA
+    rollback: ``test_deepseek_spec_matches_jax_and_dense``)."""
     s = served("jamba-v0.1-52b")
     prompts = torch.from_numpy(np.array(s["prompts"]))
     dense = s["lms"]["dense"].generate(prompts, GEN)
@@ -244,12 +265,13 @@ def test_jamba_spec_rolls_back_mamba_state(served, k):
     assert stats["accepted_draft_tokens"] < stats["draft_tokens"]
 
 
-def test_jamba_rollback_equals_dense_steps(served):
+@pytest.mark.parametrize("arch", ROLLBACK_ARCHS)
+def test_jamba_rollback_equals_dense_steps(served, arch):
     """One speculative tick that commits m < K steps leaves the cache (the
-    mamba conv and state rows, the KV cache up to the rewound position)
-    bit for bit where m dense decode steps leave it."""
+    mamba conv and state rows, the KV and MLA caches up to the rewound
+    position) bit for bit where m dense decode steps leave it."""
     from repro_torch.launch.steps import prefill_step_, serve_step_
-    s = served("jamba-v0.1-52b")
+    s = served(arch)
     lm, dense = s["lms"]["fused"], s["lms"]["dense"]
     cfg, p = lm.cfg, s["prompts"].shape[1]
     prompts = torch.from_numpy(np.array(s["prompts"]))
@@ -271,12 +293,11 @@ def test_jamba_rollback_equals_dense_steps(served):
                                   pos=p + i)
             step_tok = lg.argmax(-1)
             assert torch.equal(step_tok, block[i])
-    for j, kind in enumerate(cfg.pattern):
-        name = f"pos{j}"
-        for got, want in zip(loop.cache["periods"][name],
-                             ref["periods"][name]):
+    for key, c in model.cache_stacks(loop.cache):
+        kind = model.stack_kind(cfg, key)
+        for got, want in zip(c, ref[key[0]][key[1]]):
             if kind == "mamba":
-                assert torch.equal(got, want), name
+                assert torch.equal(got, want), key
             else:                # positions past the rewound one are masked
                 assert torch.equal(got[:, :, :p + m], want[:, :, :p + m])
 
@@ -321,7 +342,7 @@ def test_eos_mid_block_engine(served):
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "gemma2-27b",
-                                  "jamba-v0.1-52b"])
+                                  "jamba-v0.1-52b", "deepseek-v3-671b"])
 @pytest.mark.parametrize("gen_len,k", [(2, 1), (7, 3), (12, 4)])
 def test_dense_draft_accepts_everything(served, arch, gen_len, k):
     """With the dense head as the draft, every draft is its own verify:
@@ -393,7 +414,7 @@ def test_generate_prefills_into_the_loops_cache():
         want_logits, want = prefill_step(lm.params, prompts, lm.cfg, cache)
         got_logits, got = prefill_step_(lm.params, prompts, lm.cfg, cache)
     assert got is cache and torch.equal(got_logits, want_logits)
-    for a, b in zip(model._each_leaf(got), model._each_leaf(want)):
+    for a, b in zip(model.cache_leaves(got), model.cache_leaves(want)):
         assert torch.equal(a, b)
 
 
