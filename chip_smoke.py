@@ -182,14 +182,43 @@ kernels through the same wrappers and checks.
    width and depth (32 self-attention layers, flash_attn 32 a prefill, and
    8 cross-attention layers over stub encoder states (4, 1600, 4096) bf16
    drawn from the seed; its engine is refused, as in the JAX package).
-17. Prints the ``{"kernels": [...]}`` line (race_update's launches from the
+17. flash_attn_bwd kernel phase (after the flash_attn phase; PR 24): the
+   forward with its row log-sum-exp against without it (the output's bits
+   unchanged) and the lse within ``parity.flash_attn_lse_tol`` of the
+   plain one; then the backward kernel against
+   ``flash_attention_bwd_ref`` on the same q, k, v, out, dout and lse,
+   dq, dk, dv within ``parity.flash_attn_bwd_tol`` (plus one bf16 ulp),
+   two launches bit for bit equal, at musicgen-large's training shape
+   (8, 128, 32/32, 64), gemma2-27b's layer (H 32, Hkv 16, dh 128, softcap
+   50) at S = 4160 with its 4096 window and the softcap-free twin, and at
+   S = 1024 with a 64-token window, stablelm's dh 160, MLA's dh 192 and
+   the f32 path; timed beside the plain backward and a library backward
+   (SDPA's on the softcap-free function; compiled flex_attention's with
+   the softcap at S = 4160); ``bound_ms`` prices the gradient's four
+   products at the bf16 tensor-core peak (``bound_with_recompute_ms`` adds
+   the recomputed scores).
+18. Training (PR 24, after the last arch): musicgen-large at full width and
+   depth (48 layers, d 2048, vocab 2048; 3.23 B params, 51.7 GB of state
+   with the grads) through ``launch.train.train`` for 12 steps at B = 8, S
+   = 128 (the CLI's defaults): per step flash_attn 96 launches (48 forward,
+   48 remat recomputes) and flash_attn_bwd 48; finite losses, the last
+   below the first; the peak memory; ms a step split into forward+backward
+   and the optimizer (CUDA events), a profiled step (busy share,
+   attention's kernel share, top kernels), and one step at B = 4, S =
+   2048 (ungated: attention's share at length).  Then the resume check at
+   2 of 48 layers: 6 steps saving at step 3, a new run restored from that
+   checkpoint, its params and optimizer state equal to the continuous
+   run's bit for bit; a restore into a fresh state allocates no more than
+   the largest leaf beyond it (the restore copies in place).
+19. Prints the ``{"kernels": [...]}`` line (race_update's launches from the
    refresh path, race_query's from the paper phase, flash_attn's from the
    gemma2 main path with its record at the main path's global-layer
    prefill, flex_attention as its library call, softcap-free kernel and
    SDPA times beside it, the long prefill's global case under
-   ``long_prefill_*`` and the MLA prefill case under ``mla_prefill_*``),
-   the card line,
-   and last ``{"ok": true, "device": {...}}``.
+   ``long_prefill_*`` and the MLA prefill case under ``mla_prefill_*``;
+   flash_attn_bwd's launches from the training run, its record at
+   musicgen's training shape and every case under ``cases``), the card
+   line, and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the exit code is non-zero and the last line
 is not printed.  Without a CUDA device it exits non-zero at once.
@@ -205,6 +234,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -220,7 +250,9 @@ from repro_torch.configs import get_config
 from repro_torch.core.sketch_lm_head import (dequantize_head, freeze_head, quantize_counts,
                                              quantize_head)
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attn.ops import flash_attention, flash_attention_ref
+from repro_torch.kernels.flash_attn.ops import (flash_attention, flash_attention_bwd,
+                                               flash_attention_bwd_ref, flash_attention_lse,
+                                               flash_attention_lse_ref, flash_attention_ref)
 from repro_torch.kernels.fused_decode.ops import fused_decode_logits, fused_decode_ref
 from repro_torch.kernels.lsh_hash.ops import lsh_hash, lsh_hash_ref
 from repro_torch.kernels.race_query.ops import (race_query, race_query_ordered_ref,
@@ -230,24 +262,28 @@ from repro_torch.kernels.race_update.ops import (race_update, race_update_counts
                                                  race_update_ordered_ref, race_update_ref)
 from repro_torch.parity import (BF16_MAX_TOL, BF16_NORM_TOL, assert_bf16_backbone_close,
                                 assert_flash_attn_close, bf16_backbone_errors,
-                                check_hash_indices, flash_attn_tol,
+                                check_hash_indices, flash_attn_bwd_tol,
+                                flash_attn_lse_tol, flash_attn_tol,
                                 flash_attn_tol_ratio, gather_atol,
                                 race_query_tol, race_update_tol)
 from repro_torch.kernels.sketch_head.ops import (dequantize_sketch_ref,
                                                  sketch_head_logits,
                                                  sketch_head_ordered_ref,
                                                  sketch_head_ref)
+from repro_torch.data.pipeline import DataConfig, synthetic_batch
 from repro_torch.data.tabular import DATASETS
 from repro_torch.launch import paper_repro, serve
 from repro_torch.launch.decode_loop import WARMUP_STEPS, SpecLoop
 from repro_torch.launch.engine import EngineBackend
 from repro_torch.launch.serve import engine_stream
+from repro_torch.launch import steps as steps_mod
 from repro_torch.launch.steps import prefill_step, prefill_step_, serve_step, serve_step_
 from repro_torch.models import blocks, model
 from repro_torch.models.attention import KVCache
 from repro_torch.models.config import SketchHeadConfig
 from repro_torch.models.layers import (apply_rope, embed_scaled, init_dense, rms_norm,
                                       softcap)
+from repro_torch.optim.adamw import OptimizerConfig, adamw_update
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
@@ -271,6 +307,11 @@ KERNELS = {   # name: (wrapper, source, TPU kernel it replaces)
                    "src/repro/kernels/race_query/kernel.py:29"),
     "flash_attn": (flash_attention, "src/repro_torch/kernels/csrc/flash_attn.cu",
                    "src/repro/kernels/flash_attn/kernel.py:40"),
+    # No TPU counterpart: the JAX package trains on plain jnp attention
+    # (_attend_* at models/attention.py:416-428) and XLA differentiates it.
+    "flash_attn_bwd": (flash_attention_bwd, "src/repro_torch/kernels/csrc/flash_attn_bwd.cu",
+                       "src/repro/models/attention.py:416 (no TPU kernel: the gradient XLA "
+                       "takes of _attend_*)"),
 }
 N_REQUESTS, SLOTS, TENANT_SLOTS, CAPACITY = 12, 4, 2, 2
 REFRESH_PROMPTS = 8                 # x PROMPT tokens = M = 256 refresh points
@@ -300,6 +341,13 @@ PAGE_SIZE = 16                      # the paged engine's tokens a page
 MEMO_PROMPTS = (16, 32, 64)         # generate's prompt lengths in the memo phase
 MEMO_LONG = 4100                    # a prompt past gemma2's 4096-slot window
 MLA_PREFILL = "MLA prefill (deepseek-v3), dh=192, H=Hkv=128"
+# Training (PR 24): musicgen-large at full width and depth through the train
+# entry point, the CLI's B and S, then one step at length; the resume check
+# at RESUME_LAYERS of its 48 layers.
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "musicgen-large", 8, 128, 12
+TRAIN_LONG = (4, 2048)
+RESUME_LAYERS, RESUME_STEPS, RESUME_AT = 2, 6, 3
+MUSICGEN_TRAIN = "musicgen-large training (B 8, S 128, MHA 32, dh 64)"
 
 
 def card_line() -> str:
@@ -1776,6 +1824,320 @@ def flash_phase(dev, timer):
     return recs
 
 
+def flash_bwd_cases():
+    """(label, B, S, H, Hkv, dh, dtype, window, softcap, flex) of the
+    flash_attn_bwd phase: musicgen-large's training shape, gemma2-27b's
+    layer (GQA 32/16, dh 128, softcap 50) at the 4160-token length with its
+    4096 window (and the softcap-free twin) and with a 64-token window
+    that bites, stablelm-12b's dh 160, deepseek-v3's MLA dh 192, and the
+    f32 path.  ``flex``: the yardstick is compiled flex_attention's
+    backward (else SDPA's on the softcap-free function)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    g = (32, 16, 128)
+    return [
+        (MUSICGEN_TRAIN, TRAIN_BATCH, TRAIN_SEQ, 32, 32, 64, bf16, None, None, False),
+        ("gemma2 layer, S=4160, window 4096, softcap 50", 1, GEMMA_LONG, *g, bf16, 4096,
+         50.0, True),
+        ("gemma2 layer, S=4160, window 4096, softcap-free", 1, GEMMA_LONG, *g, bf16, 4096,
+         None, False),
+        ("gemma2 layer, S=1024, window 64, softcap 50 (yardstick softcap-free)", 2, 1024, *g,
+         bf16, 64, 50.0, False),
+        ("stablelm dh=160, Hkv=8, S=1000", 2, 1000, 32, 8, 160, bf16, None, None, False),
+        ("MLA dh=192, H=Hkv=128, S=32", BATCH, PROMPT, 128, 128, 192, bf16, None, None, False),
+        ("f32, S=200, window 64, softcap 30", 2, 200, 8, 4, 128, f32, 64, 30.0, False)]
+
+
+def check_flash_bwd(timer, gen, b, s, h, hkv, dh, dtype, window, cap, flex):
+    """The forward with lse against without (the same output bits) and its
+    lse within ``flash_attn_lse_tol`` of the plain one; then
+    flash_attention_bwd against flash_attention_bwd_ref on the same q, k,
+    v, out, dout and lse, dq, dk and dv within ``flash_attn_bwd_tol`` (plus
+    one bf16 ulp for bf16), two launches bit for bit equal; timed beside
+    the plain version and the backward of one PyTorch call computing the
+    forward (SDPA without the softcap, compiled flex_attention with it);
+    returns the record."""
+    dev = gen.device
+    q = torch.randn((b, s, h, dh), generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((b, s, hkv, dh), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    dout = torch.randn((b, s, h, dh), generator=gen, device=dev).to(dtype)
+    plain_out = flash_attention(q, k, v, window=window, softcap=cap)
+    out, lse = flash_attention_lse(q, k, v, window=window, softcap=cap)
+    if not torch.equal(out, plain_out):
+        raise AssertionError("flash_attn: writing lse changed the output's bits")
+    del plain_out
+    lse_ref = flash_attention_lse_ref(q, k, v, window=window, softcap=cap)[1]
+    lse_tol = flash_attn_lse_tol(q, k, window, cap)
+    lse_ratio = float(((lse.double() - lse_ref.double()).abs() / lse_tol).max())
+    if not lse_ratio <= 1.0:
+        raise AssertionError(f"flash_attn lse beyond its bound: ratio {lse_ratio}")
+    del lse_ref, lse_tol
+    got = flash_attention_bwd(q, k, v, out, dout, lse, window=window, softcap=cap)
+    again = flash_attention_bwd(q, k, v, out, dout, lse, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError("flash_attn_bwd: two launches gave different bits")
+    del again
+    want = flash_attention_bwd_ref(q, k, v, out, dout, lse, window=window, softcap=cap)
+    tols = flash_attn_bwd_tol(q, k, v, out, dout, lse, window, cap)
+    rec = dict(lse_tol_ratio=lse_ratio)
+    errs = []
+    for name, x, y, t in zip(("dq", "dk", "dv"), got, want, tols):
+        errs.append(assert_flash_attn_close(x, y, t, name=f"flash_attn_bwd {name}"))
+        rec[f"tol_ratio_{name}"] = flash_attn_tol_ratio(x, y, t)
+    del tols
+    rec["max_abs_err"] = max(errs)
+    rec["tol_ratio"] = max(rec[f"tol_ratio_{n}"] for n in ("dq", "dk", "dv"))
+    rec["ms"] = timer.ms(lambda: flash_attention_bwd(q, k, v, out, dout, lse, window=window,
+                                                     softcap=cap))
+    rec["plain_ms"] = timer.ms(lambda: flash_attention_bwd_ref(q, k, v, out, dout, lse,
+                                                               window=window, softcap=cap))
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+    dot = dout.transpose(1, 2).contiguous()
+    if flex:
+        lo = flex_call(qt, kt, vt, window, cap)()
+        rec["library"] = "flex_attention (torch.compile) backward"
+    else:
+        mask = None
+        if window is not None:
+            i = torch.arange(s, device=dev)
+            mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
+        lo = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                            is_causal=mask is None, enable_gqa=True)
+        rec["library"] = ("scaled_dot_product_attention backward"
+                          + (" (softcap-free twin)" if cap else ""))
+
+    def lib():
+        return torch.autograd.grad(lo, (qt, kt, vt), dot, retain_graph=True)
+
+    if not cap or flex:
+        # A yardstick, checked loosely (its bf16 path rounds p to bf16):
+        # each gradient within 5 % in norm of the plain backward's.
+        for name, x, y in zip(("dq", "dk", "dv"), lib(), want):
+            x = x.transpose(1, 2).float()
+            rel = float((x - y.float()).norm() / y.float().norm().clamp_min(1e-30))
+            if not rel < 0.05:
+                raise AssertionError(f"{rec['library']} {name} disagrees by {rel} in norm")
+    rec["library_ms"] = timer.ms(lib)
+    del lo, got, want
+    size = q.element_size()
+    pairs = b * h * live_pairs(s, window)
+    # q, k, v, out, dout read, dq, dk, dv written, and the f32 lse.
+    rec["bytes"] = size * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) + 4 * lse.numel()
+    rec["ops"] = 8 * dh * pairs                 # dv, dp, dq, dk
+    rec["recompute_ops"] = 2 * dh * pairs       # s, recomputed
+    peak = BF16_TC_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
+    rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], rec["ops"], peak)
+    rec["bound_with_recompute_ms"] = bound(rec["bytes"], rec["ops"] + rec["recompute_ops"],
+                                           peak)[0]
+    # The kernel's own work: s and dp in both kernels, on the CUDA cores.
+    rec["kernel_f32_core_ms"] = 14 * dh * pairs / F32_FLOP_PER_S * 1e3
+    return rec
+
+
+def flash_bwd_phase(dev, timer):
+    """flash_attn_bwd against its plain version at every case of
+    ``flash_bwd_cases``; returns {label: record}."""
+    gen = torch.Generator(dev).manual_seed(9)
+    recs = {}
+    for label, b, s, h, hkv, dh, dtype, window, cap, flex in flash_bwd_cases():
+        t0 = time.perf_counter()
+        rec = check_flash_bwd(timer, gen, b, s, h, hkv, dh, dtype, window, cap, flex)
+        rec["seconds"] = round(time.perf_counter() - t0, 1)
+        recs[label] = rec
+        print("kernel_case " + json.dumps(dict(
+            kernel="flash_attn_bwd", entry=label, B=b, S=s, H=h, Hkv=hkv, dh=dh,
+            dtype=str(dtype), window=window, softcap=cap, **rec)), flush=True)
+        free_card()
+    print("flash_attn_bwd: every case within its bound of the plain backward, bit-stable "
+          "over two launches; the forward's output bits unchanged by lse", flush=True)
+    return recs
+
+
+def train_batch(cfg, b, s, step, dev):
+    """The train CLI's batch of ``step`` (``data.pipeline``) on ``dev``."""
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b,
+                      n_encoder_tokens=cfg.n_encoder_tokens, d_model=cfg.d_model)
+    return {k: torch.from_numpy(v).to(dev) for k, v in synthetic_batch(data, step).items()}
+
+
+def kernel_share(fn):
+    """``fn`` once under torch.profiler (device activity only): (its
+    result, kernel ms, kernel launches, ms of the attention kernels
+    (flash_attn's forward, flash_attn_bwd's three), the top kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    n = 0
+    for e in prof.events():
+        if e.device_type.name == "CUDA":
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            n += 1
+    attn = sum(t for name, t in by_name.items()
+               if "flash_attn" in name or "dkdv_kernel" in name or "dq_kernel" in name
+               or "dot_kernel" in name)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return (out, sum(by_name.values()), n, attn,
+            [(name[:50], round(t, 2)) for name, t in top])
+
+
+def train_phase(dev, timer):
+    """musicgen-large at full width and depth through ``launch.train.train``
+    (TRAIN_STEPS steps at B, S = TRAIN_BATCH, TRAIN_SEQ): per step, flash_attn
+    launched twice a layer (forward and remat recompute) and flash_attn_bwd
+    once; finite losses, the last below the first; the peak memory.  Then
+    on the trained state: ms a step split into forward+backward and the
+    optimizer (CUDA events), a profiled step (busy share, attention's
+    share, top kernels), and one step at TRAIN_LONG (ungated: attention's
+    share at length).  Returns the launch counts of the run."""
+    from repro_torch.launch import train as train_cli
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    n_attn = attn_layers(cfg)
+    per_step = {"flash_attn": 2 * n_attn, "flash_attn_bwd": n_attn}
+    total = {name: 0 for name in KERNELS}
+    steps = []
+
+    def on_step(step, metrics):
+        launched = counts()
+        expect_launches(f"train step {step}", launched, per_step)
+        for name, n in launched.items():
+            total[name] += n
+        steps.append(metrics)
+        reset_counts()
+
+    torch.cuda.reset_peak_memory_stats()
+    lines = []
+    reset_counts()
+    out = train_cli.train(TRAIN_ARCH, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                          device=dev, log_every=1, on_step=on_step, log=lines.append)
+    t_run = time.perf_counter() - t_phase
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = out["losses"]
+    for line in lines:
+        print(f"  train: {line}")
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{TRAIN_ARCH} training: losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{TRAIN_ARCH} training: the loss did not fall: {losses}")
+    params, opt_state = out["params"], out["opt_state"]
+    n_params = sum(t.numel() for t in leaves(params))
+    state_gib = (sum(t.numel() * t.element_size() for t in leaves(params)) * 2 + sum(
+        t.numel() * t.element_size() for t in leaves(list(opt_state)))) / 2 ** 30
+    print(f"{TRAIN_ARCH} training at full width and depth ({cfg.n_layers} layers, "
+          f"{n_params / 1e9:.3f} B params, state {state_gib:.1f} GiB with the grads): "
+          f"{TRAIN_STEPS} steps of B={TRAIN_BATCH}, S={TRAIN_SEQ} in {out['seconds']:.1f} s; "
+          f"losses {[round(x, 4) for x in losses]}; launches a step {per_step}; "
+          f"peak {peak:.1f} GiB allocated; {t_run:.1f} s with the init", flush=True)
+
+    opt_cfg = OptimizerConfig(lr=3e-4, warmup_steps=max(TRAIN_STEPS // 10, 1),
+                              total_steps=TRAIN_STEPS)
+    split = []
+    for i in range(3):
+        batch = train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS + i, dev)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        _, _, grads = steps_mod.loss_and_grads(params, batch, cfg, opt_cfg)
+        ev[1].record()
+        params, opt_state, _ = adamw_update(grads, opt_state, opt_cfg, params=params)
+        ev[2].record()
+        torch.cuda.synchronize()
+        del grads
+        split.append((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]),
+                      (time.perf_counter() - t0) * 1e3))
+    fb, opt, wall = (float(np.median([x[j] for x in split])) for j in range(3))
+    # The optimizer's least traffic: each grad, moment and master read once,
+    # each moment, master and param written once.
+    opt_bytes = 2 * sum(t.numel() * t.element_size() for t in leaves(
+        [params, opt_state.mu, opt_state.nu, opt_state.master]))
+    opt_bound = opt_bytes / HBM_BYTES_PER_S * 1e3
+    batch = train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS + 3, dev)
+    (params, opt_state, _), kt, n_k, attn, top = kernel_share(
+        lambda: steps_mod.train_step(params, opt_state, batch, cfg, opt_cfg))
+    print(f"{TRAIN_ARCH} train step (B={TRAIN_BATCH}, S={TRAIN_SEQ}): forward+backward "
+          f"{fb:.2f} ms, optimizer {opt:.2f} ms (bound {opt_bound:.2f} ms: "
+          f"{opt_bytes / 1e9:.1f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; CUDA events, median "
+          f"of 3), wall {wall:.2f} "
+          f"ms; profiled: {kt:.2f} ms of kernels in {n_k} launches (busy {kt / wall:.3f} "
+          f"of the unprofiled wall), attention kernels {attn:.2f} ms ({attn / kt:.3f}); "
+          f"top kernels {top}; {time.perf_counter() - t_phase:.1f} s so far", flush=True)
+    del batch
+    free_card()
+
+    b, s = TRAIN_LONG
+    batch = train_batch(cfg, b, s, 0, dev)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reset_counts()
+    params, opt_state, m = steps_mod.train_step(params, opt_state, batch, cfg, opt_cfg)
+    torch.cuda.synchronize()
+    lwall = (time.perf_counter() - t0) * 1e3
+    expect_launches(f"train step at B={b}, S={s}", counts(), per_step)
+    (params, opt_state, m), kt, n_k, attn, top = kernel_share(
+        lambda: steps_mod.train_step(params, opt_state, batch, cfg, opt_cfg))
+    lpeak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"{TRAIN_ARCH} train step at B={b}, S={s}: {lwall:.1f} ms wall, loss "
+          f"{float(m['loss']):.4f}; profiled {kt:.1f} ms of kernels in {n_k} launches (busy "
+          f"{kt / lwall:.3f}), attention kernels {attn:.1f} ms ({attn / kt:.3f}); top "
+          f"kernels {top}; peak {lpeak:.1f} GiB; phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return total, dict(losses=losses, peak_gib=peak, fwd_bwd_ms=fb, optimizer_ms=opt,
+                       optimizer_bound_ms=opt_bound,
+                       step_wall_ms=wall)
+
+
+def resume_phase(dev):
+    """musicgen-large at RESUME_LAYERS layers through the train entry
+    point: RESUME_STEPS steps saving a checkpoint at RESUME_AT, then a new
+    run from that checkpoint to RESUME_STEPS; its final params and
+    optimizer state equal the continuous run's bit for bit.  A restore
+    of that checkpoint into a fresh state allocates on the card no more
+    than the largest leaf beyond the state it fills (it copies in place,
+    so musicgen's 42 GiB state at full depth restores on one card)."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch import train as train_cli
+    from repro_torch.optim.adamw import init_adamw
+    t0 = time.perf_counter()
+    kw = dict(steps=RESUME_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, device=dev,
+              n_layers=RESUME_LAYERS, ckpt_every=RESUME_AT, log=lambda line: None)
+    with tempfile.TemporaryDirectory() as tmp:
+        cont = train_cli.train(TRAIN_ARCH, ckpt_dir=tmp, **kw)
+        resumed = train_cli.train(TRAIN_ARCH, ckpt_dir=tmp, **kw)
+        params = model.init_model(get_config(TRAIN_ARCH).scaled(n_layers=RESUME_LAYERS),
+                                  torch.Generator(dev).manual_seed(1))
+        template = (params, init_adamw(params))
+        largest = max(t.numel() * t.element_size() for t in leaves([params, list(template[1])]))
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        restored, _ = CheckpointManager(tmp).restore(template)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - before
+        del params, template, restored
+    if extra > largest:
+        raise AssertionError(f"a restore allocated {extra} B beyond its template, more than "
+                             f"the largest leaf's {largest} B")
+    if resumed["start"] != RESUME_AT + 1:
+        raise AssertionError(f"resume started at {resumed['start']}")
+    a = list(leaves([cont["params"], list(cont["opt_state"])]))
+    r = list(leaves([resumed["params"], list(resumed["opt_state"])]))
+    bad = [i for i, (x, y) in enumerate(zip(a, r)) if not torch.equal(x, y)]
+    if bad or cont["losses"][RESUME_AT + 1:] != resumed["losses"]:
+        raise AssertionError(f"the resumed run differs from the continuous one: leaves {bad}, "
+                             f"losses {cont['losses']} vs {resumed['losses']}")
+    print(f"{TRAIN_ARCH} at {RESUME_LAYERS} layers: resumed at step {RESUME_AT} equals the "
+          f"continuous run bit for bit ({len(a)} leaves, losses "
+          f"{[round(x, 6) for x in resumed['losses']]}); the restore allocated {extra} B "
+          f"beyond its template (largest leaf {largest} B); {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 def free_card():
     gc.collect()
     torch.cuda.empty_cache()
@@ -2604,6 +2966,7 @@ def main() -> None:
         return
     timed("race_update", race_phase, dev, timer)
     flash = timed("flash_attn", flash_phase, dev, timer)
+    flash_bwd = timed("flash_attn_bwd", flash_bwd_phase, dev, timer)
     timed("backbone", backbone_phase, dev)
     runs, recs, lm, frozen, kparams, loop_args = timed("main path", main_path, dev, timer)
     loop_ms = timed("decode loop", decode_loop_phase, *loop_args)
@@ -2641,6 +3004,9 @@ def main() -> None:
               spec_engines_phase if arch.startswith("jamba") else None)
     for arch, n_layers, per_layer in NEW_ARCHS:
         timed(arch, arch_phase, dev, arch, n_layers, per_layer, spec_engines_phase)
+    train_launches, _ = timed("musicgen-large training", train_phase, dev, timer)
+    free_card()
+    timed("training resume", resume_phase, dev)
     print(f"phase seconds: {phase_seconds}")
     long, mla = flash["long prefill, global"], flash[MLA_PREFILL]
     recs["flash_attn"] = dict(flash["main prefill, global"],
@@ -2653,6 +3019,11 @@ def main() -> None:
                               **{f"mla_prefill_{k}": mla[k] for k in (
                                   "ms", "plain_ms", "bound_ms", "library_ms",
                                   "max_abs_err", "tol_ratio")})
+    recs["flash_attn_bwd"] = dict(flash_bwd[MUSICGEN_TRAIN], cases={
+        label: {k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "bound_with_recompute_ms", "library_ms", "library",
+                                    "tol_ratio", "lse_tol_ratio")}
+        for label, rec in flash_bwd.items()})
 
     line = []
     for name, (_, source, replaces) in KERNELS.items():
@@ -2663,6 +3034,8 @@ def main() -> None:
             launches = query_launches
         elif name == "flash_attn":
             launches = gruns["fused"][-1]["launches"][name]
+        elif name == "flash_attn_bwd":
+            launches = train_launches[name]
         else:
             launches = runs["two_kernel" if name != "fused_decode" else "fused"][-1][
                 "launches"][name]
@@ -2671,7 +3044,7 @@ def main() -> None:
                          plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
                          bound_by=rec["bound_by"], library_ms=rec["library_ms"],
                          **{k: v for k, v in rec.items()
-                            if k.endswith("softcap_free")
+                            if k.endswith("softcap_free") or k == "cases"
                             or k.startswith(("long_prefill_", "mla_prefill_"))}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))

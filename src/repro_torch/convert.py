@@ -16,7 +16,10 @@ the keys it expects.  :func:`decode_cache_from_numpy` carries a decode
 cache (``{"prologue": [cache, ...], "periods": {"pos<j>": cache}}`` with
 ``KVCache``, ``MLACache``, ``MambaCache`` or ``RWKVCache`` layer caches,
 or None, numpy leaves).  A deepseek-style ``prologue`` list of params
-travels as a list.
+travels as a list.  :func:`opt_state_from_numpy` carries an AdamW state
+(``step``, ``mu``, ``nu``, ``master``: the JAX package's ``AdamWState``
+with numpy leaves), so that both packages start a step from the same
+state.
 """
 
 from __future__ import annotations
@@ -107,3 +110,26 @@ def decode_cache_from_numpy(cache, device="cuda") -> dict:
         out["prologue"] = [layer_cache(f"prologue[{i}]", layer, (1,))
                            for i, layer in enumerate(cache["prologue"])]
     return out
+
+
+def opt_state_from_numpy(state, device="cuda"):
+    """The port's ``AdamWState`` from the JAX package's (a NamedTuple, or
+    a dict, of ``step``, ``mu``, ``nu`` and ``master``, numpy leaves;
+    ``master`` None in lean mode), bit for bit; ``step`` stays a 0-d
+    int32 tensor on ``device``."""
+    from repro_torch.optim.adamw import AdamWState
+
+    fields = AdamWState._fields
+    if not isinstance(state, dict):
+        state = {f: getattr(state, f) for f in getattr(state, "_fields", ())}
+    _checked(state, fields, "an AdamW state")
+    step = np.asarray(state["step"])
+    if step.shape != () or step.dtype != np.int32:
+        raise ValueError(f"step must be a 0-d int32, got {step.dtype} "
+                         f"{step.shape}")
+    return AdamWState(
+        step=_leaf(step, device),
+        mu=params_from_numpy(state["mu"], device),
+        nu=params_from_numpy(state["nu"], device),
+        master=(None if state["master"] is None
+                else params_from_numpy(state["master"], device)))

@@ -98,9 +98,9 @@ size_t smem_bytes(int dh) {
 template <int DPL>
 __global__ void __launch_bounds__(kThreads)
 flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ out, int S,
-                  int H, int Hkv, int dh, float scale, int window,
-                  float softcap) {
+                  const float* __restrict__ v, float* __restrict__ out,
+                  float* __restrict__ lse, int S, int H, int Hkv, int dh,
+                  float scale, int window, float softcap) {
   extern __shared__ float4 smem4[];
   float* q_s = reinterpret_cast<float*>(smem4);   // (kBlockQ, dh)
   const int ldk = dh + kKPad;
@@ -230,6 +230,10 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int qpos = q0 + row0 + r;
     if (qpos >= S) continue;
     const float denom = fmaxf(l[r], 1e-30f);
+    // l >= 1 (the row maximum's own term), so log(l) is finite.
+    if (lse != nullptr && lane == 0)
+      lse[(static_cast<int64_t>(b) * H + h) * S + qpos] =
+          __fadd_rn(m[r], logf(l[r]));
     float* orow = out + static_cast<int64_t>(b) * S * q_step + qpos * q_step + h * dh;
 #pragma unroll
     for (int i = 0; i < DPL; ++i) {
@@ -240,8 +244,8 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int DPL>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int S, int H, int Hkv, int dh, float scale, int window,
+int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+           int B, int S, int H, int Hkv, int dh, float scale, int window,
            float softcap, cudaStream_t stream) {
   const size_t smem = smem_bytes(dh);
   auto kernel = flash_attn_kernel<DPL>;
@@ -252,18 +256,18 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const dim3 grid((S + kBlockQ - 1) / kBlockQ, B * H);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), S, H, Hkv, dh,
-      scale, window, softcap);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, S, H, Hkv,
+      dh, scale, window, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_dh(const void* q, const void* k, const void* v, void* out, int B,
-              int S, int H, int Hkv, int dh, float scale, int window,
-              float softcap, cudaStream_t stream) {
+int launch_dh(const void* q, const void* k, const void* v, void* out,
+              float* lse, int B, int S, int H, int Hkv, int dh, float scale,
+              int window, float softcap, cudaStream_t stream) {
   switch ((dh + 31) / 32) {
-#define FLASH_CASE(n)                                                     \
-  case n:                                                                 \
-    return launch<n>(q, k, v, out, B, S, H, Hkv, dh, scale, window, \
+#define FLASH_CASE(n)                                                      \
+  case n:                                                                  \
+    return launch<n>(q, k, v, out, lse, B, S, H, Hkv, dh, scale, window, \
                      softcap, stream);
     FLASH_CASE(1) FLASH_CASE(2) FLASH_CASE(3) FLASH_CASE(4)
     FLASH_CASE(5) FLASH_CASE(6) FLASH_CASE(7) FLASH_CASE(8)
@@ -631,9 +635,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_attn_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v,
-                     bf16* __restrict__ out, int S, int H, int Hkv,
-                     int heads_per_block, float scale, int window,
-                     float softcap) {
+                     bf16* __restrict__ out, float* __restrict__ lse, int S,
+                     int H, int Hkv, int heads_per_block, float scale,
+                     int window, float softcap) {
   using C = Cfg<DH>;
   constexpr int W = C::W, BK = C::BK;
   extern __shared__ uint8_t smem_raw[];
@@ -812,6 +816,10 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       if (qpos >= S) continue;
       // The 2^16 of the p terms comes out exactly here.
       const float denom = __fmul_rn(fmaxf(l[r], 1e-30f), kPScale);
+      // l sums the unscaled p (the 2^16 sits in o only), and l >= 1.
+      if (lse != nullptr && quad == 0)
+        lse[(static_cast<int64_t>(b) * H + head) * S + qpos] =
+            __fadd_rn(m[r], logf(l[r]));
       bf16* orow =
           out + ((static_cast<int64_t>(b) * S + qpos) * H + head) * DH;
 #pragma unroll
@@ -866,9 +874,9 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
 }
 
 template <int DH>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int S, int H, int Hkv, float scale, int window, float softcap,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+           int B, int S, int H, int Hkv, float scale, int window,
+           float softcap, cudaStream_t stream) {
   using C = Cfg<DH>;
   CUtensorMap mq, mk, mv;
   if (!make_map(&mq, q, B, S, H, DH, kRows, C::W) ||
@@ -886,19 +894,19 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
       static_cast<int>(C::kSmem));
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<static_cast<unsigned>(blocks), kThreads, C::kSmem, stream>>>(
-      mq, mk, mv, static_cast<bf16*>(out), S, H, Hkv, heads_per_block, scale,
-      window, softcap);
+      mq, mk, mv, static_cast<bf16*>(out), lse, S, H, Hkv, heads_per_block,
+      scale, window, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_dh(const void* q, const void* k, const void* v, void* out, int B,
-              int S, int H, int Hkv, int dh, float scale, int window,
-              float softcap, cudaStream_t stream) {
+int launch_dh(const void* q, const void* k, const void* v, void* out,
+              float* lse, int B, int S, int H, int Hkv, int dh, float scale,
+              int window, float softcap, cudaStream_t stream) {
   switch (dh) {
-#define FLASH_CASE(n)                                                      \
-  case n:                                                                  \
-    return launch<n>(q, k, v, out, B, S, H, Hkv, scale, window, softcap, \
-                     stream);
+#define FLASH_CASE(n)                                                    \
+  case n:                                                                \
+    return launch<n>(q, k, v, out, lse, B, S, H, Hkv, scale, window,   \
+                     softcap, stream);
     FLASH_CASE(16) FLASH_CASE(32) FLASH_CASE(48) FLASH_CASE(64)
     FLASH_CASE(80) FLASH_CASE(96) FLASH_CASE(112) FLASH_CASE(128)
     FLASH_CASE(144) FLASH_CASE(160) FLASH_CASE(176) FLASH_CASE(192)
@@ -914,21 +922,23 @@ int launch_dh(const void* q, const void* k, const void* v, void* out, int B,
 }  // namespace
 
 // dtype: 0 f32 (CUDA cores), 1 bf16 (tensor cores).  window <= 0: no
-// window; softcap <= 0: none.
+// window; softcap <= 0: none.  lse: null, or a (B, H, S) f32 output of each
+// row's log-sum-exp m + log(l) over its live scores (what the backward,
+// flash_attn_bwd.cu, recomputes p from); writing it changes no other bit.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
-                                 void* out, int B, int S, int H, int Hkv,
-                                 int dh, float scale, int window,
+                                 void* out, float* lse, int B, int S, int H,
+                                 int Hkv, int dh, float scale, int window,
                                  float softcap, int dtype,
                                  cudaStream_t stream) {
   if (dh < 16 || dh > 256 || dh % 16 || Hkv < 1 || H % Hkv || B < 1 ||
       S < 1 || B * H > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return f32::launch_dh(q, k, v, out, B, S, H, Hkv, dh, scale, window,
-                          softcap, stream);
+    return f32::launch_dh(q, k, v, out, lse, B, S, H, Hkv, dh, scale,
+                          window, softcap, stream);
   if (dtype == 1)
-    return tc::launch_dh(q, k, v, out, B, S, H, Hkv, dh, scale, window,
-                         softcap, stream);
+    return tc::launch_dh(q, k, v, out, lse, B, S, H, Hkv, dh, scale,
+                         window, softcap, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

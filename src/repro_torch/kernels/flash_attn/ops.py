@@ -1,5 +1,5 @@
-"""Causal flash attention (the bulk prefill's attention): kernel wrapper and
-plain version.
+"""Causal flash attention (the prefill's and the training forward's
+attention): kernel wrappers, the autograd function, and plain versions.
 
 ``flash_attention`` runs the plain version for CPU tensors and launches
 ``csrc/flash_attn.cu`` for CUDA tensors (or raises);
@@ -9,6 +9,15 @@ KV head ``h // (H // Hkv)`` (``Hkv == H`` is the TPU kernel's own
 signature).  Tiling is the kernel's business: there is no
 ``block_q``/``block_k``.  The kernel runs f32 inputs on the CUDA cores and
 bf16 inputs on the tensor cores.
+
+Under autograd (grad enabled and an input that requires it) the call goes
+through ``_FlashAttention``: its forward is the same kernel with each
+row's log-sum-exp written beside the output, and it saves q, k, v, the
+output and that lse; its backward is ``flash_attention_bwd``, which
+launches ``csrc/flash_attn_bwd.cu`` on the card
+(``flash_attention_bwd.launches``) and runs ``flash_attention_bwd_ref`` on
+the CPU.  A call with no grad (serving) takes the kernel alone and saves
+nothing.
 """
 
 from __future__ import annotations
@@ -41,6 +50,31 @@ def _check_args(q, k, v, window) -> None:
         raise ValueError(f"window must be >= 1 or None, got {window}")
 
 
+def _scores_ref(q, k, window, softcap):
+    """The plain version's f32 scores (B, Hkv, G, S, S), softcapped and
+    masked with ``-1e30``, and the softcap's ``tanh(s / softcap)`` (None
+    without one)."""
+    b, s, h, dh = q.shape
+    hkv = k.shape[2]
+    qg = (q.to(torch.float32) * dh ** -0.5).reshape(b, s, hkv, h // hkv, dh)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k.to(torch.float32))
+    t = None
+    if softcap:
+        t = torch.tanh(scores / softcap)
+        scores = softcap * t
+    pos = torch.arange(s, device=q.device)
+    mask = pos[:, None] >= pos[None, :]
+    if window is not None:
+        mask &= (pos[:, None] - pos[None, :]) < window
+    return torch.where(mask, scores, _NEG_INF), t
+
+
+def _out_ref(probs, v, q):
+    b, s, h, dh = q.shape
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.to(torch.float32))
+    return out.reshape(b, s, h, dh).to(q.dtype)
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         window: Optional[int] = None,
                         softcap: Optional[float] = None) -> torch.Tensor:
@@ -49,30 +83,141 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``softcap·tanh(s/softcap)``, the causal (and window) mask as ``-1e30``,
     softmax and ``p·v`` in f32, cast to q's dtype."""
     _check_args(q, k, v, window)
+    scores, _ = _scores_ref(q, k, window, softcap)
+    return _out_ref(torch.softmax(scores, dim=-1), v, q)
+
+
+def flash_attention_lse_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, window: Optional[int] = None,
+                            softcap: Optional[float] = None):
+    """``(flash_attention_ref(...), lse)``: the same output bit for bit and
+    each row's log-sum-exp of its masked scores, (B, H, S) f32 (the
+    kernel's ``lse`` output)."""
+    _check_args(q, k, v, window)
+    scores, _ = _scores_ref(q, k, window, softcap)
+    b, s, h, _ = q.shape
+    lse = torch.logsumexp(scores, dim=-1).reshape(b, h, s)
+    return _out_ref(torch.softmax(scores, dim=-1), v, q), lse
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            out: torch.Tensor, dout: torch.Tensor,
+                            lse: torch.Tensor, window: Optional[int] = None,
+                            softcap: Optional[float] = None):
+    """Plain backward: ``(dq, dk, dv)`` of :func:`flash_attention` at
+    ``(q, k, v)`` for the cotangent ``dout``, from the forward's ``out``
+    and ``lse`` (B, H, S), by the explicit formulas in f32:
+    ``p = exp(s_c − lse)`` (0 where masked), ``D = Σ_d dout·out``,
+    ``dv = pᵀ·dout``, ``ds_c = p ∘ (dout·vᵀ − D)``, with a softcap
+    ``ds = ds_c ∘ (1 − tanh²(s/softcap))``, ``dq = dh^-0.5 · ds·k`` and
+    ``dk = dsᵀ·(q·dh^-0.5)``; dk and dv sum over each GQA group of query
+    heads.  Each is cast to its input's dtype."""
+    _check_args(q, k, v, window)
     b, s, h, dh = q.shape
     hkv = k.shape[2]
-    qg = (q.to(torch.float32) * dh ** -0.5).reshape(b, s, hkv, h // hkv, dh)
-    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k.to(torch.float32))
-    if softcap:
-        scores = softcap * torch.tanh(scores / softcap)
-    pos = torch.arange(s, device=q.device)
-    mask = pos[:, None] >= pos[None, :]
-    if window is not None:
-        mask &= (pos[:, None] - pos[None, :]) < window
-    scores = torch.where(mask, scores, _NEG_INF)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.to(torch.float32))
-    return out.reshape(b, s, h, dh).to(q.dtype)
+    g = h // hkv
+    f32 = torch.float32
+    scores, t = _scores_ref(q, k, window, softcap)
+    p = torch.exp(scores - lse.reshape(b, hkv, g, s, 1).to(f32))
+    do = dout.to(f32).reshape(b, s, hkv, g, dh)
+    d_row = (do * out.to(f32).reshape(b, s, hkv, g, dh)).sum(-1)
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, do)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", do, v.to(f32))
+    ds = p * (dp - d_row.permute(0, 2, 3, 1)[..., None])
+    if t is not None:
+        ds = ds * (1.0 - t * t)
+    qs = (q.to(f32) * dh ** -0.5).reshape(b, s, hkv, g, dh)
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k.to(f32)) * dh ** -0.5
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qs)
+    return (dq.reshape(b, s, h, dh).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = _build.library("flash_attn").flash_attn_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_launcher():
+    fn = _build.library("flash_attn_bwd").flash_attn_bwd_launch
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_cuda(name, q, k, v, window):
+    """Raise unless the kernels take these operands; returns the shape."""
+    _check_args(q, k, v, window)
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {q.device}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"{name} takes f32 or bf16, got {q.dtype}")
+    b, s, h, dh = q.shape
+    hkv = k.shape[2]
+    if dh % 16 or not 16 <= dh <= 256:
+        raise ValueError(f"the {name} kernel takes dh a multiple of 16 up to "
+                         f"256, got {dh}")
+    dev = q.device
+    check_operand("q", q, dev, q.dtype, (b, s, h, dh))
+    check_operand("k", k, dev, q.dtype, (b, s, hkv, dh))
+    check_operand("v", v, dev, q.dtype, (b, s, hkv, dh))
+    return b, s, h, hkv, dh
+
+
+def _forward(q, k, v, window, softcap, with_lse: bool):
+    """The forward on the card (or the plain version on the CPU):
+    ``(out, lse)``, lse (B, H, S) f32 only ``with_lse`` (else None)."""
+    if q.device.type == "cpu":
+        if with_lse:
+            return flash_attention_lse_ref(q, k, v, window=window,
+                                           softcap=softcap)
+        return flash_attention_ref(q, k, v, window=window,
+                                   softcap=softcap), None
+    b, s, h, hkv, dh = _check_cuda("flash_attn", q, k, v, window)
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the flash_attn kernel's bf16 path loads q, k, v with "
+                         "TMA, which needs 16-byte-aligned data")
+    out = torch.empty_like(q)
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    if out.numel() == 0:
+        return out, lse
+    with torch.cuda.device(q.device):
+        rc = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         out.data_ptr(), 0 if lse is None else lse.data_ptr(),
+                         b, s, h, hkv, dh, dh ** -0.5, window or 0,
+                         softcap or 0.0, _DTYPES[q.dtype], stream_of(q.device))
+    flash_attention.launches += 1
+    _build.check_launch("flash_attn", rc)
+    return out, lse
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``flash_attention`` under autograd: the forward kernel with its
+    lse, the backward kernel (or the plain backward on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, softcap):
+        out, lse = _forward(q, k, v, window, softcap, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.window, ctx.softcap = window, softcap
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(), lse,
+                                         window=ctx.window,
+                                         softcap=ctx.softcap)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -89,38 +234,60 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     On the card the kernel takes contiguous tensors with dh a multiple of 16
     up to 256 (bf16 also 16-byte-aligned data, as its TMA loads need), and
-    raises on anything else.
+    raises on anything else.  Differentiable: with grad enabled and an
+    input that requires it, the backward is ``flash_attention_bwd``.
     """
     _check_args(q, k, v, window)
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, window=window, softcap=softcap)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"flash_attention takes f32 or bf16, got {q.dtype}")
-    b, s, h, dh = q.shape
-    hkv = k.shape[2]
-    if dh % 16 or not 16 <= dh <= 256:
-        raise ValueError(f"the flash_attn kernel takes dh a multiple of 16 up "
-                         f"to 256, got {dh}")
-    dev = q.device
-    check_operand("q", q, dev, q.dtype, (b, s, h, dh))
-    check_operand("k", k, dev, q.dtype, (b, s, hkv, dh))
-    check_operand("v", v, dev, q.dtype, (b, s, hkv, dh))
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("the flash_attn kernel's bf16 path loads q, k, v with "
-                         "TMA, which needs 16-byte-aligned data")
-    out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    with torch.cuda.device(dev):
-        rc = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         out.data_ptr(), b, s, h, hkv, dh, dh ** -0.5,
-                         window or 0, softcap or 0.0, _DTYPES[q.dtype],
-                         stream_of(dev))
-    flash_attention.launches += 1
-    _build.check_launch("flash_attn", rc)
-    return out
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, window, softcap)
+    return _forward(q, k, v, window, softcap, with_lse=False)[0]
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        window: Optional[int] = None,
+                        softcap: Optional[float] = None):
+    """``(out, lse)``: :func:`flash_attention`'s output (the same bits) and
+    each row's log-sum-exp (B, H, S) f32, from one launch of the forward
+    kernel (counted in ``flash_attention.launches``); no autograd."""
+    _check_args(q, k, v, window)
+    return _forward(q, k, v, window, softcap, with_lse=True)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor,
+                        lse: torch.Tensor, *, window: Optional[int] = None,
+                        softcap: Optional[float] = None):
+    """``(dq, dk, dv)`` of :func:`flash_attention` (see
+    :func:`flash_attention_bwd_ref` for the formulas): the plain version
+    for CPU tensors, ``csrc/flash_attn_bwd.cu`` for CUDA tensors (or
+    raises).  ``out`` and ``dout`` have q's shape and dtype, ``lse`` is the
+    forward's (B, H, S) f32."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, out, dout, lse, window=window,
+                                       softcap=softcap)
+    b, s, h, hkv, dh = _check_cuda("flash_attn_bwd", q, k, v, window)
+    dev = q.device
+    check_operand("out", out, dev, q.dtype, (b, s, h, dh))
+    check_operand("dout", dout, dev, q.dtype, (b, s, h, dh))
+    check_operand("lse", lse, dev, torch.float32, (b, h, s))
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0:
+        return dq, dk, dv
+    d_row = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = _bwd_launcher()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), d_row.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, s, h, hkv, dh, dh ** -0.5,
+            window or 0, softcap or 0.0, _DTYPES[q.dtype], stream_of(dev))
+    flash_attention_bwd.launches += 1
+    _build.check_launch("flash_attn_bwd", rc)
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0

@@ -1,4 +1,10 @@
-"""Serving steps: the bulk prefill and one decode step through a head.
+"""Training and serving steps: one optimizer step, the bulk prefill and
+one decode step through a head.
+
+``train_step`` is the JAX package's: ``lm_loss`` and its grads over the
+batch (accumulated over ``grad_accum`` microbatches), then ``adamw_update``
+(in place on the optimizer state and the params).  ``opt_config_for`` is
+its default optimizer config of an arch.
 
 ``serve_step`` never writes into the cache it is given; its in-place twin
 ``serve_step_`` consumes the cache and writes the step into it (the decode
@@ -10,15 +16,96 @@ attend to.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, param_count
 from repro_torch.models.layers import softcap
 from repro_torch.models.model import (backbone, decode_step, decode_step_,
                                       dense_logits, dense_verify_logits,
-                                      final_hidden, mask_cache_update)
+                                      final_hidden, lm_loss,
+                                      mask_cache_update)
+from repro_torch.optim.adamw import (AdamWState, OptimizerConfig,
+                                     adamw_update, tree_leaves, tree_map)
+
+
+def opt_config_for(cfg: ModelConfig, **kw) -> OptimizerConfig:
+    """The default optimizer config of an arch: above 100 B params lean
+    state (bf16 moments, no master) and 2 microbatches a step, as the
+    reference picks them."""
+    big = param_count(cfg) > 100e9
+    kw.setdefault("grad_accum", 2 if big else 1)
+    return OptimizerConfig(lean=big, **kw)
+
+
+def _like(tree, leaves):
+    """A tree of ``tree``'s structure holding ``leaves`` in
+    ``tree_leaves`` order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
+def loss_and_grads(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+                   opt_cfg: OptimizerConfig):
+    """``(loss, {"ce", "aux"}, grads)`` of ``lm_loss`` over ``batch``
+    (tokens, labels[, encoder_states]); grads in the params' dtypes.
+
+    With ``opt_cfg.grad_accum > 1`` the batch splits along its first axis
+    into that many microbatches, run one after the other; their grads, loss
+    and parts are summed in f32, each divided by the count first, and the
+    summed grads cast to the params' dtypes, as the reference's scan
+    does.  The params' leaves are set to require grad (in place)."""
+    leaves = tree_leaves(params)
+    for t in leaves:
+        if not t.requires_grad:
+            t.requires_grad_(True)
+
+    def one(mb):
+        with torch.enable_grad():
+            loss, parts = lm_loss(params, mb["tokens"], mb["labels"], cfg,
+                                  encoder_states=mb.get("encoder_states"))
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(t) if g is None else g
+                 for g, t in zip(grads, leaves)]
+        return loss.detach(), {k: v.detach() for k, v in parts.items()}, grads
+
+    accum = opt_cfg.grad_accum
+    if accum == 1:
+        loss, parts, grads = one(batch)
+        return loss, parts, _like(params, grads)
+    n = next(iter(batch.values())).shape[0]
+    if n % accum:
+        raise ValueError(f"batch of {n} rows does not split into {accum} "
+                         f"microbatches")
+    dev = leaves[0].device
+    zero = lambda: torch.zeros((), dtype=torch.float32, device=dev)
+    gacc = [torch.zeros(t.shape, dtype=torch.float32, device=dev)
+            for t in leaves]
+    lacc, pacc = zero(), {"ce": zero(), "aux": zero()}
+    m = n // accum
+    for i in range(accum):
+        mb = {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
+        loss, parts, grads = one(mb)
+        for a, g in zip(gacc, grads):
+            a.add_(g / accum)
+        lacc = lacc + loss / accum
+        pacc = {k: pacc[k] + parts[k] / accum for k in pacc}
+        del grads
+    return lacc, pacc, _like(params, [a.to(t.dtype)
+                                      for a, t in zip(gacc, leaves)])
+
+
+def train_step(params, opt_state: AdamWState, batch: Dict[str, torch.Tensor],
+               cfg: ModelConfig, opt_cfg: OptimizerConfig):
+    """One optimizer step: ``(params, opt_state, metrics)`` with ``loss``,
+    ``ce``, ``aux``, ``grad_norm`` and ``lr`` as 0-d device tensors (no
+    host sync).  The params and the state's moments and master are
+    updated in place (the reference donates them) and returned."""
+    loss, parts, grads = loss_and_grads(params, batch, cfg, opt_cfg)
+    params, opt_state, opt_metrics = adamw_update(grads, opt_state, opt_cfg,
+                                                  params=params)
+    return params, opt_state, {"loss": loss, **parts, **opt_metrics}
 
 
 def prefill_step(params: dict, tokens: torch.Tensor, cfg: ModelConfig,

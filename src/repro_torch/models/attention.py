@@ -234,8 +234,12 @@ def cross_attention(params: dict, x: torch.Tensor, kv_source: torch.Tensor,
     t = kv_source.shape[1]
     groups = cfg.n_heads // cfg.n_kv_heads
     q = (x @ params["wq"]).reshape(b, s, cfg.n_kv_heads, groups, cfg.head_dim)
-    k = (kv_source @ params["wk"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
-    v = (kv_source @ params["wv"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
+    # The JAX package's einsum promotes f32 states (the training data's)
+    # with the bf16 weights to f32; bf16 states stay bf16.
+    dt = torch.promote_types(kv_source.dtype, params["wk"].dtype)
+    kv = kv_source.to(dt)
+    k = (kv @ params["wk"].to(dt)).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
+    v = (kv @ params["wv"].to(dt)).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
     scores = torch.einsum("bqkgd,bskd->bkgqs",
                           q.to(torch.float32) * cfg.head_dim ** -0.5,
                           k.to(torch.float32))

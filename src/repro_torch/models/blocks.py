@@ -6,8 +6,9 @@ self-attention (``attn``, ``attn_local`` with the config's window,
 ``attn_global`` without one), Multi-head Latent Attention (``mla``) or
 cross-attention to the encoder states (``xattn``: no window, no RoPE, no
 cache) followed by its FFN: a dense SwiGLU, or the MoE FFN where the
-caller's ``ffn`` says ``"moe"`` (the aux loss is dropped: serving has no
-use for it).  ``apply_layer`` returns a new cache; its decode twin
+caller's ``ffn`` says ``"moe"``.  ``apply_layer`` returns a new cache
+(and, ``with_aux``, the layer's MoE load-balancing loss, which training
+adds to its objective and serving drops); its decode twin
 ``apply_layer_`` writes into the one it is given.
 
 Paged dispatch: the kinds whose cache has a sequence axis (self-attention,
@@ -208,21 +209,34 @@ def paged_copy_pages(kind: str, cache, src_ids: torch.Tensor,
 
 
 def _ffn(params: dict, h: torch.Tensor, cfg: ModelConfig,
-         ffn: str) -> torch.Tensor:
-    """The layer's FFN on the normed stream: the MoE FFN (its aux loss
-    dropped) or the dense SwiGLU."""
+         ffn: str) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The layer's FFN on the normed stream: ``(delta, aux)``, the MoE FFN
+    with its f32 aux loss, or the dense SwiGLU and None."""
     f = params["ffn"]
     if ffn == "moe":
-        return moe_ffn(f, h, cfg.moe)[0]
-    return swiglu(h, f["w_gate"], f["w_up"], f["w_down"])
+        return moe_ffn(f, h, cfg.moe)
+    return swiglu(h, f["w_gate"], f["w_up"], f["w_down"]), None
+
+
+def _with_aux(x: torch.Tensor, new_cache, aux: Optional[torch.Tensor],
+              with_aux: bool):
+    """``(x, new_cache)``, or with ``with_aux`` ``(x, new_cache, aux)``
+    (a 0-d f32 zero for a layer without an MoE FFN)."""
+    if not with_aux:
+        return x, new_cache
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, new_cache, aux
 
 
 def apply_layer(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
                 *, positions: Optional[torch.Tensor] = None, cache=None,
                 cache_pos=None, ffn: str = "dense",
-                encoder_states: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, object]:
-    """One layer on the residual stream x (B, S, d). Returns (x, new cache).
+                encoder_states: Optional[torch.Tensor] = None,
+                with_aux: bool = False) -> tuple:
+    """One layer on the residual stream x (B, S, d). Returns (x, new cache)
+    or, ``with_aux``, (x, new cache, the f32 aux loss of its MoE FFN; 0
+    for the other FFNs), as the JAX package's ``apply_layer``.
 
     ``positions`` ((S,) or (B, S); ``arange(S)`` when omitted) and
     ``cache_pos`` (see ``attention.attention``) are read by the attention
@@ -247,7 +261,7 @@ def apply_layer(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
             new_cache = rwkv_mod.RWKVCache(
                 tm_last.to(cache.tm_prev.dtype), cm_last.to(cache.cm_prev.dtype),
                 new_state.to(cache.state.dtype))
-        return x + delta2, new_cache
+        return _with_aux(x + delta2, new_cache, None, with_aux)
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
     if kind == "mamba":
@@ -267,7 +281,8 @@ def apply_layer(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
             cache_pos=cache_pos)
     x = x + delta
     h2 = rms_norm(x, params["norm2"], eps)
-    return x + _ffn(params, h2, cfg, ffn), new_cache
+    delta2, aux = _ffn(params, h2, cfg, ffn)
+    return _with_aux(x + delta2, new_cache, aux, with_aux)
 
 
 def _commit_(dst: torch.Tensor, new: torch.Tensor,
@@ -327,4 +342,4 @@ def apply_layer_(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
                                     active)
     x = x + delta
     h2 = rms_norm(x, params["norm2"], eps)
-    return x + _ffn(params, h2, cfg, ffn)
+    return x + _ffn(params, h2, cfg, ffn)[0]

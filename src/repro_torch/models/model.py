@@ -30,13 +30,22 @@ Speculative decode keeps its rollback state here (``init_spec_snapshot``,
 ``cache_snapshot_``, ``cache_rollback_``) and verifies through
 ``dense_verify_logits``; the paged engine's cache trees (page arenas and
 state rows) are built and moved by the ``paged_*`` functions at the end.
+
+Training: :func:`lm_loss` (the JAX package's ``lm_loss``) runs the
+cacheless backbone with the MoE aux loss summed over the layers and, by
+default, each period rematerialized in the backward
+(``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint`` of its
+scan body).  Every walk over the layers takes the periods' views of a
+stacked leaf with one ``unbind(0)`` (:func:`_unbind`), so that under
+autograd each stack's per-layer grads are stacked once.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import blocks
 from repro_torch.models.config import ModelConfig
@@ -134,6 +143,18 @@ def cache_leaves(tree: dict):
     for _, c in cache_stacks(tree):
         if c is not None:
             yield from c
+
+
+def _unbind(tree) -> list:
+    """Every period's view of a stacked param dict, one ``unbind(0)`` a
+    leaf.  Under autograd an unbind's backward stacks the per-layer grads
+    once, where each ``_index`` select's backward would write a zero
+    tensor the size of the whole stack."""
+    if isinstance(tree, dict):
+        per_key = {k: _unbind(v) for k, v in tree.items()}
+        n = len(next(iter(per_key.values())))
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(tree.unbind(0))
 
 
 def _index(tree, i: int):
@@ -250,11 +271,12 @@ def _layers(params: dict, cfg: ModelConfig):
     (the JAX package's scan runs period by period)."""
     for i, layer in enumerate(params.get("prologue", ())):
         yield layer, cfg.pattern[0], "dense", ("prologue", i), 0
+    views = {name: _unbind(stack) for name, stack in params["periods"].items()}
     for i in range(cfg.n_periods):
         for j, kind in enumerate(cfg.pattern):
             name = f"pos{j}"
-            yield (_index(params["periods"][name], i), kind,
-                   period_ffn(cfg, j), ("periods", name), i)
+            yield (views[name][i], kind, period_ffn(cfg, j), ("periods", name),
+                   i)
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
@@ -272,6 +294,48 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
                             cache_pos=cache_pos,
                             encoder_states=encoder_states)
     return _output(params, x, cfg, return_hidden), new_cache
+
+
+def _period(x: torch.Tensor, layers: list, positions: torch.Tensor,
+            encoder_states: Optional[torch.Tensor], cfg: ModelConfig):
+    """One period's layers on x, cacheless: ``(x, the period's aux)``."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for j, (layer, kind) in enumerate(zip(layers, cfg.pattern)):
+        x, _, a = blocks.apply_layer(layer, x, cfg, kind, positions=positions,
+                                     ffn=period_ffn(cfg, j),
+                                     encoder_states=encoder_states,
+                                     with_aux=True)
+        aux = aux + a
+    return x, aux
+
+
+def _train_backbone(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
+                    encoder_states: Optional[torch.Tensor], remat: bool):
+    """The cacheless backbone with the aux loss: ``(x, aux)``.  With
+    ``remat`` each period runs under ``torch.utils.checkpoint`` (its
+    activations recomputed in the backward; the prologue's are kept, as
+    the JAX package keeps them outside its scan)."""
+    x = embed_scaled(tokens, params["embed"], cfg.d_model)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for layer in params.get("prologue", ()):
+        x, _, a = blocks.apply_layer(layer, x, cfg, cfg.pattern[0],
+                                     positions=positions, ffn="dense",
+                                     encoder_states=encoder_states,
+                                     with_aux=True)
+        aux = aux + a
+    views = [_unbind(params["periods"][f"pos{j}"])
+             for j in range(len(cfg.pattern))]
+    for i in range(cfg.n_periods):
+        layers = [v[i] for v in views]
+        if remat:
+            x, a = checkpoint(_period, x, layers, positions, encoder_states,
+                              cfg, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            x, a = _period(x, layers, positions, encoder_states, cfg)
+        aux = aux + a
+    return x, aux
 
 
 def backbone(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
@@ -302,6 +366,27 @@ def backbone(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
         return x, cache
     return x, _rebuild(cache, lambda k, c: None if c is None else type(c)(
         *(torch.stack(leaf) for leaf in zip(*made[k]))))
+
+
+def lm_loss(params: dict, tokens: torch.Tensor, labels: torch.Tensor,
+            cfg: ModelConfig, *,
+            encoder_states: Optional[torch.Tensor] = None,
+            aux_coef: float = 0.01, remat: bool = True
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy over the f32 logits of tokens (B, S) against
+    labels (B, S) (-1 masks a position), plus ``aux_coef`` times the MoE
+    aux loss: ``(loss, {"ce", "aux"})``, 0-d f32 tensors (the JAX
+    package's ``lm_loss``; the forward rematerialized by default, as its
+    ``forward`` is)."""
+    x, aux = _train_backbone(params, tokens, cfg, encoder_states, remat)
+    logits = _output(params, x, cfg, False)
+    valid = labels >= 0
+    safe = torch.where(valid, labels, 0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    label_logit = logits.gather(-1, safe[..., None])[..., 0]
+    nll = lse - label_logit
+    ce = torch.where(valid, nll, 0.0).sum() / valid.sum().clamp_min(1)
+    return ce + aux_coef * aux, {"ce": ce, "aux": aux}
 
 
 def final_hidden(params: dict, x: torch.Tensor, cfg: ModelConfig

@@ -77,6 +77,23 @@
   products per 16 keys (+ one).  The two evaluations' ε then differ, and
   the bound adds them.  Like the rest of these bounds it assumes no
   underflow or overflow.
+* The attention backward (``flash_attn_bwd``): two f32 evaluations of
+  ``(dq, dk, dv)`` from the same q, k, v, out, dout and lse, each against
+  the exact value of its own formulas, to first order.  A score is off by
+  ``e_s = γ_dh·Σ_d |qs_d·k_d|`` (qs = RN(q·dh^-0.5), the same on both
+  sides), the softcap adds ``6u·|s_c|`` as in the forward's rule, and
+  ``p = exp(s_c − lse)`` is then off by the relative ``e_p = e_s +
+  u·|s_c − lse| + 3u`` (the subtraction, exp's 2 ulps).  ``dp = dout·v``
+  and ``D = Σ dout·out`` are off by ``γ_dh`` of their magnitudes;
+  ``ds_c = p·(dp − D)`` by ``p·(e_p·|dp − D| + e_dp + e_D + 2u·|dp − D|)``;
+  the softcap's factor ``w = 1 − t²`` (``t = tanh(s/softcap)``, off by
+  ``e_t = (e_s + u·|s|)/softcap·w + 2u·|t|``) by ``2|t|·e_t + 2u``.  Each
+  gradient is a sum of n terms (n the keys of a row for dq, the group's
+  queries for dk and dv): its error is the sum of its terms' errors times
+  the other factor's magnitude, plus ``γ_n`` of the terms' magnitudes,
+  plus one rounding for dq's final ``dh^-0.5``.  Two evaluations differ
+  by at most twice that; a bf16 output adds one bf16 ulp of the larger
+  magnitude (:func:`flash_attn_bwd_tol`).
 * The bf16 backbone against another implementation of it (the JAX
   package's compiled forward, or the same model on another device): bf16
   keeps 8 bits (one ulp is 2⁻⁸ relative), each layer rounds a dozen times,
@@ -321,6 +338,129 @@ def flash_attn_tol(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, s, h, dh)
 
 
+def flash_attn_lse_tol(q: torch.Tensor, k: torch.Tensor,
+                       window: Optional[int] = None,
+                       softcap: Optional[float] = None, chunk: int = 512,
+                       tensor_cores: Optional[bool] = None) -> torch.Tensor:
+    """(B, H, S) float64 bound on the difference of two f32 evaluations of
+    each row's log-sum-exp ``log Σ_k exp(s_c[q, k])`` over its live keys
+    (the forward kernel's ``lse`` output).  Moving every score by at most
+    E moves the lse by at most E (E as in :func:`flash_attn_tol`, with the
+    kernel's tensor-core form by default for bf16 CUDA tensors); each side
+    adds its n-term sum of exps (γ_n, exp's 2 ulps and the subtraction
+    ``u·|s − m|``, relative), the log (2 ulps of |log l| ≤ log n) and the
+    final ``m + log l`` (u·|lse|)."""
+    if tensor_cores is None:
+        tensor_cores = q.is_cuda and q.dtype == torch.bfloat16
+    b, s, h, dh = q.shape
+    hkv = k.shape[2]
+    qs = (q.to(torch.float32) * dh ** -0.5).to(torch.float64).reshape(
+        b, s, hkv, h // hkv, dh)
+    k64 = k.to(torch.float64)
+    dot = 2.0 * _gamma(dh)
+    if tensor_cores:
+        tau = math.expm1(dh / 4 * math.log1p(_TC_BLOCK))
+        dot = _gamma(dh) + ((1.0 + U32) * tau + 2.0 * U32) / (1.0 - U32)
+    pos = torch.arange(s, device=q.device)
+    out = torch.empty((b, hkv, h // hkv, s), dtype=torch.float64,
+                      device=q.device)
+    for q0 in range(0, s, chunk):
+        qc = qs[:, q0:q0 + chunk]
+        sc = torch.einsum("bqkgd,bskd->bkgqs", qc, k64)
+        err = dot * torch.einsum("bqkgd,bskd->bkgqs", qc.abs(), k64.abs())
+        if softcap:
+            sc = softcap * torch.tanh(sc / softcap)
+            err = err + 2.0 * 6.0 * U32 * sc.abs()
+        qp = pos[q0:q0 + chunk, None]
+        live = qp >= pos[None, :]
+        if window is not None:
+            live &= (qp - pos[None, :]) < window
+        sc = sc.masked_fill(~live, float("-inf"))
+        lse = torch.logsumexp(sc, dim=-1)
+        e_max = err.masked_fill(~live, 0.0).amax(dim=-1)
+        span = (sc.amax(dim=-1, keepdim=True) - sc).masked_fill(
+            ~live, 0.0).amax(dim=-1)
+        n = live.sum(dim=-1).to(torch.float64)
+        gamma_n = n * U32 / (1.0 - n * U32)
+        own = (gamma_n + (3.0 + span) * U32 + 2.0 * U32 * torch.log(n)
+               + U32 * lse.abs())
+        out[..., q0:q0 + chunk] = e_max + 2.0 * own
+    return out.reshape(b, h, s)
+
+
+def flash_attn_bwd_tol(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       out: torch.Tensor, dout: torch.Tensor,
+                       lse: torch.Tensor, window: Optional[int] = None,
+                       softcap: Optional[float] = None, chunk: int = 256):
+    """``(tol_dq, tol_dk, tol_dv)``: float64 bounds, of q's, k's and v's
+    shapes, on the difference of two f32 evaluations of the attention
+    backward from these inputs (the rule above), before any rounding to
+    the output dtype.  Queries go ``chunk`` rows at a time."""
+    b, s, h, dh = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    f64, u = torch.float64, U32
+    scale = dh ** -0.5
+    qs = (q.to(torch.float32) * scale).to(f64).reshape(b, s, hkv, g, dh)
+    k64, v64 = k.to(f64), v.to(f64)
+    do = dout.to(f64).reshape(b, s, hkv, g, dh)
+    o = out.to(f64).reshape(b, s, hkv, g, dh)
+    lse64 = lse.to(f64).reshape(b, hkv, g, s)
+    gam_dh = _gamma(dh)
+    pos = torch.arange(s, device=q.device)
+    tol_dq = torch.empty((b, s, hkv, g, dh), dtype=f64, device=q.device)
+    tol_dk = torch.zeros((b, s, hkv, dh), dtype=f64, device=q.device)
+    tol_dv = torch.zeros_like(tol_dk)
+    gam_kv = _gamma(g * s)
+    for q0 in range(0, s, chunk):
+        sl = slice(q0, q0 + chunk)
+        qc, doc, oc = qs[:, sl], do[:, sl], o[:, sl]
+        sc = torch.einsum("bqkgd,bskd->bkgqs", qc, k64)
+        e_s = gam_dh * torch.einsum("bqkgd,bskd->bkgqs", qc.abs(), k64.abs())
+        t = None
+        if softcap:
+            t = torch.tanh(sc / softcap)
+            s_c = softcap * t
+            e_c = e_s + 6.0 * u * s_c.abs()
+        else:
+            s_c, e_c = sc, e_s
+        qp = pos[sl, None]
+        live = qp >= pos[None, :]
+        if window is not None:
+            live &= (qp - pos[None, :]) < window
+        lse_c = lse64[..., sl, None]
+        p = torch.exp(s_c - lse_c).masked_fill(~live, 0.0)
+        e_p = e_c + u * (s_c - lse_c).abs() + 3.0 * u
+        dp = torch.einsum("bqkgd,bskd->bkgqs", doc, v64)
+        e_dp = gam_dh * torch.einsum("bqkgd,bskd->bkgqs", doc.abs(),
+                                     v64.abs())
+        d_row = (doc * oc).sum(-1).permute(0, 2, 3, 1)[..., None]
+        e_d = gam_dh * (doc.abs() * oc.abs()).sum(-1).permute(
+            0, 2, 3, 1)[..., None]
+        x = dp - d_row
+        ds = p * x
+        e_ds = p * (e_p * x.abs() + e_dp + e_d + 2.0 * u * x.abs())
+        if t is not None:
+            w = 1.0 - t * t
+            e_t = (e_s + u * sc.abs()) / softcap * w + 2.0 * u * t.abs()
+            e_ds = e_ds * w + ds.abs() * (2.0 * t.abs() * e_t + 2.0 * u)
+            ds = ds * w
+            e_ds = e_ds + u * ds.abs()
+        e_ds = e_ds.masked_fill(~live, 0.0)
+        n_k = live.sum(-1).to(f64)                             # (q,)
+        gam_k = n_k * u / (1.0 - n_k * u)
+        dq_mag = torch.einsum("bkgqs,bskd->bqkgd", ds.abs(), k64.abs())
+        tol_dq[:, sl] = scale * (
+            torch.einsum("bkgqs,bskd->bqkgd", e_ds, k64.abs())
+            + gam_k[None, :, None, None, None] * dq_mag) + u * scale * (
+            torch.einsum("bkgqs,bskd->bqkgd", ds, k64).abs())
+        tol_dk += torch.einsum("bkgqs,bqkgd->bskd", e_ds, qc.abs()) + (
+            gam_kv * torch.einsum("bkgqs,bqkgd->bskd", ds.abs(), qc.abs()))
+        tol_dv += torch.einsum("bkgqs,bqkgd->bskd", p * e_p, doc.abs()) + (
+            gam_kv * torch.einsum("bkgqs,bqkgd->bskd", p, doc.abs()))
+    return (2.0 * tol_dq.reshape(b, s, h, dh), 2.0 * tol_dk, 2.0 * tol_dv)
+
+
 def _flash_out_err(got: torch.Tensor, want: torch.Tensor, tol: torch.Tensor):
     """``(|got − want|, tol + one bf16 ulp of the larger magnitude for bf16
     outputs)`` in float64."""
@@ -340,7 +480,8 @@ def flash_attn_tol_ratio(got: torch.Tensor, want: torch.Tensor,
 
 
 def assert_flash_attn_close(got: torch.Tensor, want: torch.Tensor,
-                            tol: torch.Tensor) -> float:
+                            tol: torch.Tensor, name: str = "flash_attn"
+                            ) -> float:
     """Raise unless ``|got − want| <= tol`` (+ one bf16 ulp of the larger
     magnitude for bf16 outputs) everywhere; returns the largest error."""
     g64, w64 = got.to(torch.float64), want.to(torch.float64)
@@ -349,7 +490,7 @@ def assert_flash_attn_close(got: torch.Tensor, want: torch.Tensor,
     if bool(bad.any()):
         i = tuple(int(x) for x in bad.nonzero()[0])
         raise AssertionError(
-            f"flash_attn: {int(bad.sum())} elements beyond the bound; first "
+            f"{name}: {int(bad.sum())} elements beyond the bound; first "
             f"at {i}: got {float(g64[i])}, want {float(w64[i])}, bound "
             f"{float(tol[i])}; largest error {float(err.max())}")
     return float(err.max())
