@@ -188,15 +188,21 @@ kernels through the same wrappers and checks.
    plain one; then the backward kernel against
    ``flash_attention_bwd_ref`` on the same q, k, v, out, dout and lse,
    dq, dk, dv within ``parity.flash_attn_bwd_tol`` (plus one bf16 ulp),
-   two launches bit for bit equal, at musicgen-large's training shape
-   (8, 128, 32/32, 64), gemma2-27b's layer (H 32, Hkv 16, dh 128, softcap
-   50) at S = 4160 with its 4096 window and the softcap-free twin, and at
-   S = 1024 with a 64-token window, stablelm's dh 160, MLA's dh 192 and
-   the f32 path; timed beside the plain backward and a library backward
-   (SDPA's on the softcap-free function; compiled flex_attention's with
-   the softcap at S = 4160); ``bound_ms`` prices the gradient's four
-   products at the bf16 tensor-core peak (``bound_with_recompute_ms`` adds
-   the recomputed scores).
+   two launches bit for bit equal, at musicgen-large's training shapes
+   (8, 128, 32/32, 64) and (4, 2048, 32/32, 64), gemma2-27b's layer (H
+   32, Hkv 16, dh 128, softcap 50) at S = 4160 with its 4096 window and
+   the softcap-free twin, and at S = 1024 with a 64-token window,
+   stablelm's dh 160, MLA's dh 192 and the f32 path; timed beside the
+   plain backward and a library backward (SDPA's on the softcap-free
+   function; compiled flex_attention's with the softcap at S = 4160);
+   ``bound_ms`` prices the gradient's four products at the bf16
+   tensor-core peak (``bound_with_recompute_ms`` adds the recomputed
+   scores); bf16 cases (the tensor-core kernels, held to the bound's
+   tensor-core form) add ``kernel_tensor_core_ms``, the kernels'
+   own 14 products a pair at that peak, and the f32 case
+   ``kernel_f32_core_ms``.  The build's ptxas report gives each kernel's
+   registers and spills and any wgmma serialization warning
+   (``ptxas_report``).
 18. Training (PR 24, after the last arch): musicgen-large at full width and
    depth (48 layers, d 2048, vocab 2048; 3.23 B params, 51.7 GB of state
    with the grads) through ``launch.train.train`` for 12 steps at B = 8, S
@@ -205,7 +211,8 @@ kernels through the same wrappers and checks.
    below the first; the peak memory; ms a step split into forward+backward
    and the optimizer (CUDA events), a profiled step (busy share,
    attention's kernel share, top kernels), and one step at B = 4, S =
-   2048 (ungated: attention's share at length).  Then the resume check at
+   2048 (ungated: attention's share at length).  A profiled step with no
+   backward attention kernel fails.  Then the resume check at
    2 of 48 layers: 6 steps saving at step 3, a new run restored from that
    checkpoint, its params and optimizer state equal to the continuous
    run's bit for bit; a restore into a fresh state allocates no more than
@@ -232,6 +239,7 @@ import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -348,6 +356,40 @@ TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = "musicgen-large", 8, 128, 12
 TRAIN_LONG = (4, 2048)
 RESUME_LAYERS, RESUME_STEPS, RESUME_AT = 2, 6, 3
 MUSICGEN_TRAIN = "musicgen-large training (B 8, S 128, MHA 32, dh 64)"
+# Kernel names under torch.profiler: the forward's, and the backward's
+# (D, then dK/dV and dQ: the tensor-core pair for bf16, the CUDA-core pair
+# for f32).
+FLASH_FWD_KERNELS = ("flash_attn_kernel", "flash_attn_tc_kernel")
+FLASH_BWD_KERNELS = ("bwd_dot_kernel", "dkdv_tc_kernel", "dq_tc_kernel", "dkdv_kernel",
+                     "dq_kernel")
+
+
+def ptxas_report(name, log):
+    """Prints nvcc's ptxas report of one library, a line per kernel
+    (registers, spill bytes) and every warning (a C7520/C7514 line: a
+    wgmma serialized); returns {"kernels", "max_registers",
+    "spill_bytes", "warnings"}."""
+    entry, stack, regs, spill, warnings = "?", "", [], 0, []
+    for line in log.splitlines():
+        line = line.strip()
+        if "Compiling entry function" in line:
+            entry, stack = line.split("'")[1], ""
+            m = re.search(r"\d+([a-z_]+?kernel)I(\w+?)EE", entry)
+            if m:       # e.g. dkdv_tc_kernel<64>, dkdv_kernel<f128>
+                args = re.sub(r"Li(\d+)", r"\1,", m.group(2)).rstrip(",")
+                entry = f"{m.group(1)}<{args}>"
+        elif "spill stores" in line:
+            found = [int(x) for x in re.findall(r"(\d+) bytes spill", line)]
+            spill += sum(found)
+            stack = line
+        elif "Used" in line and "registers" in line:
+            regs.append(int(re.search(r"Used (\d+) registers", line).group(1)))
+            print(f"  {name}: {entry}: {regs[-1]} registers; {stack}")
+        elif "warning" in line.lower():
+            warnings.append(line)
+            print(f"  {name}: {line}")
+    return dict(kernels=len(regs), max_registers=max(regs, default=0), spill_bytes=spill,
+                warnings=len(warnings))
 
 
 def card_line() -> str:
@@ -1826,7 +1868,8 @@ def flash_phase(dev, timer):
 
 def flash_bwd_cases():
     """(label, B, S, H, Hkv, dh, dtype, window, softcap, flex) of the
-    flash_attn_bwd phase: musicgen-large's training shape, gemma2-27b's
+    flash_attn_bwd phase: musicgen-large's training shapes (the train
+    CLI's and the step at length), gemma2-27b's
     layer (GQA 32/16, dh 128, softcap 50) at the 4160-token length with its
     4096 window (and the softcap-free twin) and with a 64-token window
     that bites, stablelm-12b's dh 160, deepseek-v3's MLA dh 192, and the
@@ -1836,6 +1879,8 @@ def flash_bwd_cases():
     g = (32, 16, 128)
     return [
         (MUSICGEN_TRAIN, TRAIN_BATCH, TRAIN_SEQ, 32, 32, 64, bf16, None, None, False),
+        ("musicgen-large training at length (B 4, S 2048, MHA 32, dh 64)", *TRAIN_LONG, 32,
+         32, 64, bf16, None, None, False),
         ("gemma2 layer, S=4160, window 4096, softcap 50", 1, GEMMA_LONG, *g, bf16, 4096,
          50.0, True),
         ("gemma2 layer, S=4160, window 4096, softcap-free", 1, GEMMA_LONG, *g, bf16, 4096,
@@ -1930,8 +1975,13 @@ def check_flash_bwd(timer, gen, b, s, h, hkv, dh, dtype, window, cap, flex):
     rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], rec["ops"], peak)
     rec["bound_with_recompute_ms"] = bound(rec["bytes"], rec["ops"] + rec["recompute_ops"],
                                            peak)[0]
-    # The kernel's own work: s and dp in both kernels, on the CUDA cores.
-    rec["kernel_f32_core_ms"] = 14 * dh * pairs / F32_FLOP_PER_S * 1e3
+    if dtype == torch.bfloat16:
+        # The tensor-core kernels' own products: dK/dV 9 (s twice, dp, three
+        # split terms each for dv and dk), dQ 5 (s, dp, three for dq).
+        rec["kernel_tensor_core_ms"] = 28 * dh * pairs / BF16_TC_FLOP_PER_S * 1e3
+    else:
+        # The CUDA-core kernels': s and dp in both kernels, dv, dk, dq.
+        rec["kernel_f32_core_ms"] = 14 * dh * pairs / F32_FLOP_PER_S * 1e3
     return rec
 
 
@@ -1963,8 +2013,9 @@ def train_batch(cfg, b, s, step, dev):
 
 def kernel_share(fn):
     """``fn`` once under torch.profiler (device activity only): (its
-    result, kernel ms, kernel launches, ms of the attention kernels
-    (flash_attn's forward, flash_attn_bwd's three), the top kernels)."""
+    result, kernel ms, kernel launches, ms of each attention kernel that
+    ran (flash_attn's forward, flash_attn_bwd's D, dK/dV and dQ), the top
+    kernels)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1976,12 +2027,23 @@ def kernel_share(fn):
         if e.device_type.name == "CUDA":
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
             n += 1
-    attn = sum(t for name, t in by_name.items()
-               if "flash_attn" in name or "dkdv_kernel" in name or "dq_kernel" in name
-               or "dot_kernel" in name)
+    attn = {}
+    for key in FLASH_FWD_KERNELS + FLASH_BWD_KERNELS:
+        t = sum(t for name, t in by_name.items() if key in name)
+        if t:
+            attn[key] = t
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return (out, sum(by_name.values()), n, attn,
             [(name[:50], round(t, 2)) for name, t in top])
+
+
+def attention_split(attn, label):
+    """(attention ms, the backward's ms) of ``kernel_share``'s per-kernel
+    attention times; raises if no backward attention kernel ran."""
+    bwd = sum(t for key, t in attn.items() if key in FLASH_BWD_KERNELS)
+    if not bwd > 0:
+        raise AssertionError(f"the profiled {label} shows no backward attention kernel")
+    return sum(attn.values()), bwd
 
 
 def train_phase(dev, timer):
@@ -2057,14 +2119,17 @@ def train_phase(dev, timer):
         [params, opt_state.mu, opt_state.nu, opt_state.master]))
     opt_bound = opt_bytes / HBM_BYTES_PER_S * 1e3
     batch = train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS + 3, dev)
-    (params, opt_state, _), kt, n_k, attn, top = kernel_share(
+    (params, opt_state, _), kt, n_k, by_kernel, top = kernel_share(
         lambda: steps_mod.train_step(params, opt_state, batch, cfg, opt_cfg))
+    attn, bwd = attention_split(by_kernel, "train step")
+    split = {k: round(v, 2) for k, v in by_kernel.items()}
     print(f"{TRAIN_ARCH} train step (B={TRAIN_BATCH}, S={TRAIN_SEQ}): forward+backward "
           f"{fb:.2f} ms, optimizer {opt:.2f} ms (bound {opt_bound:.2f} ms: "
           f"{opt_bytes / 1e9:.1f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s; CUDA events, median "
           f"of 3), wall {wall:.2f} "
           f"ms; profiled: {kt:.2f} ms of kernels in {n_k} launches (busy {kt / wall:.3f} "
-          f"of the unprofiled wall), attention kernels {attn:.2f} ms ({attn / kt:.3f}); "
+          f"of the unprofiled wall), attention kernels {attn:.2f} ms ({attn / kt:.3f}; "
+          f"backward {bwd:.2f} ms; {split}); "
           f"top kernels {top}; {time.perf_counter() - t_phase:.1f} s so far", flush=True)
     del batch
     free_card()
@@ -2079,17 +2144,20 @@ def train_phase(dev, timer):
     torch.cuda.synchronize()
     lwall = (time.perf_counter() - t0) * 1e3
     expect_launches(f"train step at B={b}, S={s}", counts(), per_step)
-    (params, opt_state, m), kt, n_k, attn, top = kernel_share(
+    (params, opt_state, m), kt, n_k, by_kernel, top = kernel_share(
         lambda: steps_mod.train_step(params, opt_state, batch, cfg, opt_cfg))
+    attn, bwd = attention_split(by_kernel, "train step at length")
+    split = {k: round(v, 2) for k, v in by_kernel.items()}
     lpeak = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"{TRAIN_ARCH} train step at B={b}, S={s}: {lwall:.1f} ms wall, loss "
           f"{float(m['loss']):.4f}; profiled {kt:.1f} ms of kernels in {n_k} launches (busy "
-          f"{kt / lwall:.3f}), attention kernels {attn:.1f} ms ({attn / kt:.3f}); top "
-          f"kernels {top}; peak {lpeak:.1f} GiB; phase {time.perf_counter() - t_phase:.1f} s",
+          f"{kt / lwall:.3f}), attention kernels {attn:.1f} ms ({attn / kt:.3f}; backward "
+          f"{bwd:.1f} ms, {bwd / attn_layers(cfg):.2f} a layer; {split}); top kernels "
+          f"{top}; peak {lpeak:.1f} GiB; phase {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return total, dict(losses=losses, peak_gib=peak, fwd_bwd_ms=fb, optimizer_ms=opt,
-                       optimizer_bound_ms=opt_bound,
-                       step_wall_ms=wall)
+                       optimizer_bound_ms=opt_bound, step_wall_ms=wall,
+                       long_step_wall_ms=lwall, long_attention_share=attn / kt)
 
 
 def resume_phase(dev):
@@ -2944,10 +3012,7 @@ def main() -> None:
     seconds = time.perf_counter() - t0
     print(f"kernel build: {seconds:.2f} s for {', '.join(_build.sources())}"
           + (f" (from {args.csrc})" if args.csrc is not None else ""))
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+    ptxas = {name: ptxas_report(name, log) for name, log in logs.items()}
     timer = Timer(dev)
 
     phase_seconds = {}
@@ -3023,7 +3088,8 @@ def main() -> None:
         label: {k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "bound_with_recompute_ms", "library_ms", "library",
                                     "tol_ratio", "lse_tol_ratio")}
-        for label, rec in flash_bwd.items()})
+        | {k: rec[k] for k in ("kernel_tensor_core_ms", "kernel_f32_core_ms") if k in rec}
+        for label, rec in flash_bwd.items()}, ptxas=ptxas.get("flash_attn_bwd"))
 
     line = []
     for name, (_, source, replaces) in KERNELS.items():
@@ -3044,7 +3110,7 @@ def main() -> None:
                          plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
                          bound_by=rec["bound_by"], library_ms=rec["library_ms"],
                          **{k: v for k, v in rec.items()
-                            if k.endswith("softcap_free") or k == "cases"
+                            if k.endswith("softcap_free") or k in ("cases", "ptxas")
                             or k.startswith(("long_prefill_", "mla_prefill_"))}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))

@@ -4,8 +4,11 @@ Every ``csrc/*.cu`` becomes its own shared library with a plain C
 interface, built on first use into ``_build/`` beside this file (listed in
 ``.gitignore``) and named after a digest of the sources and flags, so a
 changed source is rebuilt and an unchanged one is not.  All missing
-libraries build at once, one nvcc process per source.  A failed build
-raises with nvcc's output.  Nothing here runs at import.
+libraries build at once, one nvcc process per source; a source with a line
+``// BUILD_PARTS n`` is compiled as n translation units at once (``-c
+-DBUILD_PART=0`` .. ``n - 1``, the source picking what each holds) and
+then linked.  A failed build raises with nvcc's output.  Nothing here runs
+at import.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -25,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_PARTS = re.compile(rb"^// BUILD_PARTS (\d+)$", re.M)
 
 
 def _nvcc() -> str:
@@ -44,6 +49,13 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"{name}.{h.hexdigest()[:16]}.so"
 
 
+def _parts(name: str) -> int:
+    """Translation units of ``csrc/<name>.cu`` (its ``// BUILD_PARTS n``
+    line, else 1)."""
+    m = _PARTS.search((CSRC / f"{name}.cu").read_bytes())
+    return int(m.group(1)) if m else 1
+
+
 def sources() -> list:
     """Kernel names, one per ``csrc/*.cu``."""
     return sorted(p.stem for p in CSRC.glob("*.cu"))
@@ -58,16 +70,33 @@ def build_all() -> Dict[str, str]:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
+    objects = [f for f in NVCC_FLAGS if f != "-shared"] + ["-c"]
     procs = {}
     for name in todo:
         tmp = _target(name).with_suffix(f".tmp{os.getpid()}")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        src = str(CSRC / f"{name}.cu")
+        n = _parts(name)
+        cmds = ([[nvcc, *NVCC_FLAGS, "-o", str(tmp), src]] if n == 1 else
+                [[nvcc, *objects, f"-DBUILD_PART={i}", "-o", f"{tmp}.{i}.o",
+                  src] for i in range(n)])
+        procs[name] = (tmp, n, [subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for cmd in cmds])
     logs, failed = {}, []
-    for name, (tmp, proc) in procs.items():
-        logs[name] = proc.communicate()[0]
-        if proc.returncode:
+    for name, (tmp, n, running) in procs.items():
+        logs[name] = "".join(proc.communicate()[0] for proc in running)
+        ok = not any(proc.returncode for proc in running)
+        if ok and n > 1:
+            objs = [f"{tmp}.{i}.o" for i in range(n)]
+            link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o",
+                                   str(tmp), *objs],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+            logs[name] += link.stdout
+            ok = link.returncode == 0
+            for obj in objs:
+                Path(obj).unlink(missing_ok=True)
+        if not ok:
             failed.append(name)
         else:
             os.replace(tmp, _target(name))   # atomic: no half-written .so

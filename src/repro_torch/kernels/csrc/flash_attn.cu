@@ -66,10 +66,7 @@
 // tanhf and expf, the mask only on tiles that need it, a row's 64 keys
 // spread over a quad (two xor shuffles), o rescaled only when a row maximum
 // moved.  Query tiles launch longest first across all heads.
-#include <cuda.h>
-#include <cudaTypedefs.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "wgmma.cuh"
 
 #include <climits>
 #include <cstdint>
@@ -282,21 +279,18 @@ int launch_dh(const void* q, const void* k, const void* v, void* out,
 // ------------------------------------------ bf16 path: tensor cores (wgmma)
 namespace tc {
 
-using bf16 = __nv_bfloat16;
+using namespace wgmma;
 
 constexpr int kConsumers = 2;                     // warpgroups of 64 query rows
 constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer warpgroup
 constexpr int kRows = 64;                         // query rows per warpgroup
 constexpr int kStages = 3;                        // K/V ring depth
-constexpr float kPScale = 65536.0f;               // p * 2^16 splits exactly
 
 // Per dh: W, the column block in bf16 (the widest swizzle, 128, 64 or 32
 // bytes, whose width divides dh), and BK, the keys per tile.
 template <int DH>
-struct Cfg {
-  static constexpr int W = DH % 64 == 0 ? 64 : DH % 32 == 0 ? 32 : 16;
+struct Cfg : Cols<DH> {
   static constexpr int BK = DH <= 192 ? 64 : 32;
-  static constexpr uint64_t kLayout = W == 64 ? 1 : W == 32 ? 2 : 3;
   static constexpr int kQTile = kRows * DH;       // bf16 per warpgroup's Q
   static constexpr int kKVTile = BK * DH;         // bf16 per K or V stage
   static constexpr size_t kSmem =
@@ -304,246 +298,6 @@ struct Cfg {
                                      2 * kStages * kKVTile) +
       8 * (1 + 2 * kStages);
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// Waits until the phase of parity `parity` of the barrier has completed.  A
-// wait that has not ended after 10 s traps: a launch error, not a hung card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint64_t t0 = 0;
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (!t0)
-      t0 = global_ns();
-    else if (global_ns() - t0 > 10000000000ull)
-      __trap();
-  }
-}
-
-// One box of a 3-D tensor map (coordinates innermost first) into shared
-// memory, completing on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading and stride
-// byte offsets, swizzle mode (1: 128 B, 2: 64 B, 3: 32 B).
-__device__ __forceinline__ uint64_t make_desc(const void* p, uint32_t lbo,
-                                              uint32_t sbo, uint64_t layout) {
-  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | layout << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Waits until at most N of this warpgroup's committed wgmma groups run on.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keeps the compiler from moving reads or writes of a register that an
-// asynchronous wgmma reads or writes across its wait.
-__device__ __forceinline__ void reg_fence(float& r) {
-  asm volatile("" : "+f"(r)::"memory");
-}
-__device__ __forceinline__ void reg_fence(uint32_t& r) {
-  asm volatile("" : "+r"(r)::"memory");
-}
-
-// D (64 x 32, f32) (+)= A (64 x 16, smem) . B (16 x 32, smem), both K-major.
-__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t da, uint64_t db,
-                                              int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// D (64 x 64, f32) (+)= A (64 x 16, smem) . B (16 x 64, smem), both K-major.
-__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db,
-                                              int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// D (64 x 16, f32) += A (64 x 16, registers) . B (16 x 16, smem, MN-major).
-__device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D (64 x 32, f32) += A (64 x 16, registers) . B (16 x 32, smem, MN-major).
-__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D (64 x 64, f32) += A (64 x 16, registers) . B (16 x 64, smem, MN-major).
-__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D (64 x 128, f32) += A (64 x 16, registers) . B (16 x 128, smem, MN-major).
-__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-
-// S (64 x BK) = Q (64 x 16 slice) . K^T (16 x BK) summed over dh, both from
-// shared memory, K-major.
-template <int BK>
-__device__ __forceinline__ void qk_step(float* s, uint64_t da, uint64_t db,
-                                        int accumulate) {
-  if constexpr (BK == 64)
-    wgmma_ss_n64(s, da, db, accumulate);
-  else
-    wgmma_ss_n32(s, da, db, accumulate);
-}
-
-// O[:, N0:N0+REM] += P (64 x 16 keys, registers) . V (16 keys x REM), in
-// chunks of 128, 64, 32 and 16 columns (each a whole number of W-wide
-// column blocks, LBO apart).
-template <int W, int BK, int N0, int REM>
-__device__ __forceinline__ void pv_step(float* o, const uint32_t* a,
-                                        const bf16* v_keys, uint64_t layout) {
-  if constexpr (REM > 0) {
-    constexpr int N = REM >= 128 ? 128 : REM >= 64 ? 64 : REM >= 32 ? 32 : 16;
-    const uint64_t db =
-        make_desc(v_keys + N0 / W * BK * W, BK * W * 2, 8 * W * 2, layout);
-    if constexpr (N == 128)
-      wgmma_rs_n128(o + N0 / 2, a, db);
-    else if constexpr (N == 64)
-      wgmma_rs_n64(o + N0 / 2, a, db);
-    else if constexpr (N == 32)
-      wgmma_rs_n32(o + N0 / 2, a, db);
-    else
-      wgmma_rs_n16(o + N0 / 2, a, db);
-    pv_step<W, BK, N0 + N, REM - N>(o, a, v_keys, layout);
-  }
-}
-
-// x = hi + mid + lo exactly, for every f32 x whose bits all sit at or above
-// 2^-133 (bf16's least subnormal): each residual then has at most 16, then 8,
-// significant bits.  Two values at a time, packed as bf16x2 (x0 low).
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-__device__ __forceinline__ void split3(float x0, float x1, uint32_t& hi,
-                                       uint32_t& mid, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float r0 = __fsub_rn(x0, __low2float(h));
-  const float r1 = __fsub_rn(x1, __high2float(h));
-  const __nv_bfloat162 md = __floats2bfloat162_rn(r0, r1);
-  hi = bits(h);
-  mid = bits(md);
-  lo = bits(__floats2bfloat162_rn(__fsub_rn(r0, __low2float(md)),
-                                  __fsub_rn(r1, __high2float(md))));
-}
 
 // The online softmax of one tile for this thread's two rows (qpos0 and
 // qpos0 + 8; s[4j + i] is row i >> 1, key 8j + 2*quad + (i & 1)): the
@@ -620,14 +374,7 @@ __device__ __forceinline__ void rescale_split(const float* s, float* o,
     for (int i = 0; i < DH / 2; ++i)
       o[i] = __fmul_rn(o[i], corr[(i >> 1) & 1]);
   }
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int i = 4 * (2 * kk + (q >> 1)) + 2 * (q & 1);
-      split3(__fmul_rn(s[i], kPScale), __fmul_rn(s[i + 1], kPScale),
-             a[0][kk][q], a[1][kk][q], a[2][kk][q]);
-    }
+  split_fragments<BK>(s, a);
 }
 
 template <int DH>
@@ -639,7 +386,7 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                      int H, int Hkv, int heads_per_block, float scale,
                      int window, float softcap) {
   using C = Cfg<DH>;
-  constexpr int W = C::W, BK = C::BK;
+  constexpr int BK = C::BK;
   extern __shared__ uint8_t smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
@@ -671,7 +418,7 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       mbar_init(&full[st], 1);
       mbar_init(&empty[st], 4 * kConsumers);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -679,25 +426,19 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     // Producer: one thread issues every TMA load of the block.
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == kConsumers * 128) {
-      mbar_expect_tx(q_full, kConsumers * C::kQTile * 2);
+      mbar_arrive_expect_tx(q_full, kConsumers * C::kQTile * 2);
       for (int w = 0; w < kConsumers; ++w) {
         const int head = heads_per_block == 1 ? h0 : h0 + w;
         const int pos = heads_per_block == 1 ? q0 + kRows * w : q0;
-        for (int c = 0; c < DH / W; ++c)
-          tma_load(q_s + w * C::kQTile + c * kRows * W, &tm_q, q_full,
-                   head * DH + c * W, pos, b);
+        tma_tile<DH>(q_s + w * C::kQTile, &tm_q, q_full, kRows, head, pos, b);
       }
       for (int t = 0; t < n_tiles; ++t) {
         const int st = t % kStages;
         if (t >= kStages) mbar_wait(&empty[st], (t / kStages - 1) & 1);
-        mbar_expect_tx(&full[st], 2 * C::kKVTile * 2);
+        mbar_arrive_expect_tx(&full[st], 2 * C::kKVTile * 2);
         const int k0 = k_begin + t * BK;
-        for (int c = 0; c < DH / W; ++c) {
-          tma_load(k_s + st * C::kKVTile + c * BK * W, &tm_k, &full[st],
-                   hk * DH + c * W, k0, b);
-          tma_load(v_s + st * C::kKVTile + c * BK * W, &tm_v, &full[st],
-                   hk * DH + c * W, k0, b);
-        }
+        tma_tile<DH>(k_s + st * C::kKVTile, &tm_k, &full[st], BK, hk, k0, b);
+        tma_tile<DH>(v_s + st * C::kKVTile, &tm_v, &full[st], BK, hk, k0, b);
       }
     }
   } else {
@@ -726,29 +467,13 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     uint32_t a[3][BK / 16][4];
 
     auto qk = [&](int t) {
-      const bf16* k_t = k_s + t % kStages * C::kKVTile;
       wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < DH / 16; ++kk) {
-        const int c = kk * 16 / W, off = kk * 16 % W;
-        qk_step<BK>(s,
-                    make_desc(q_t + c * kRows * W + off, 16, 8 * W * 2,
-                              C::kLayout),
-                    make_desc(k_t + c * BK * W + off, 16, 8 * W * 2,
-                              C::kLayout),
-                    kk > 0);
-      }
+      ss_product<DH, BK>(s, q_t, k_s + t % kStages * C::kKVTile);
       wgmma_commit();
     };
     auto pv = [&](int t) {
-      const bf16* v_t = v_s + t % kStages * C::kKVTile;
       wgmma_fence();
-#pragma unroll
-      for (int term = 0; term < 3; ++term)
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk)
-          pv_step<W, BK, 0, DH>(o, a[term][kk], v_t + kk * 16 * W,
-                                C::kLayout);
+      rs_product<DH, BK>(o, a, v_s + t % kStages * C::kKVTile);
       wgmma_commit();
     };
     auto softmax = [&](int t, float* corr) {
@@ -829,48 +554,6 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                                   __fdiv_rn(o[4 * j + 2 * r + 1], denom));
     }
   }
-}
-
-using EncodeTiled = PFN_cuTensorMapEncodeTiled_v12000;
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A (B, S, heads * dh) bf16 tensor map with boxes of (w columns, rows
-// positions, 1), swizzled to match the wgmma descriptors.
-bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
-              int dh, int rows, int w) {
-  const EncodeTiled encode = encode_tiled();
-  if (!encode || reinterpret_cast<uintptr_t>(ptr) % 16) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(heads) * dh,
-                              static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[2] = {dims[0] * 2, dims[0] * dims[1] * 2};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(w),
-                             static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUtensorMapSwizzle swizzle = w == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : w == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                               : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-                dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int DH>

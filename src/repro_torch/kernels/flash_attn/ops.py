@@ -17,7 +17,11 @@ output and that lse; its backward is ``flash_attention_bwd``, which
 launches ``csrc/flash_attn_bwd.cu`` on the card
 (``flash_attention_bwd.launches``) and runs ``flash_attention_bwd_ref`` on
 the CPU.  A call with no grad (serving) takes the kernel alone and saves
-nothing.
+nothing.  The backward, like the forward, runs bf16 inputs on the tensor
+cores (a dK/dV kernel by key tile and a dQ kernel by query tile, bf16
+wgmma on TMA-staged tiles, p and ds split into three exact bf16 terms;
+held to ``parity.flash_attn_bwd_tol``'s tensor-core form) and f32 inputs
+on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -172,6 +176,14 @@ def _check_cuda(name, q, k, v, window):
     return b, s, h, hkv, dh
 
 
+def _check_tma_aligned(name, *tensors) -> None:
+    """The bf16 kernels load their operands with TMA, which needs
+    16-byte-aligned data."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"the {name} kernel's bf16 path loads its operands "
+                         "with TMA, which needs 16-byte-aligned data")
+
+
 def _forward(q, k, v, window, softcap, with_lse: bool):
     """The forward on the card (or the plain version on the CPU):
     ``(out, lse)``, lse (B, H, S) f32 only ``with_lse`` (else None)."""
@@ -182,9 +194,8 @@ def _forward(q, k, v, window, softcap, with_lse: bool):
         return flash_attention_ref(q, k, v, window=window,
                                    softcap=softcap), None
     b, s, h, hkv, dh = _check_cuda("flash_attn", q, k, v, window)
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("the flash_attn kernel's bf16 path loads q, k, v with "
-                         "TMA, which needs 16-byte-aligned data")
+    if q.dtype == torch.bfloat16:
+        _check_tma_aligned("flash_attn", q, k, v)
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
            if with_lse else None)
@@ -265,8 +276,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """``(dq, dk, dv)`` of :func:`flash_attention` (see
     :func:`flash_attention_bwd_ref` for the formulas): the plain version
     for CPU tensors, ``csrc/flash_attn_bwd.cu`` for CUDA tensors (or
-    raises).  ``out`` and ``dout`` have q's shape and dtype, ``lse`` is the
-    forward's (B, H, S) f32."""
+    raises): bf16 on the tensor cores (q, k, v and dout 16-byte-aligned,
+    as their TMA loads need), f32 on the CUDA cores.  ``out`` and ``dout``
+    have q's shape and dtype, ``lse`` is the forward's (B, H, S) f32."""
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, dout, lse, window=window,
                                        softcap=softcap)
@@ -275,6 +287,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_operand("out", out, dev, q.dtype, (b, s, h, dh))
     check_operand("dout", dout, dev, q.dtype, (b, s, h, dh))
     check_operand("lse", lse, dev, torch.float32, (b, h, s))
+    if q.dtype == torch.bfloat16:
+        _check_tma_aligned("flash_attn_bwd", q, k, v, dout)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0:
         return dq, dk, dv

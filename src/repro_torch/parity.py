@@ -94,6 +94,22 @@
   plus one rounding for dq's final ``dh^-0.5``.  Two evaluations differ
   by at most twice that; a bf16 output adds one bf16 ulp of the larger
   magnitude (:func:`flash_attn_bwd_tol`).
+* The same, where the backward kernel runs on the tensor cores (bf16
+  inputs): the kernel's error under the accumulation model above plus the
+  reference's f32 error.  Its score is the forward's, ``RN(dh^-0.5 · Σ_d
+  q_d·k_d)`` over dh/4 blocks (the forward's score term), and ``dp = Σ_d
+  dout_d·v_d`` a chain of dh/4 blocks of exact products, off by
+  ``τ·Σ|dout·v|``; D, p, ds and the softcap's factor keep their CUDA-core
+  terms.  dv, dk and dq add the exact products of the three bf16 terms of
+  p·2¹⁶ or ds·2¹⁶ (magnitudes within (1 + 2⁻⁶) of |p| or |ds|), 12 blocks
+  per 16-wide k-step: for dq the k-steps a query's block walks, at most
+  ⌈n/16⌉ + 12 for its n live keys (its tiles hold at most 191 keys beside
+  them); for dk and dv every k-step a key's block could walk, g·(⌈S/16⌉ +
+  4) over the group's g query heads.  dk takes its dh^-0.5 after the sum
+  (one rounding, and the reference's ``RN(q·dh^-0.5)`` differs from the
+  exact product by u), and dq and dk their scale in one product with the
+  2⁻¹⁶ (:func:`flash_attn_bwd_tol`'s ``tensor_cores``, its default for
+  bf16 CUDA tensors).
 * The bf16 backbone against another implementation of it (the JAX
   package's compiled forward, or the same model on another device): bf16
   keeps 8 bits (one ulp is 2⁻⁸ relative), each layer rounds a dozen times,
@@ -391,11 +407,18 @@ def flash_attn_lse_tol(q: torch.Tensor, k: torch.Tensor,
 def flash_attn_bwd_tol(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        out: torch.Tensor, dout: torch.Tensor,
                        lse: torch.Tensor, window: Optional[int] = None,
-                       softcap: Optional[float] = None, chunk: int = 256):
+                       softcap: Optional[float] = None, chunk: int = 256,
+                       tensor_cores: Optional[bool] = None):
     """``(tol_dq, tol_dk, tol_dv)``: float64 bounds, of q's, k's and v's
     shapes, on the difference of two f32 evaluations of the attention
     backward from these inputs (the rule above), before any rounding to
-    the output dtype.  Queries go ``chunk`` rows at a time."""
+    the output dtype.  Queries go ``chunk`` rows at a time.
+    ``tensor_cores``: one of the two is the kernel's tensor-core path,
+    under the accumulation model above (the kernel's error plus the
+    reference's); by default where the kernel takes that path, for bf16
+    CUDA tensors (on the CPU the wrapper runs the plain version)."""
+    if tensor_cores is None:
+        tensor_cores = q.is_cuda and q.dtype == torch.bfloat16
     b, s, h, dh = q.shape
     hkv = k.shape[2]
     g = h // hkv
@@ -412,52 +435,88 @@ def flash_attn_bwd_tol(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tol_dk = torch.zeros((b, s, hkv, dh), dtype=f64, device=q.device)
     tol_dv = torch.zeros_like(tol_dk)
     gam_kv = _gamma(g * s)
+    # The tensor-core side: score and dp chains of dh/4 blocks, the split
+    # products' chains of 12 blocks a k-step.
+    tau = math.expm1(dh / 4 * math.log1p(_TC_BLOCK))
+    c_s_tc = ((1.0 + u) * tau + 2.0 * u) / (1.0 - u)
+    split = 1.0 + 2.0 ** -6
+    tau_kv = math.expm1(12 * g * (math.ceil(s / 16) + 4)
+                        * math.log1p(_TC_BLOCK))
+    c_k_tc = (split * (1.0 + u) * tau_kv + u) / (1.0 - u)
+    if tensor_cores:
+        tc_dq = torch.empty_like(tol_dq)
+        tc_dk, tc_dv, dk_val = (torch.zeros_like(tol_dk) for _ in range(3))
     for q0 in range(0, s, chunk):
         sl = slice(q0, q0 + chunk)
         qc, doc, oc = qs[:, sl], do[:, sl], o[:, sl]
         sc = torch.einsum("bqkgd,bskd->bkgqs", qc, k64)
-        e_s = gam_dh * torch.einsum("bqkgd,bskd->bkgqs", qc.abs(), k64.abs())
+        s_mag = torch.einsum("bqkgd,bskd->bkgqs", qc.abs(), k64.abs())
         t = None
         if softcap:
             t = torch.tanh(sc / softcap)
             s_c = softcap * t
-            e_c = e_s + 6.0 * u * s_c.abs()
         else:
-            s_c, e_c = sc, e_s
+            s_c = sc
         qp = pos[sl, None]
         live = qp >= pos[None, :]
         if window is not None:
             live &= (qp - pos[None, :]) < window
         lse_c = lse64[..., sl, None]
         p = torch.exp(s_c - lse_c).masked_fill(~live, 0.0)
-        e_p = e_c + u * (s_c - lse_c).abs() + 3.0 * u
         dp = torch.einsum("bqkgd,bskd->bkgqs", doc, v64)
-        e_dp = gam_dh * torch.einsum("bqkgd,bskd->bkgqs", doc.abs(),
-                                     v64.abs())
+        dp_mag = torch.einsum("bqkgd,bskd->bkgqs", doc.abs(), v64.abs())
         d_row = (doc * oc).sum(-1).permute(0, 2, 3, 1)[..., None]
         e_d = gam_dh * (doc.abs() * oc.abs()).sum(-1).permute(
             0, 2, 3, 1)[..., None]
         x = dp - d_row
-        ds = p * x
-        e_ds = p * (e_p * x.abs() + e_dp + e_d + 2.0 * u * x.abs())
-        if t is not None:
-            w = 1.0 - t * t
-            e_t = (e_s + u * sc.abs()) / softcap * w + 2.0 * u * t.abs()
-            e_ds = e_ds * w + ds.abs() * (2.0 * t.abs() * e_t + 2.0 * u)
-            ds = ds * w
-            e_ds = e_ds + u * ds.abs()
-        e_ds = e_ds.masked_fill(~live, 0.0)
+        ds_c = p * x
+        ds = ds_c if t is None else ds_c * (1.0 - t * t)
+
+        def errors(c_s, c_dp):
+            """One evaluation's errors of p (relative) and of ds."""
+            e_s = c_s * s_mag
+            e_c = e_s if t is None else e_s + 6.0 * u * s_c.abs()
+            e_p = e_c + u * (s_c - lse_c).abs() + 3.0 * u
+            e_ds = p * (e_p * x.abs() + c_dp * dp_mag + e_d
+                        + 2.0 * u * x.abs())
+            if t is not None:
+                w = 1.0 - t * t
+                e_t = (e_s + u * sc.abs()) / softcap * w + 2.0 * u * t.abs()
+                e_ds = (e_ds * w + ds_c.abs() * (2.0 * t.abs() * e_t
+                                                 + 2.0 * u)
+                        + u * ds.abs())
+            return e_p, e_ds.masked_fill(~live, 0.0)
+
         n_k = live.sum(-1).to(f64)                             # (q,)
         gam_k = n_k * u / (1.0 - n_k * u)
         dq_mag = torch.einsum("bkgqs,bskd->bqkgd", ds.abs(), k64.abs())
+        dq_val = torch.einsum("bkgqs,bskd->bqkgd", ds, k64).abs()
+        dk_mag = torch.einsum("bkgqs,bqkgd->bskd", ds.abs(), qc.abs())
+        dv_mag = torch.einsum("bkgqs,bqkgd->bskd", p, doc.abs())
+        e_p, e_ds = errors(gam_dh, gam_dh)
         tol_dq[:, sl] = scale * (
             torch.einsum("bkgqs,bskd->bqkgd", e_ds, k64.abs())
-            + gam_k[None, :, None, None, None] * dq_mag) + u * scale * (
-            torch.einsum("bkgqs,bskd->bqkgd", ds, k64).abs())
+            + gam_k[None, :, None, None, None] * dq_mag) + u * scale * dq_val
         tol_dk += torch.einsum("bkgqs,bqkgd->bskd", e_ds, qc.abs()) + (
-            gam_kv * torch.einsum("bkgqs,bqkgd->bskd", ds.abs(), qc.abs()))
+            gam_kv * dk_mag)
         tol_dv += torch.einsum("bkgqs,bqkgd->bskd", p * e_p, doc.abs()) + (
-            gam_kv * torch.einsum("bkgqs,bqkgd->bskd", p, doc.abs()))
+            gam_kv * dv_mag)
+        if tensor_cores:
+            e_p, e_ds = errors(c_s_tc, tau)
+            tau_q = torch.expm1(12.0 * (torch.ceil(n_k / 16) + 12)
+                                * math.log1p(_TC_BLOCK))
+            tc_dq[:, sl] = scale * (
+                torch.einsum("bkgqs,bskd->bqkgd", e_ds, k64.abs())
+                + split * tau_q[None, :, None, None, None] * dq_mag) + (
+                u * scale * dq_val)
+            tc_dk += torch.einsum("bkgqs,bqkgd->bskd", e_ds, qc.abs()) + (
+                c_k_tc * dk_mag)
+            dk_val += torch.einsum("bkgqs,bqkgd->bskd", ds, qc)
+            tc_dv += torch.einsum("bkgqs,bqkgd->bskd", p * e_p,
+                                  doc.abs()) + split * tau_kv * dv_mag
+    if tensor_cores:
+        return (tol_dq.reshape(b, s, h, dh) + tc_dq.reshape(b, s, h, dh),
+                tol_dk + tc_dk + u * dk_val.abs(), tol_dv + tc_dv)
     return (2.0 * tol_dq.reshape(b, s, h, dh), 2.0 * tol_dk, 2.0 * tol_dv)
 
 

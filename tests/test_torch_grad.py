@@ -30,6 +30,13 @@ Tolerances:
   it (each moves two experts' token fractions by 1/N).
 * Remat on against remat off: bit for bit (the recompute repeats the
   forward's arithmetic).
+* The backward kernel's tensor-core path, emulated in plain torch (its
+  product structure: unscaled q·k then the scale, p·2¹⁶ and ds·2¹⁶ split
+  into three bf16 terms, products summed per 16-wide k-step in f32, dk's
+  and dq's scale after the sum) on bf16-valued inputs, against the plain
+  backward: within ``flash_attn_bwd_tol``'s tensor-core form, which is
+  at least its f32 form everywhere; the split itself exact over every f32
+  binade of ds.
 
 The ``cuda`` cases hold the backward kernel against the plain backward on
 the card and skip here; JAX is imported inside fixtures, so they also run
@@ -54,6 +61,7 @@ from repro_torch.parity import (BF16_MAX_TOL, BF16_NORM_TOL,
                                 assert_flash_attn_close,
                                 bf16_backbone_errors, flash_attn_bwd_tol,
                                 flash_attn_tol_ratio)
+from test_torch_attention import _f32_at_every_exponent, split_bf16
 
 BF16_ULP = 2.0 ** -8
 # (B, S, H, Hkv, dh, window, softcap): MHA and GQA, windowed or not, with
@@ -166,6 +174,140 @@ def test_lse_ref_is_the_rows_logsumexp():
     want = torch.logsumexp(s.masked_fill(~live, float("-inf")), -1)
     np.testing.assert_allclose(lse.numpy(), want.reshape(2, 4, 20).numpy(),
                                rtol=1e-6, atol=1e-6)
+
+
+# -- the backward kernel's tensor-core arithmetic, in plain torch ----------
+
+
+def test_bwd_split_of_ds_is_exact():
+    """The dK/dV and dQ kernels' premise: ``split_bf16`` of ds·2¹⁶ sums to
+    it exactly for ds of every f32 binade, signed, subnormals included, up
+    to |ds| < 2¹¹² (ds·2¹⁶ at most bf16's largest finite value; above it
+    hi overflows)."""
+    rng = np.random.default_rng(25)
+    ds = _f32_at_every_exponent(rng, range(0, 127 + 112))
+    x = ds * 2.0 ** 16
+    assert torch.equal(x.to(torch.float64), ds.to(torch.float64) * 2.0 ** 16)
+    keep = x.abs() <= torch.finfo(torch.bfloat16).max
+    assert float(keep.float().mean()) > 0.99
+    ds, x = ds[keep], x[keep]
+    assert bool((ds < 0).any()) and bool(((ds != 0) & (ds.abs() < 2.0 ** -126)).any())
+    hi, mid, lo = split_bf16(x)
+    total = sum(t.to(torch.float64) for t in (hi, mid, lo))
+    assert torch.equal(total, x.to(torch.float64))
+
+
+def _kstep_sum(pairs):
+    """f32 sum of ``einsum(spec, a, b)`` over the given 16-wide slices, in
+    order: each k-step's products summed in f32, then added to the f32
+    accumulator."""
+    acc = None
+    for spec, a, b in pairs:
+        part = torch.einsum(spec, a, b)
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def _split_terms(x):
+    return [t.to(torch.float32) for t in split_bf16(x * 2.0 ** 16)]
+
+
+def _tc_bwd_emulation(q, k, v, out, dout, lse, window, cap):
+    """``(dq, dk, dv)`` by the tensor-core kernels' product structure, in
+    f32 on bf16-valued f32 inputs: s = Σ q·k (16-wide k-steps) times
+    RN(dh^-0.5) (or tanh of it times RN(dh^-0.5 / softcap)); dp likewise;
+    p, ds by the reference's formulas; dv, dk, dq from the three bf16
+    terms of p·2¹⁶ and ds·2¹⁶ over 16-wide k-steps (per query head, for dk
+    and dv), times 2⁻¹⁶ (dk and dq: RN(dh^-0.5)·2⁻¹⁶) after the sum."""
+    f32 = torch.float32
+    b, s, h, dh = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    scale = torch.tensor(dh ** -0.5, dtype=f32)
+    qg = q.reshape(b, s, hkv, g, dh)
+    dog = dout.reshape(b, s, hkv, g, dh)
+    steps_d = range(0, dh, 16)
+    s_raw = _kstep_sum(("bqkgd,bskd->bkgqs", qg[..., i:i + 16], k[..., i:i + 16])
+                       for i in steps_d)
+    dp = _kstep_sum(("bqkgd,bskd->bkgqs", dog[..., i:i + 16], v[..., i:i + 16])
+                    for i in steps_d)
+    t = None
+    if cap:
+        t = torch.tanh(s_raw * (scale / cap))
+        s_c = cap * t
+    else:
+        s_c = s_raw * scale
+    pos = torch.arange(s)
+    live = pos[:, None] >= pos[None, :]
+    if window is not None:
+        live &= (pos[:, None] - pos[None, :]) < window
+    p = torch.exp(s_c - lse.reshape(b, hkv, g, s, 1))
+    d_row = (dog * out.reshape(b, s, hkv, g, dh)).sum(-1)
+    ds = p * (dp - d_row.permute(0, 2, 3, 1)[..., None])
+    if t is not None:
+        ds = ds * (1.0 - t * t)
+    p, ds = (torch.where(live, x, torch.zeros(())) for x in (p, ds))
+    p_terms, ds_terms = _split_terms(p), _split_terms(ds)
+    steps_q = [(gi, i) for gi in range(g) for i in range(0, s, 16)]
+    dv = _kstep_sum(("bkqs,bqkd->bskd", term[:, :, gi, i:i + 16],
+                     dog[:, i:i + 16, :, gi]) for gi, i in steps_q for term in p_terms)
+    dk = _kstep_sum(("bkqs,bqkd->bskd", term[:, :, gi, i:i + 16],
+                     qg[:, i:i + 16, :, gi]) for gi, i in steps_q for term in ds_terms)
+    dq = _kstep_sum(("bkgqs,bskd->bqkgd", term[..., i:i + 16], k[:, i:i + 16])
+                    for i in range(0, s, 16) for term in ds_terms)
+    back = scale * 2.0 ** -16
+    return dq.reshape(b, s, h, dh) * back, dk * back, dv * 2.0 ** -16
+
+
+def _bf16_valued(*arrays):
+    return [torch.from_numpy(a).to(torch.bfloat16).to(torch.float32)
+            for a in arrays]
+
+
+@pytest.mark.parametrize("b,s,h,hkv,dh,window,cap", BWD_CASES)
+def test_tc_bwd_emulation_within_tensor_core_bound(b, s, h, hkv, dh, window,
+                                                   cap):
+    """The kernel's tensor-core arithmetic, emulated in f32, against the
+    plain backward on the same bf16-valued inputs: within
+    ``flash_attn_bwd_tol(tensor_cores=True)`` at every element."""
+    q, k, v, dout = _bf16_valued(*_attn_inputs(b, s, h, hkv, dh, seed=3))
+    out, lse = flash_attention_lse_ref(q, k, v, window=window, softcap=cap)
+    want = flash_attention_bwd_ref(q, k, v, out, dout, lse, window=window,
+                                   softcap=cap)
+    got = _tc_bwd_emulation(q, k, v, out, dout, lse, window, cap)
+    tols = flash_attn_bwd_tol(q, k, v, out, dout, lse, window, cap,
+                              tensor_cores=True)
+    _assert_grads_close(got, want, tols)
+    assert not any(torch.equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.parametrize("b,s,h,hkv,dh,window,cap", BWD_CASES)
+def test_tensor_core_bwd_bound_covers_the_f32_one(b, s, h, hkv, dh, window,
+                                                  cap):
+    """``flash_attn_bwd_tol(tensor_cores=True)`` is finite and at least the
+    f32 form at every element of dq, dk and dv."""
+    q, k, v, dout = (torch.from_numpy(t) for t in _attn_inputs(b, s, h, hkv,
+                                                               dh, seed=4))
+    out, lse = flash_attention_lse_ref(q, k, v, window=window, softcap=cap)
+    f32 = flash_attn_bwd_tol(q, k, v, out, dout, lse, window, cap,
+                             tensor_cores=False)
+    tc = flash_attn_bwd_tol(q, k, v, out, dout, lse, window, cap,
+                            tensor_cores=True)
+    assert flash_attn_bwd_tol(q, k, v, out, dout, lse, window, cap)[0].equal(f32[0])
+    for x, y in zip(tc, f32):
+        assert bool(torch.isfinite(x).all())
+        assert bool((x >= y).all())
+
+
+def test_backward_source_builds_in_four_parts():
+    """``_build`` compiles ``csrc/flash_attn_bwd.cu`` as four translation
+    units at once (its ``// BUILD_PARTS 4`` line: the tensor-core kernels
+    of 16 dh values, the long pole of the build) and every other source as
+    one."""
+    from repro_torch.kernels import _build
+    assert _build._parts("flash_attn_bwd") == 4
+    assert all(_build._parts(n) == 1 for n in _build.sources()
+               if n != "flash_attn_bwd")
 
 
 # -- lm_loss and its grads for every family --------------------------------
@@ -384,21 +526,30 @@ def cuda():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dout_scale", [1.0, 2.0 ** -40, 2.0 ** 20])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,s,h,hkv,dh,window,cap",
                          [(2, 130, 4, 2, 64, None, None),
                           (1, 200, 8, 4, 128, 64, 50.0),
                           (2, 70, 4, 4, 160, None, 30.0),
-                          (1, 40, 2, 2, 192, 17, None)])
-def test_cuda_bwd_kernel_matches_plain(cuda, dtype, b, s, h, hkv, dh, window,
-                                       cap):
+                          (1, 40, 2, 2, 192, 17, None),
+                          (1, 100, 8, 1, 256, None, None),
+                          (2, 150, 16, 2, 96, 40, 20.0)])
+def test_cuda_bwd_kernel_matches_plain(cuda, dtype, dout_scale, b, s, h, hkv,
+                                       dh, window, cap):
     """The kernel against the plain backward on the same q, k, v, out,
-    dout and lse, within ``flash_attn_bwd_tol``; two launches bit for bit;
-    the forward's output bits unchanged by writing lse."""
+    dout and lse, within ``flash_attn_bwd_tol`` (bf16: its tensor-core
+    form); two launches bit for bit; the forward's output bits unchanged
+    by writing lse.  The cases cover each register regime of the
+    tensor-core kernels (streamed tiles of 64 positions to dh 128, 32
+    above; dh 256's 128 accumulators a thread), S not a multiple of the
+    key tile, GQA groups of 2, 4 and 8, and dout scaled far down and up
+    (ds·2¹⁶ splits exactly over that range)."""
     dtype = getattr(torch, dtype)
     g = torch.Generator(cuda).manual_seed(s)
     q, dout = (torch.randn((b, s, h, dh), generator=g, device=cuda).to(dtype)
                for _ in range(2))
+    dout = dout * dout_scale
     k, v = (torch.randn((b, s, hkv, dh), generator=g, device=cuda).to(dtype)
             for _ in range(2))
     out, lse = flash_attention_lse(q, k, v, window=window, softcap=cap)
@@ -419,6 +570,23 @@ def test_cuda_bwd_kernel_matches_plain(cuda, dtype, b, s, h, hkv, dh, window,
     for x, y, t in zip(got, want, tols):
         assert x.dtype == dtype
         assert flash_attn_tol_ratio(x, y, t) <= 1.0
+
+
+@pytest.mark.cuda
+def test_cuda_bwd_raises_on_unaligned_bf16(cuda):
+    """The bf16 kernels load q, k, v and dout with TMA: an operand whose
+    data is not 16-byte aligned is refused before any launch."""
+    g = torch.Generator(cuda).manual_seed(0)
+    q, k, v, dout = (torch.randn((1, 64, 2, 64), generator=g, device=cuda)
+                     .to(torch.bfloat16) for _ in range(4))
+    out, lse = flash_attention_lse(q, k, v)
+    flat = torch.empty(dout.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    shifted = flat[1:].view(dout.shape)
+    shifted.copy_(dout)
+    launches = flash_attention_bwd.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_bwd(q, k, v, out, shifted, lse)
+    assert flash_attention_bwd.launches == launches
 
 
 @pytest.mark.cuda
