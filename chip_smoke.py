@@ -82,9 +82,13 @@ kernels through the same wrappers and checks.
    within ``race_query_tol`` of ``race_query_ref``, two launches bit for
    bit equal, timed beside its plain version and its bound.
 8. Paper phase: ``repro_torch.launch.paper_repro.run_dataset`` on all six
-   datasets at the FULL budget (teacher → distill → freeze → query), with
+   datasets at the FULL budget (teacher → distill → freeze → query), each
+   in a process of its own, all six at once (the recipe's training loops
+   are host-bound, 50-65 s a dataset alone; its stage seconds are then
+   those of six processes sharing the host), with
    the launch counts zeroed before and read after each (lsh_hash 2,
-   race_update 1, race_query 1); the query held against the plain version
+   race_update 1, race_query 1); then, in this process, one dataset at a
+   time, the query held against the plain version
    on the same debiased state, the hash against its plain version, the
    freeze's race_update (C, L, R) against its plain version and timed;
    classification sets gated on tests/test_distill.py's relations
@@ -217,7 +221,31 @@ kernels through the same wrappers and checks.
    checkpoint, its params and optimizer state equal to the continuous
    run's bit for bit; a restore into a fresh state allocates no more than
    the largest leaf beyond it (the restore copies in place).
-19. Prints the ``{"kernels": [...]}`` line (race_update's launches from the
+19. Mesh phase (after rwkv6's seeded sampling): the card's one-rank
+   NCCL group (a ``TCPStore`` on 127.0.0.1, ``init_device_mesh("cuda",
+   (1, 1))``); the params and caches carry the rules' ``Shard``
+   placements on its one-rank dims, so DTensor propagates them as on a
+   larger mesh.  rwkv6-1.6b at full width and depth through
+   ``LM.from_config(..., mesh=...)`` on the main path's params, with the
+   fused head: ``generate`` at decode_chunk 1 and 16 equal to the main
+   path's single-device fused tokens bit for bit (fused_decode 15 a
+   generate), timed beside the same generate off the mesh (plain, mesh,
+   mesh, plain); gemma2-27b at full width and 2 layers, its prefill's
+   flash_attn through the DTensor wrapper (2 launches), the tokens equal
+   to the same model off the mesh; the global-row input of fused_decode
+   on the card (the serve head at f32, int8 and int4, row halves and
+   quarters with ``row_start``: each part's indices equal the whole
+   launch's columns exactly, its logits within the gather bound of
+   ``fused_decode_ref`` at that ``row_start``, the scaled parts' sum
+   within the gather bound of the whole); a rank's product of a
+   contraction-sharded weight (``layers._partial_product``: bf16 blocks
+   with an f32 result) timed beside the bf16 and the widened-f32 product;
+   the smoke models of nine archs (all but deepseek-v3-671b, whose smoke
+   head dim the flash kernel does not take) on the mesh, generate at
+   decode_chunk 1 and 4 and the engine equal off it; ``compressed_psum``
+   of CUDA gradients over the one-rank group (mean + new error = the
+   gradient).  The group is destroyed at the end of the phase.
+20. Prints the ``{"kernels": [...]}`` line (race_update's launches from the
    refresh path, race_query's from the paper phase, flash_attn's from the
    gemma2 main path with its record at the main path's global-layer
    prefill, flex_attention as its library call, softcap-free kernel and
@@ -286,7 +314,7 @@ from repro_torch.launch.engine import EngineBackend
 from repro_torch.launch.serve import engine_stream
 from repro_torch.launch import steps as steps_mod
 from repro_torch.launch.steps import prefill_step, prefill_step_, serve_step, serve_step_
-from repro_torch.models import blocks, model
+from repro_torch.models import blocks, layers, model
 from repro_torch.models.attention import KVCache
 from repro_torch.models.config import SketchHeadConfig
 from repro_torch.models.layers import (apply_rope, embed_scaled, init_dense, rms_norm,
@@ -324,6 +352,9 @@ KERNELS = {   # name: (wrapper, source, TPU kernel it replaces)
 N_REQUESTS, SLOTS, TENANT_SLOTS, CAPACITY = 12, 4, 2, 2
 REFRESH_PROMPTS = 8                 # x PROMPT tokens = M = 256 refresh points
 GEMMA = "gemma2-27b"
+MESH_SMOKE_ARCHS = ("rwkv6-1.6b", "gemma2-27b", "granite-8b", "stablelm-12b",
+                    "musicgen-large", "command-r-35b", "mixtral-8x7b", "jamba-v0.1-52b",
+                    "llama-3.2-vision-11b")
 GEMMA_LONG = 4160                   # past the 4096 window: the local rings wrap
 GEMMA_STAGGERED = 6                 # staggered requests over TENANT_SLOTS slots
 DECODE_CHUNKS = (1, 4, 16)          # generate's megastep sizes
@@ -1637,29 +1668,57 @@ def query_phase(dev, timer):
           "race_query_tol and bit-stable", flush=True)
 
 
+def paper_run(name):
+    """``run_dataset(name)`` at the FULL budget in a process of the paper
+    phase's pool: (the result with its tensors on the CPU, the launch
+    counts of the run)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    reset_counts()
+    r = paper_repro.run_dataset(name, paper_repro.FULL, 0, torch.device("cuda"))
+    torch.cuda.synchronize()
+    launched = counts()
+    parts = r["parts"]
+    r["parts"] = dict(parts, **{k: tree_to(parts[k], "cpu")
+                                for k in ("state", "queries", "kparams")})
+    return r, launched
+
+
+def tree_to(tree, dev):
+    """The tensors of a tree of dicts moved to ``dev``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev) if torch.is_tensor(tree) else tree
+
+
 def paper_phase(dev, timer):
     """The paper's recipe on all six datasets at the FULL budget through
-    run_dataset; returns (race_query record of the first dataset's query,
-    race_query launches over the phase)."""
+    run_dataset, each in a spawned process (all at once), then each
+    dataset's kernels checked here; returns (race_query record of the
+    first dataset's query, race_query launches over the phase)."""
+    import concurrent.futures
+    import multiprocessing
+
     budget = paper_repro.FULL
     chunks = -(-budget["n_points"] // 4096)
     want = {"lsh_hash": chunks + 1, "race_update": chunks, "race_query": 1}
+    with concurrent.futures.ProcessPoolExecutor(
+            len(DATASETS), mp_context=multiprocessing.get_context("spawn")) as pool:
+        runs = list(pool.map(paper_run, DATASETS))
     first, n_query = None, 0
-    for name in DATASETS:
-        torch.cuda.synchronize()
-        reset_counts()
-        r = paper_repro.run_dataset(name, budget, 0, dev)
-        launched = counts()
+    for name, (r, launched) in zip(DATASETS, runs):
         expect_launches(f"paper {name}", launched, want)
         n_query += launched["race_query"]
-        sk, state, q = (r["parts"][k] for k in ("sketch", "state", "queries"))
+        sk, state, q, kparams = (tree_to(r["parts"][k], dev)
+                                 for k in ("sketch", "state", "queries", "kparams"))
         cfg = sk.config
         w, b = state["hash"]["w"], state["hash"]["b"]
         idx = sk.lsh.hash(state["hash"], q)
         mism = check_hash_indices(idx, lsh_hash_ref(q, w, b, cfg.bandwidth, cfg.n_buckets),
                                   q, w, b, cfg.bandwidth)
         qrec = check_query(timer, sk.debiased(state), idx, cfg.n_groups)
-        points, alphas = r["parts"]["kparams"]["points"], r["parts"]["kparams"]["alphas"]
+        points, alphas = kparams["points"], kparams["alphas"]
         pidx = sk.lsh.hash(state["hash"], points)
         zeros = torch.zeros_like(state["array"])
         if not torch.equal(race_update(zeros, pidx, alphas.contiguous()), state["array"]):
@@ -2459,6 +2518,218 @@ def encoder_states(cfg, gen):
                        device=gen.device).to(torch.bfloat16)
 
 
+def mesh_phase(dev, timer, lm, frozen, runs):
+    """The multi-GPU path on the card's one-rank NCCL group (docstring
+    item 19); returns the phase's timings."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import parse_mesh
+    from repro_torch.optim.compress import compressed_psum, init_error_feedback
+
+    store = dist.TCPStore("127.0.0.1", 0, 1, True)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        return _mesh_checks(dev, timer, lm, frozen, runs, parse_mesh("1x1", "cuda"),
+                            compressed_psum, init_error_feedback)
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_checks(dev, timer, lm, frozen, runs, mesh, compressed_psum,
+                 init_error_feedback):
+    out = {}
+    head = SketchHead(cfg=SERVE_HEAD, backend="fused", params=frozen)
+    want = runs["fused"][-1]["tokens"]
+    prompts = want[:, :PROMPT]
+    plain = lm.with_head(head)
+    meshed = LM.from_config("rwkv6-1.6b", device=dev, params=lm.params, head=head,
+                            mesh=mesh)
+    if not all(type(t).__name__ == "DTensor" for t in leaves(meshed.params)):
+        raise AssertionError("mesh LM params are not DTensors")
+    if not any(p.is_shard() for t in leaves(meshed.params) for p in t.placements):
+        raise AssertionError("no mesh LM param is sharded: the 1x1 mesh would run "
+                             "replicated DTensors only")
+    for chunk in (1, 16):
+        meshed.generate(prompts, 2, decode_chunk=chunk)          # warm-up, capture
+        plain.generate(prompts, 2, decode_chunk=chunk)
+        times = {"plain": [], "mesh": []}
+        for who in ("plain", "mesh", "mesh", "plain"):
+            served = plain if who == "plain" else meshed
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            tokens = served.generate(prompts, GEN, decode_chunk=chunk)
+            torch.cuda.synchronize()
+            times[who].append(time.perf_counter() - t0)
+            launched = counts()
+            expect_launches(f"rwkv6 {who} decode_chunk {chunk}", launched,
+                            {"fused_decode": GEN - 1})
+            if not torch.equal(tokens, want):
+                raise AssertionError(f"rwkv6 {who} generate at decode_chunk {chunk} "
+                                     "differs from the main path's fused tokens")
+        out[f"rwkv6 decode_chunk {chunk}"] = times
+        print(f"mesh 1x1 rwkv6-1.6b fused generate (4x{GEN} new tokens) at decode_chunk "
+              f"{chunk}: plain {times['plain']} s, 1x1 mesh {times['mesh']} s "
+              f"(tokens equal the main path's; fused_decode {GEN - 1} a generate)",
+              flush=True)
+    del meshed, plain
+
+    glm, _, gfrozen, ggen = build_served(GEMMA, dev, n_layers=2)
+    gprompts = torch.randint(0, glm.cfg.vocab_size, (BATCH, PROMPT), generator=ggen,
+                             device=dev)
+    gmesh = glm.with_mesh(mesh)
+    for who, served in (("plain", glm), ("mesh", gmesh)):
+        served.generate(gprompts, 2)
+    got = {}
+    for who, served in (("plain", glm), ("mesh", gmesh), ("mesh", gmesh), ("plain", glm)):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        got[who] = served.generate(gprompts, GEN)
+        torch.cuda.synchronize()
+        out.setdefault(f"gemma2 {who}", []).append(time.perf_counter() - t0)
+        expect_launches(f"gemma2 2-layer {who}", counts(), {"flash_attn": 2})
+    if not torch.equal(got["mesh"], got["plain"]):
+        raise AssertionError("gemma2 2-layer tokens on the 1x1 mesh differ from off it")
+    print(f"mesh 1x1 gemma2-27b (2 layers) dense generate: plain {out['gemma2 plain']} s, "
+          f"1x1 mesh {out['gemma2 mesh']} s (tokens equal; flash_attn 2 a generate "
+          "through the DTensor wrapper)", flush=True)
+    del glm, gmesh, gfrozen
+    free_card()
+
+    gen = torch.Generator(dev).manual_seed(26)
+    hidden = torch.randn((BATCH, D_MODEL), generator=gen, device=dev)
+    n_rows = SERVE_HEAD.n_rows
+    for quant in (None, "int8", "int4"):
+        head_q = frozen if quant is None else quantize_head(frozen, quant)
+        store, scale = head_q["array"], head_q.get("scale")
+        deq = store if quant is None else dequantize_sketch_ref(store, scale, quant)
+        atol = gather_atol(n_rows, float(deq.abs().max()))
+        kw = dict(bandwidth=SERVE_HEAD.bandwidth, n_buckets=SERVE_HEAD.n_buckets,
+                  quant=quant)
+        whole_idx = torch.empty((BATCH, n_rows), dtype=torch.int32, device=dev)
+        whole = fused_decode_logits(hidden, frozen["proj"], frozen["w"], frozen["b"], store,
+                                    scale=scale, idx_out=whole_idx, **kw)
+        worst = 0.0
+        for m in (2, 4):
+            ls = n_rows // m
+            total = torch.zeros_like(whole)
+            for part in range(m):
+                rows = slice(part * ls, (part + 1) * ls)
+                srows = slice(part * ls // 2, (part + 1) * ls // 2) if quant == "int4" else rows
+                st = store[srows].contiguous()
+                sc = None if scale is None else scale[rows].contiguous()
+                w, b = frozen["w"][rows].contiguous(), frozen["b"][rows].contiguous()
+                idx = torch.empty((BATCH, ls), dtype=torch.int32, device=dev)
+                part_out = fused_decode_logits(hidden, frozen["proj"], w, b, st, scale=sc,
+                                               idx_out=idx, row_start=part * ls, **kw)
+                torch.cuda.synchronize()
+                if not torch.equal(idx, whole_idx[:, rows]):
+                    raise AssertionError(f"fused_decode row_start {part * ls} ({quant}): "
+                                         "indices differ from the whole launch's columns")
+                ref_idx = torch.empty_like(idx)
+                ref = fused_decode_ref(hidden, frozen["proj"], w, b, st, SERVE_HEAD.bandwidth,
+                                       SERVE_HEAD.n_buckets, sc, quant, idx_out=ref_idx,
+                                       row_start=part * ls)
+                check_hash_indices(idx, ref_idx, hidden, w, b, SERVE_HEAD.bandwidth,
+                                   proj=frozen["proj"])
+                same = (idx == ref_idx).all(dim=1)
+                torch.testing.assert_close(part_out[same], ref[same], rtol=0, atol=atol)
+                total += part_out * (ls / n_rows)
+            err = float((total - whole).abs().max())
+            worst = max(worst, err)
+            if err > atol:
+                raise AssertionError(f"fused_decode {m} row shards ({quant}): the parts' sum "
+                                     f"is {err:.3g} from the whole launch (bound {atol:.3g})")
+        print(f"fused_decode global-row input ({quant or 'f32'}): halves and quarters with "
+              f"row_start, indices equal the whole launch's columns; parts' sum within "
+              f"{worst:.3g} of the whole (gather bound {atol:.3g}: f32 reassociation of "
+              "L/m-term means)", flush=True)
+
+    partial_product_check(timer, gen, dev, out)
+    out["smoke archs"] = mesh_smoke_archs(mesh)
+
+    g = {"w": torch.randn((2048, 512), generator=gen, device=dev),
+         "b": torch.linspace(-1, 1, 512, device=dev)}
+    mean, new_e = compressed_psum(g, init_error_feedback(g))
+    for k in g:
+        err = float((mean[k] + new_e[k] - g[k]).abs().max())
+        if err > 1e-5 * float(g[k].abs().max()):
+            raise AssertionError(f"compressed_psum over one rank: mean + error is {err:.3g} "
+                                 f"from the gradient ({k})")
+    print("compressed_psum of CUDA gradients over the one-rank NCCL group: mean + new "
+          "error = the gradient", flush=True)
+    return out
+
+
+def mesh_smoke_archs(mesh):
+    """Every family's smoke model but MLA's on the 1x1 mesh (DTensor's
+    propagation on this card's PyTorch through each family's layers):
+    ``generate`` at decode_chunk 1 and 4, and the engine where the arch
+    has one, equal to the same model off the mesh.  deepseek-v3-671b's
+    smoke head dim (24) is below the flash kernel's multiple of 16, so it
+    cannot prefill on the card at smoke size.  Returns seconds per arch."""
+    seconds = {}
+    for arch in MESH_SMOKE_ARCHS:
+        t0 = time.perf_counter()
+        lm = LM.from_config(arch, smoke=True, device="cuda")
+        cfg = lm.cfg
+        gen = torch.Generator("cuda").manual_seed(1)
+        prompts = torch.randint(0, cfg.vocab_size, (BATCH, 6), generator=gen, device="cuda")
+        enc = None
+        if cfg.n_encoder_tokens:
+            enc = torch.randn((BATCH, cfg.n_encoder_tokens, cfg.d_model), generator=gen,
+                              device="cuda").to(torch.bfloat16)
+        want = lm.generate(prompts, 5, encoder_states=enc)
+        meshed = lm.with_mesh(mesh)
+        for chunk in (1, 4):
+            got = meshed.generate(prompts, 5, encoder_states=enc, decode_chunk=chunk)
+            if not torch.equal(got, want):
+                raise AssertionError(f"{arch} smoke on the 1x1 mesh at decode_chunk {chunk} "
+                                     "differs from off it")
+        if not cfg.n_encoder_tokens:
+            served = meshed.serve([(prompts[i].cpu().numpy(), 5) for i in range(BATCH)],
+                                  n_slots=BATCH)
+            if any(list(served[i]) != want[i, 6:].tolist() for i in range(BATCH)):
+                raise AssertionError(f"{arch} smoke engine on the 1x1 mesh differs from "
+                                     "generate off it")
+        seconds[arch] = round(time.perf_counter() - t0, 2)
+    print(f"mesh 1x1 smoke streams of {len(seconds)} archs (generate at decode_chunk 1 "
+          f"and 4, the engine) equal off the mesh; seconds {seconds}", flush=True)
+    return seconds
+
+
+def partial_product_check(timer, gen, dev, out):
+    """A rank's product of a contraction-sharded weight (``layers.matmul``
+    on a mesh whose model axis has more than one rank, which the card's one
+    rank never runs): rwkv6's w_o at decode (B 4, d 2048) split in halves,
+    the bf16 blocks multiplied with an f32 result (``out_dtype``), timed
+    beside the bf16 product of the same blocks and the f32 product of
+    widened blocks; the rounded result within one bf16 ulp of the bf16
+    product."""
+    x = torch.randn((BATCH, 1, D_MODEL // 2), generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn((D_MODEL // 2, D_MODEL), generator=gen, device=dev)
+         * D_MODEL ** -0.5).to(torch.bfloat16)
+    with torch.no_grad():
+        part = layers._partial_product(x, w)
+        plain = x @ w
+    if part.dtype != torch.float32:
+        raise AssertionError(f"partial product is {part.dtype}, not f32")
+    ulp = 2.0 ** (torch.floor(torch.log2(plain.float().abs().clamp_min(1e-30))) - 7)
+    if bool(((part.to(torch.bfloat16).float() - plain.float()).abs() > ulp).any()):
+        raise AssertionError("partial product rounded to bf16 is beyond one ulp of the "
+                             "bf16 product")
+    with torch.no_grad():
+        ms = {"f32_out": timer.ms(lambda: layers._partial_product(x, w)),
+              "bf16": timer.ms(lambda: x @ w),
+              "widened_f32": timer.ms(lambda: x.float() @ w.float())}
+    out["partial product ms"] = ms
+    print(f"contraction-sharded product (rwkv6 w_o half, x {tuple(x.shape)}, w "
+          f"{tuple(w.shape)}): bf16 blocks to f32 {ms['f32_out']:.4f} ms, bf16 product "
+          f"{ms['bf16']:.4f} ms, widened f32 blocks {ms['widened_f32']:.4f} ms; rounded "
+          "within one bf16 ulp of the bf16 product", flush=True)
+
+
 def arch_phase(dev, arch, n_layers, per_layer=False, extra=None):
     """An arch at full width (``n_layers`` deep when given; drawn a layer
     at a time with ``per_layer``): ``LM.generate`` of BATCH x PROMPT
@@ -3038,6 +3309,7 @@ def main() -> None:
     timed("spec generate", spec_phase, *loop_args[:5], loop_ms)
     timed("seeded sampling", seeded_phase, lm, loop_args[2], timer)
     del loop_args
+    timed("mesh", mesh_phase, dev, timer, lm, frozen, runs)
     refresh_launches, recs["race_update"] = timed("refresh f32", refresh_phase, dev, timer, lm,
                                                   kparams, None)
     timed("refresh int8", refresh_phase, dev, timer, lm, kparams, "int8")

@@ -14,6 +14,7 @@ from repro_torch.core.sketch_lm_head import (HEAD_BACKENDS, QUANT_MODES,
                                              apply_head, load_head_full,
                                              save_head)
 from repro_torch.models.config import SketchHeadConfig
+from repro_torch.sharding.ctx import like, replicated
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,7 +70,9 @@ class SketchHead:
     def apply(self, params: dict, hidden: torch.Tensor) -> torch.Tensor:
         """Sketched (B, V) f32 logits for (B, d) hiddens on ``backend``; on
         a ``per_tenant`` spec ``params`` is the bank with its
-        ``"tenant_ids"`` leaf."""
+        ``"tenant_ids"`` leaf.  Params placed on a mesh (DTensors) run the
+        row-sharded path (the count rows over its ``model`` axis, one
+        all-reduce a step)."""
         if params is None:
             raise ValueError("SketchHead.apply needs the frozen head params; "
                              "freeze them with freeze_head or load them with "
@@ -145,22 +148,30 @@ class HeadCache:
     Writes into the bank (a load into a freed row, ``publish``) are in
     place, on the current stream, so they follow the decode launches
     already queued there.  What :meth:`tenant_params` returns is a clone
-    that no later write changes.  Not thread-safe; the engine drives it
-    from one loop.
+    that no later write changes.
+
+    On a mesh (``mesh=``) the bank's leaves are DTensors placed by
+    ``sharding.rules.head_bank_shardings``: each tenant's row is laid out
+    as a single-tenant head is (the count rows and scales over ``model``),
+    and the tenant axis is never sharded.
+
+    Not thread-safe; the engine drives it from one loop.
     """
 
-    def __init__(self, loader, capacity: int):
+    def __init__(self, loader, capacity: int, mesh=None):
         """Args:
           loader: ``loader(tenant) -> dict`` of the tenant's frozen head
             tensors; every head must match the first one's leaves, shapes
             and dtypes.
           capacity: most resident tenants (bank rows), at least 1.
+          mesh: the serving ``DeviceMesh`` the bank is placed on, or None.
         """
         if capacity < 1:
             raise ValueError(f"HeadCache capacity must be >= 1, got "
                              f"{capacity}")
         self._loader = loader
         self.capacity = capacity
+        self.mesh = mesh
         self._bank: Optional[Dict[str, torch.Tensor]] = None
         self._slot_of: Dict[Any, int] = {}         # tenant -> bank row
         self._refs: Dict[Any, int] = {}            # tenant -> live pins
@@ -171,6 +182,13 @@ class HeadCache:
         self._bank = {k: torch.zeros((self.capacity, *v.shape),
                                      dtype=v.dtype, device=v.device)
                       for k, v in params.items()}
+        if self.mesh is not None:
+            from repro_torch.launch.mesh import distribute_tree
+            from repro_torch.sharding.rules import head_bank_shardings
+
+            self._bank = distribute_tree(
+                self._bank, head_bank_shardings(self._bank, self.mesh),
+                self.mesh)
 
     def _write_slot(self, slot: int, params: dict) -> None:
         extra = set(params) - set(self._bank)
@@ -186,7 +204,8 @@ class HeadCache:
                     f"tenant head leaf {k!r} has shape {tuple(v.shape)}, the "
                     f"bank holds {tuple(self._bank[k].shape[1:])}")
         for k, v in params.items():
-            self._bank[k][slot].copy_(v)
+            row = self._bank[k][slot]
+            row.copy_(like(v, row))
 
     def _touch(self, tenant) -> None:
         if tenant in self._lru:
@@ -249,7 +268,7 @@ class HeadCache:
         """The resident tenant's params: clones of its bank row, which a
         later ``publish`` or eviction does not change."""
         slot = self._slot_of[tenant]
-        return {k: v[slot].clone() for k, v in self._bank.items()}
+        return {k: replicated(v[slot]).clone() for k, v in self._bank.items()}
 
     def publish(self, tenant, params: dict) -> None:
         """Overwrite a resident tenant's bank row: the refresh commit.

@@ -9,6 +9,7 @@
     tokens = lm.generate(prompts, 16, decode_chunk=16)    # one megastep
     tokens = lm.generate(prompts, 16, spec_decode=4)      # drafts, dense verify
     tokens = lm.generate(prompts, 16, encoder_states=enc) # cross-attention archs
+    lm = lm.with_mesh("2x2")          # SPMD over a (data, model) mesh
     lm = lm.with_head(SketchHead.load("head.npz"))        # sketched decode
     finished = lm.serve([(prompt, 16, arrival), ...])     # continuous batching
 """
@@ -44,6 +45,11 @@ class LM:
       cfg: the architecture's ``ModelConfig``.
       head: ``DenseHead`` (default) or a ``SketchHead`` with params.
       device: where params, head params and tokens live.
+      mesh: a ``DeviceMesh`` with ``("data", "model")`` axes, or None.
+        On a mesh the params and head arrays are DTensors placed by
+        ``sharding/rules.py`` (build it with :meth:`from_config` or
+        :meth:`with_mesh`), every rank runs the same calls (SPMD), and
+        tokens come back replicated, the same on every rank.
 
     ``generate(decode_chunk=K > 1)`` and ``generate(spec_decode=K)``
     memoize their decode loops in the LM (on the card a captured CUDA
@@ -60,6 +66,7 @@ class LM:
     cfg: ModelConfig
     head: Any = dataclasses.field(default_factory=DenseHead)
     device: torch.device = torch.device("cuda")
+    mesh: Any = None
     _loops: dict = dataclasses.field(default_factory=dict, init=False,
                                      repr=False, compare=False)
 
@@ -67,7 +74,7 @@ class LM:
     def from_config(cls, arch: str, *, smoke: bool = False, device="cuda",
                     generator: Optional[torch.Generator] = None,
                     head=None, params: Any = None,
-                    n_layers: Optional[int] = None) -> "LM":
+                    n_layers: Optional[int] = None, mesh=None) -> "LM":
         """Build an LM from a ported arch config.
 
         Args:
@@ -80,10 +87,14 @@ class LM:
           params: backbone params to serve instead of a random init.
           n_layers: serve the arch at this depth (whole periods of its
             pattern) at full width; the config's own depth when omitted.
+          mesh: a ``DeviceMesh`` or a ``"<data>x<model>"`` spec
+            (``launch.mesh.parse_mesh``): params and head arrays are
+            placed on it by ``sharding/rules.py``.
 
         Raises:
           KeyError: the arch is not ported.
           RuntimeError: ``device`` is CUDA and no card is present.
+          ValueError: a mesh spec the process group cannot make.
         """
         from repro_torch.configs import get_config
         from repro_torch.models.model import init_model
@@ -96,11 +107,35 @@ class LM:
             if generator is None:
                 generator = torch.Generator(device).manual_seed(0)
             params = init_model(cfg, generator)
-        return cls(params, cfg, (head or DenseHead()).to(device), device)
+        lm = cls(params, cfg, (head or DenseHead()).to(device), device)
+        return lm.with_mesh(mesh) if mesh is not None else lm
 
     def with_head(self, head) -> "LM":
-        """The same model serving through ``head`` (moved to this device)."""
-        return dataclasses.replace(self, head=head.to(self.device))
+        """The same model serving through ``head`` (moved to this device,
+        and placed on this LM's mesh)."""
+        head = head.to(self.device)
+        if self.mesh is not None and head.params is not None:
+            from repro_torch.launch.mesh import place_serving_state
+            _, head = place_serving_state(None, head, self.mesh)
+        return dataclasses.replace(self, head=head)
+
+    def with_mesh(self, mesh) -> "LM":
+        """This model placed on a mesh (a ``DeviceMesh`` or a
+        ``"<data>x<model>"`` spec), or with ``None`` gathered back to one
+        device: params and head arrays as DTensors by the rules, or as
+        full plain tensors on ``device``.  Starts a new loop memo."""
+        from repro_torch.launch.mesh import (gather_tree, parse_mesh,
+                                             place_serving_state)
+
+        mesh = parse_mesh(mesh, self.device.type)
+        params, head = self.params, self.head
+        if self.mesh is not None:
+            params = gather_tree(params, self.device)
+            if head.params is not None:
+                head = head.with_params(gather_tree(head.params, self.device))
+        if mesh is not None:
+            params, head = place_serving_state(params, head, mesh)
+        return dataclasses.replace(self, params=params, head=head, mesh=mesh)
 
     def generate(self, prompts, max_new_tokens: int, *,
                  sampler=None, eos_id: Optional[int] = None, pad_id: int = 0,
@@ -134,7 +169,7 @@ class LM:
                         pad_id=pad_id,
                         decode_chunk=decode_chunk, spec_decode=spec_decode,
                         return_stats=return_stats, loops=self._loops,
-                        encoder_states=encoder_states)
+                        encoder_states=encoder_states, mesh=self.mesh)
 
     # -- continuous batching -------------------------------------------------
 
@@ -183,7 +218,7 @@ class LM:
                            decode_chunk=decode_chunk, spec_decode=spec_decode,
                            paged=paged, page_size=page_size,
                            num_pages=num_pages, head_cache=head_cache,
-                           device=self.device)
+                           device=self.device, mesh=self.mesh)
 
     def serve(self, requests: Iterable, *, n_slots: int = 4,
               max_seq: Optional[int] = None, sampler=None,

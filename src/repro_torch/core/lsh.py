@@ -37,10 +37,13 @@ MIX_B = 0x45D9F3B
 GOLDEN = 0x9E3779B9
 
 
-def row_salts(n_rows: int, device=None) -> torch.Tensor:
-    """Fold salts of sketch rows ``0 .. n_rows-1`` as uint32 values held in
-    an int64 tensor: ``row * 0x9E3779B9 mod 2**32``."""
-    rows = torch.arange(n_rows, dtype=torch.int64, device=device)
+def row_salts(n_rows: int, start: int = 0, device=None) -> torch.Tensor:
+    """Fold salts of sketch rows ``start .. start + n_rows - 1`` as uint32
+    values held in an int64 tensor: ``row * 0x9E3779B9 mod 2**32``.  The
+    salt is a function of the *global* row, so a row shard of a head
+    (the sharded decode path) passes its first row as ``start``."""
+    rows = torch.arange(start, start + n_rows, dtype=torch.int64,
+                        device=device)
     return (rows * GOLDEN) & MASK32
 
 

@@ -26,7 +26,7 @@ import dataclasses
 import types
 import typing
 from pathlib import Path
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +43,8 @@ from repro_torch.kernels.lsh_hash.ops import lsh_hash
 from repro_torch.kernels.race_update.ops import race_update_counts
 from repro_torch.kernels.sketch_head.ops import sketch_head_logits
 from repro_torch.models.config import SketchHeadConfig
+from repro_torch.optim.compress import quantize_symmetric
+from repro_torch.sharding.ctx import replicated
 
 #: Count-array storage modes.
 QUANT_MODES = (None, "int8", "int4")
@@ -83,30 +85,6 @@ def _check_quant(quant: Optional[str]) -> None:
     if quant not in QUANT_MODES:
         raise ValueError(f"unknown quant mode {quant!r}; "
                          f"expected one of {QUANT_MODES}")
-
-
-def quantize_symmetric(x: torch.Tensor, *, bits: int = 8,
-                       axis: Optional[Union[int, Tuple[int, ...]]] = None
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Symmetric signed quantization with per-``axis``-slice scales.
-
-    Returns ``(q, scale)``: ``q`` int8 in [-qmax, qmax] (qmax = 2^(bits-1)-1)
-    and f32 ``scale`` with the ``axis`` dims squeezed out, ``q·scale ≈ x``.
-    All-zero slices get scale ``1/qmax`` (never 0, so no inf/nan).  Same
-    arithmetic as the JAX package's ``optim/compress.quantize_symmetric``
-    (round half to even in both).
-    """
-    qmax = float(2 ** (bits - 1) - 1)
-    ax = x.to(torch.float32)
-    if axis is None:
-        amax = ax.abs().amax()
-    else:
-        amax = ax.abs().amax(dim=axis, keepdim=True)
-    scale = torch.where(amax > 0, amax, torch.ones_like(amax)) / qmax
-    q = torch.clamp(torch.round(ax / scale), -qmax, qmax).to(torch.int8)
-    if axis is not None:
-        scale = scale.squeeze(axis)
-    return q, scale.to(torch.float32)
 
 
 def quantize_counts(array: torch.Tensor, quant: str
@@ -259,6 +237,12 @@ def apply_head(head: dict, hidden: torch.Tensor, cfg: SketchHeadConfig, *,
     single-tenant path — on ``two_kernel`` each row hashes through its own
     ``(proj, w, b)`` — and row ``b`` takes bank row ``tenant_ids[b]``'s
     logits without arithmetic, bitwise what that head alone gives.
+
+    A head placed on a mesh (DTensor leaves, by ``head_param_shardings``)
+    runs the row-sharded path of the kernel wrappers (on ``ref``, of the
+    plain version): each rank of the model axis reads its L/m rows of the
+    counts, and one all-reduce of the (B, V) partial means finishes the
+    step.  Returns a DTensor then.
     """
     _check_quant(quant)
     if (quant is not None) != ("scale" in head):
@@ -294,13 +278,13 @@ def _apply_bank(bank, h32, cfg, backend, quant, tenant_ids):
     scale = bank.get("scale")
     n_bank = bank["w"].shape[0]
     if backend == "ref":
-        per_tenant = torch.stack([
+        per_tenant = torch.stack([replicated(
             fused_decode_ref(h32, bank["proj"][t], bank["w"][t],
                              bank["b"][t], bank["array"][t], cfg.bandwidth,
                              cfg.n_buckets,
-                             None if scale is None else scale[t], quant)
+                             None if scale is None else scale[t], quant))
             for t in range(n_bank)])
-        return select_tenant_rows(per_tenant, tenant_ids)
+        return select_tenant_rows(per_tenant, replicated(tenant_ids))
     if backend == "fused":
         return fused_decode_logits(
             h32, bank["proj"], bank["w"], bank["b"], bank["array"],

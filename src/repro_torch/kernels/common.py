@@ -86,3 +86,112 @@ def stream_of(device: torch.device) -> int:
 
 #: Count-array storage modes, and their codes in the CUDA launchers.
 QUANT_CODES = {None: 0, "int8": 1, "int4": 2}
+
+
+# -- the mesh paths of the kernel wrappers ----------------------------------
+#
+# A kernel never sees a DTensor.  On a mesh a wrapper brings each operand to
+# a placement (``local_block``), launches on the local blocks and wraps the
+# result back (``from_local_block``): the port's counterpart of the JAX
+# package's ``shard_map`` around a ``pallas_call``.
+
+
+def operand_mesh(*xs):
+    """The ``DeviceMesh`` of the first DTensor among ``xs`` (None where
+    there is none): a wrapper given DTensors takes its mesh path."""
+    from repro_torch.sharding.ctx import is_dtensor
+
+    for x in xs:
+        if is_dtensor(x):
+            return x.device_mesh
+    return None
+
+
+def mesh_axis_size(mesh, name: str) -> int:
+    """The size of mesh axis ``name`` (1 without a mesh or that axis)."""
+    if mesh is None or name not in mesh.mesh_dim_names:
+        return 1
+    return mesh.size(mesh.mesh_dim_names.index(name))
+
+
+def local_block(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's block of ``x`` laid out by ``spec`` on ``mesh``: a
+    DTensor is redistributed to it, a plain tensor is taken as replicated
+    (the same on every rank) and sliced."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.sharding.rules import to_placements
+
+    if not isinstance(x, DTensor):
+        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    placements = to_placements(spec, mesh)
+    if tuple(x.placements) != placements:
+        x = x.redistribute(mesh, placements)
+    return x.to_local()
+
+
+def from_local_block(x: torch.Tensor, spec, mesh, shape=None):
+    """A DTensor of global ``shape`` (contiguous) from this rank's block
+    ``x`` laid out by ``spec``."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.sharding.rules import to_placements
+
+    return DTensor.from_local(x.contiguous(), mesh,
+                              to_placements(spec, mesh),
+                              run_check=False, shape=shape,
+                              stride=None if shape is None
+                              else torch.empty(shape, device="meta").stride())
+
+
+def batch_entry(mesh, n_batch: int):
+    """The batch axis's entry on a mesh: ``"data"`` when it divides the
+    batch, else replicated (the JAX package's sharded head paths)."""
+    dsize = mesh_axis_size(mesh, "data")
+    return "data" if dsize > 1 and n_batch % dsize == 0 else None
+
+
+def row_shardable(mesh, n_rows: int, l_store: int, quant) -> bool:
+    """Whether a head's L rows split over ``mesh``'s model axis: the axis
+    divides L and the storage rows, and an int4 shard holds whole bytes
+    (``2 * l_store == L``)."""
+    m = mesh_axis_size(mesh, "model")
+    ok = m > 1 and n_rows % m == 0 and l_store % m == 0
+    if quant == "int4":
+        ok = ok and 2 * l_store == n_rows
+    return ok
+
+
+def row_sharded_logits(launch, mesh, n_batch: int, n_rows: int,
+                       l_store: int, quant, v: int, operands):
+    """(B, V) logits of a row-mean head on a mesh.
+
+    ``operands`` are ``(tensor, layout)`` pairs, ``layout`` one of
+    ``"batch"`` (dim 0 over ``data`` where it divides), ``"rows"`` (dim 0,
+    the head's rows, over ``model``), ``"batch_rows"`` (a (B, L) index
+    array: both) and ``"rep"`` (replicated); a None tensor stays None.
+    Every rank of the model axis runs ``launch(*local blocks,
+    row_start=)`` on its L/m rows, row_start its first global row, and the
+    partial means, scaled by (L/m)/L, are summed by one all-reduce over the
+    model group.  When the model axis does not split the rows, every rank
+    launches on all of them.  Returns a DTensor, batch over ``data`` where
+    it divides, replicated over ``model``."""
+    import torch.distributed as dist
+
+    from repro_torch.sharding.rules import P
+
+    bspec = batch_entry(mesh, n_batch)
+    split = row_shardable(mesh, n_rows, l_store, quant)
+    rows = "model" if split else None
+    specs = {"batch": P(bspec), "rows": P(rows), "batch_rows": P(bspec, rows),
+             "rep": P()}
+    local = [None if x is None else local_block(x, specs[layout], mesh)
+             for x, layout in operands]
+    l_shard = n_rows // mesh_axis_size(mesh, "model") if split else n_rows
+    start = mesh.get_local_rank("model") * l_shard if split else 0
+    part = launch(*local, row_start=start)
+    if split:
+        part = part * (l_shard / n_rows)
+        dist.all_reduce(part, group=mesh.get_group("model"))
+    return from_local_block(part, P(bspec, None), mesh, (n_batch, v))

@@ -3,7 +3,10 @@
 //   idx[b, l] = fold_k floor((q . W[l, k] + bias[l, k]) / r)   (L2-LSH)
 //   logits[b, v] = (1/L) * sum_l scale[l, idx] * S[l, idx[b, l], v]
 // in one launch, with S stored f32, int8 or packed int4 as in
-// sketch_head.cu.
+// sketch_head.cu.  Row l's fold is salted by its global row index row0 + l:
+// a shard holding rows [row0, row0 + L) of a larger head (the row-sharded
+// path over a mesh's model axis) hashes into the buckets the whole head
+// does; row0 = 0 is the whole head.
 //
 // Replaces: src/repro/kernels/fused_decode/kernel.py:_fused_decode_kernel,
 // the serving default of the sketched head.
@@ -84,7 +87,8 @@ fused_decode_kernel(const float* __restrict__ h, const float* __restrict__ A,
                     const void* __restrict__ sketch,
                     const float* __restrict__ scale, float* __restrict__ out,
                     int* __restrict__ idx_out, int B, int d, int dp, int L,
-                    int K, int R, int64_t V, float r, float inv_l, Plan pl) {
+                    int K, int R, int64_t V, float r, float inv_l, int row0,
+                    Plan pl) {
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);   // stage landed
@@ -241,7 +245,7 @@ fused_decode_kernel(const float* __restrict__ h, const float* __restrict__ A,
   for (int item = tid; item < nb * L; item += kThreads) {
     const int bb = item / L, l = item % L;
     const float* q = q_s + bb * dp;
-    uint32_t code = lsh::row_salt(l);
+    uint32_t code = lsh::row_salt(row0 + l);
     for (int k = 0; k < K; ++k) {
       const float* wr = wt_s + l * K + k;
       float proj = 0.f;
@@ -346,7 +350,7 @@ template <int QUANT, int BT>
 int launch(const float* h, const float* A, const float* w, const float* bias,
            const void* sketch, const float* scale, float* out, int* idx_out,
            int B, int d, int dp, int L, int K, int R, int64_t V, float r,
-           cudaStream_t stream) {
+           int row0, cudaStream_t stream) {
   // The plan of the last shape this thread launched (the decode loop
   // launches one shape over and over, and planning takes several CUDA
   // runtime calls).
@@ -374,7 +378,7 @@ int launch(const float* h, const float* A, const float* w, const float* bias,
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, fused_decode_kernel<QUANT, BT>, h, A, w, bias, sketch,
                            scale, out, idx_out, B, d, dp, L, K, R, V, r,
-                           1.0f / static_cast<float>(L), pl);
+                           1.0f / static_cast<float>(L), row0, pl);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -383,12 +387,12 @@ template <int QUANT>
 int launch_rows(const float* h, const float* A, const float* w,
                 const float* bias, const void* sketch, const float* scale,
                 float* out, int* idx_out, int B, int d, int dp, int L, int K,
-                int R, int64_t V, float r, cudaStream_t stream) {
+                int R, int64_t V, float r, int row0, cudaStream_t stream) {
   switch (lsh::rows_per_block(B)) {
-    case 1: return launch<QUANT, 1>(h, A, w, bias, sketch, scale, out, idx_out, B, d, dp, L, K, R, V, r, stream);
-    case 2: return launch<QUANT, 2>(h, A, w, bias, sketch, scale, out, idx_out, B, d, dp, L, K, R, V, r, stream);
-    case 4: return launch<QUANT, 4>(h, A, w, bias, sketch, scale, out, idx_out, B, d, dp, L, K, R, V, r, stream);
-    default: return launch<QUANT, 8>(h, A, w, bias, sketch, scale, out, idx_out, B, d, dp, L, K, R, V, r, stream);
+    case 1: return launch<QUANT, 1>(h, A, w, bias, sketch, scale, out, idx_out, B, d, dp, L, K, R, V, r, row0, stream);
+    case 2: return launch<QUANT, 2>(h, A, w, bias, sketch, scale, out, idx_out, B, d, dp, L, K, R, V, r, row0, stream);
+    case 4: return launch<QUANT, 4>(h, A, w, bias, sketch, scale, out, idx_out, B, d, dp, L, K, R, V, r, row0, stream);
+    default: return launch<QUANT, 8>(h, A, w, bias, sketch, scale, out, idx_out, B, d, dp, L, K, R, V, r, row0, stream);
   }
 }
 
@@ -399,14 +403,15 @@ extern "C" int fused_decode_launch(const float* h, const float* A,
                                    const void* sketch, const float* scale,
                                    float* out, int* idx_out, int B, int d,
                                    int dp, int L, int K, int R, int64_t V,
-                                   float r, int quant, cudaStream_t stream) {
+                                   float r, int row0, int quant,
+                                   cudaStream_t stream) {
   switch (quant) {
     case lsh::kF32:
-      return launch_rows<lsh::kF32>(h, A, w, bias, sketch, scale, out, idx_out, B, d, dp, L, K, R, V, r, stream);
+      return launch_rows<lsh::kF32>(h, A, w, bias, sketch, scale, out, idx_out, B, d, dp, L, K, R, V, r, row0, stream);
     case lsh::kInt8:
-      return launch_rows<lsh::kInt8>(h, A, w, bias, sketch, scale, out, idx_out, B, d, dp, L, K, R, V, r, stream);
+      return launch_rows<lsh::kInt8>(h, A, w, bias, sketch, scale, out, idx_out, B, d, dp, L, K, R, V, r, row0, stream);
     case lsh::kInt4:
-      return launch_rows<lsh::kInt4>(h, A, w, bias, sketch, scale, out, idx_out, B, d, dp, L, K, R, V, r, stream);
+      return launch_rows<lsh::kInt4>(h, A, w, bias, sketch, scale, out, idx_out, B, d, dp, L, K, R, V, r, row0, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -33,7 +33,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import check_operand, stream_of
+from repro_torch.kernels.common import check_operand, operand_mesh, stream_of
+from repro_torch.sharding.local import on_local_blocks
 
 _NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -251,6 +252,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check_args(q, k, v, window)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
+    if operand_mesh(q, k, v) is not None:
+        return on_local_blocks(
+            lambda ql, kl, vl: (flash_attention(ql, kl, vl, window=window,
+                                                softcap=softcap),),
+            (q, k, v), ("bshd",) * 3, ("bshd",))[0]
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashAttention.apply(q, k, v, window, softcap)
     return _forward(q, k, v, window, softcap, with_lse=False)[0]
@@ -266,6 +272,11 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     each row's log-sum-exp (B, H, S) f32, from one launch of the forward
     kernel (counted in ``flash_attention.launches``); no autograd."""
     _check_args(q, k, v, window)
+    if operand_mesh(q, k, v) is not None:
+        return on_local_blocks(
+            lambda ql, kl, vl: _forward(ql, kl, vl, window, softcap,
+                                        with_lse=True),
+            (q, k, v), ("bshd",) * 3, ("bshd", "bhs"))
     return _forward(q, k, v, window, softcap, with_lse=True)
 
 
@@ -279,6 +290,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     raises): bf16 on the tensor cores (q, k, v and dout 16-byte-aligned,
     as their TMA loads need), f32 on the CUDA cores.  ``out`` and ``dout``
     have q's shape and dtype, ``lse`` is the forward's (B, H, S) f32."""
+    if operand_mesh(q, k, v, out, dout, lse) is not None:
+        return on_local_blocks(
+            lambda *t: flash_attention_bwd(*t, window=window,
+                                           softcap=softcap),
+            (q, k, v, out, dout, lse), ("bshd",) * 5 + ("bhs",),
+            ("bshd",) * 3)
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, out, dout, lse, window=window,
                                        softcap=softcap)

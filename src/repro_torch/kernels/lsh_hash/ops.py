@@ -12,20 +12,26 @@ import functools
 
 import torch
 
-from repro_torch.core.lsh import _fold_subhashes
+from repro_torch.core.lsh import _fold_subhashes, row_salts
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import check_operand, stream_of
+from repro_torch.kernels.common import (batch_entry, check_operand,
+                                        from_local_block, local_block,
+                                        operand_mesh, stream_of)
+from repro_torch.sharding.rules import P
 
 
 def lsh_hash_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                 bandwidth: float, n_buckets: int) -> torch.Tensor:
+                 bandwidth: float, n_buckets: int,
+                 row_start: int = 0) -> torch.Tensor:
     """Plain version: ``fold(floor((x·wᵀ + b) / r)) mod R`` → (B, L) int32.
 
-    x (B, d') f32, w (L, K, d') f32, b (L, K) f32.
+    x (B, d') f32, w (L, K, d') f32, b (L, K) f32; the rows fold with the
+    salts of global rows ``row_start ..`` (a row shard of a larger bank).
     """
     proj = torch.einsum("bd,lkd->blk", x, w)
     codes = torch.floor((proj + b) / bandwidth).to(torch.int32)
-    return _fold_subhashes(codes, n_buckets)
+    return _fold_subhashes(codes, n_buckets,
+                           row_salts(w.shape[0], row_start, x.device))
 
 
 @functools.lru_cache(maxsize=None)
@@ -40,7 +46,17 @@ def _launcher():
 def lsh_hash(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
              bandwidth: float, n_buckets: int) -> torch.Tensor:
     """Bucket indices (B, L) int32 of queries x (B, d') against an (L, K, d')
-    bank with offsets b (L, K)."""
+    bank with offsets b (L, K).  DTensor operands (a mesh's two-kernel
+    head) hash this rank's batch block (over ``data`` where it divides)
+    against the whole bank and come back as a DTensor."""
+    mesh = operand_mesh(x, w)
+    if mesh is not None:
+        bspec = batch_entry(mesh, x.shape[0])
+        out = lsh_hash(local_block(x, P(bspec), mesh),
+                       local_block(w, P(), mesh), local_block(b, P(), mesh),
+                       bandwidth=bandwidth, n_buckets=n_buckets)
+        return from_local_block(out, P(bspec, None), mesh,
+                                (x.shape[0], w.shape[0]))
     if x.device.type == "cpu":
         return lsh_hash_ref(x, w, b, bandwidth, n_buckets)
     if x.device.type != "cuda":

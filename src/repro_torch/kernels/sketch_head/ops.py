@@ -16,8 +16,10 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (QUANT_CODES, check_operand,
+                                        operand_mesh, row_sharded_logits,
                                         select_tenant_rows, stream_of,
                                         unpack_int4_rows)
+from repro_torch.sharding.ctx import replicated
 
 
 def dequantize_sketch_ref(sketch: torch.Tensor, scale: torch.Tensor,
@@ -124,6 +126,14 @@ def sketch_head_logits(sketch: torch.Tensor, idx: torch.Tensor, *,
         one full-batch index tensor from each bank row's own hash bank; the
         single-tenant gather runs once per bank row (T launches on the
         card) and row ``b`` is taken from bank row ``tenant_ids[b]``.
+
+    DTensor operands take the row-sharded path: each rank of the mesh's
+    model axis gathers its L/m rows (the count rows, scales and index
+    columns over ``model``), and one all-reduce over the model group sums
+    the partial means scaled by (L/m)/L; the batch splits over ``data``
+    where it divides.  A DTensor comes back.  Where the axis does not
+    divide L and the storage rows (an int4 shard must hold whole bytes),
+    every rank gathers all rows.
     """
     if tenant_ids is not None:
         if idx.dim() != 3 or idx.shape[0] != sketch.shape[0]:
@@ -131,12 +141,23 @@ def sketch_head_logits(sketch: torch.Tensor, idx: torch.Tensor, *,
                 f"tenant_ids needs a (T, B, L) index stack matching the "
                 f"(T, …) sketch bank; got idx {tuple(idx.shape)} vs sketch "
                 f"{tuple(sketch.shape)}")
-        per_tenant = torch.stack([
+        per_tenant = torch.stack([replicated(
             sketch_head_logits(sketch[t], idx[t],
                                scale=None if scale is None else scale[t],
-                               quant=quant)
+                               quant=quant))
             for t in range(sketch.shape[0])])
-        return select_tenant_rows(per_tenant, tenant_ids)
+        return select_tenant_rows(per_tenant, replicated(tenant_ids))
+    mesh = operand_mesh(sketch, idx, scale)
+    if mesh is not None:
+        _check_quant_args(scale, quant)
+
+        def launch(ix, sk, sc, *, row_start):
+            del row_start               # the indices carry the salts
+            return sketch_head_logits(sk, ix, scale=sc, quant=quant)
+        return row_sharded_logits(
+            launch, mesh, idx.shape[0], idx.shape[1], sketch.shape[0], quant,
+            sketch.shape[-1],
+            [(idx, "batch_rows"), (sketch, "rows"), (scale, "rows")])
     if idx.device.type == "cpu":
         _check_quant_args(scale, quant)
         return sketch_head_ref(sketch, idx, scale, quant)

@@ -58,6 +58,7 @@ from typing import Optional
 import torch
 
 from repro_torch.api.sampler import Sampler
+from repro_torch.kernels.common import operand_mesh
 from repro_torch.kernels.flash_attn.ops import flash_attention
 from repro_torch.kernels.fused_decode.ops import fused_decode_logits
 from repro_torch.kernels.lsh_hash.ops import lsh_hash
@@ -67,6 +68,9 @@ from repro_torch.kernels.sketch_head.ops import sketch_head_logits
 from repro_torch.launch.steps import serve_step_
 from repro_torch.models import model
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding.ctx import (is_dtensor, like, replicated, serving,
+                                     serving_method)
+from repro_torch.sharding.local import index_copy_, new_zeros, spec_of
 
 #: The kernel wrappers whose ``launches`` a replay adds to.
 COUNTED = (fused_decode_logits, lsh_hash, sketch_head_logits, race_update,
@@ -102,9 +106,10 @@ class DecodeLoop:
       encoder_states: (B, T, d) states of the ``xattn`` layers: copied
         into a static buffer that :meth:`load` refills.
 
-    Everything runs in ``torch.inference_mode``: the static buffers are
-    inference tensors, and a cache given in (an engine's pool) is written
-    in place there.  On a CUDA device the constructor warms the step up on
+    Everything runs in ``torch.inference_mode`` (on a mesh, a cache of
+    DTensors, in ``sharding.ctx.serving``'s no-grad mode): the static
+    buffers are inference tensors, and a cache given in (an engine's pool)
+    is written in place there.  On a CUDA device the constructor warms the step up on
     a side stream and captures it.  The warm-up runs with ``active`` all False where the
     step is masked, so the cache keeps its contents; an unmasked loop's
     cache holds nothing of value until :meth:`load_cache`.
@@ -114,7 +119,6 @@ class DecodeLoop:
       RuntimeError: the capture failed (e.g. a host sync in the step).
     """
 
-    @torch.inference_mode()
     def __init__(self, params: dict, cfg: ModelConfig, head, cache: dict,
                  *, sampler: Optional[Sampler] = None, masked: bool,
                  eos_id: Optional[int] = None, pad_id: int = 0,
@@ -122,6 +126,13 @@ class DecodeLoop:
                  encoder_states: Optional[torch.Tensor] = None):
         if eos_id is not None and not masked:
             raise ValueError("eos_id retirement needs masked=True")
+        self.mesh = operand_mesh(*model.cache_leaves(cache))
+        with serving(self.mesh):
+            self._setup(params, cfg, head, cache, sampler, eos_id, pad_id,
+                        masked, per_slot, head_params, encoder_states)
+
+    def _setup(self, params, cfg, head, cache, sampler, eos_id, pad_id,
+               masked, per_slot, head_params, encoder_states) -> None:
         leaf = next(model.cache_leaves(cache))
         self.device, b = leaf.device, leaf.shape[1]
         self.params, self.cfg, self.head, self.cache = params, cfg, head, cache
@@ -218,14 +229,14 @@ class DecodeLoop:
         wrapper name; empty off the card)."""
         return {w.__name__: n for w, n in zip(COUNTED, self.launches) if n}
 
-    @torch.inference_mode()
+    @serving_method
     def load_cache(self, cache: dict) -> None:
         """Copy ``cache`` (same shapes) into the static cache."""
         for dst, src in zip(model.cache_leaves(self.cache),
                             model.cache_leaves(cache)):
-            dst.copy_(src)
+            dst.copy_(like(src, dst))
 
-    @torch.inference_mode()
+    @serving_method
     def load(self, tok, pos, active=None, head_params=None,
              key=None, encoder_states=None) -> None:
         """Set the carry for the next :meth:`run`: the last tokens (B,),
@@ -255,7 +266,7 @@ class DecodeLoop:
                         "decode loop was built on")
             self.head_params["tenant_ids"].copy_(head_params["tenant_ids"])
 
-    @torch.inference_mode()
+    @serving_method
     def run(self, k: int) -> torch.Tensor:
         """``k`` decode steps from the loaded carry; returns the (k, B)
         int64 token block on the device (no host sync)."""
@@ -289,7 +300,6 @@ class SpecLoop(DecodeLoop):
     it reads them.
     """
 
-    @torch.inference_mode()
     def __init__(self, params: dict, cfg: ModelConfig, head, cache: dict,
                  *, k: int, sampler: Optional[Sampler] = None, masked: bool,
                  eos_id: Optional[int] = None, pad_id: int = 0,
@@ -297,12 +307,22 @@ class SpecLoop(DecodeLoop):
                  encoder_states: Optional[torch.Tensor] = None):
         if k < 1:
             raise ValueError(f"a spec loop needs k >= 1, got {k}")
+        with serving(operand_mesh(*model.cache_leaves(cache))):
+            self._setup_spec(cfg, cache, k, record_logits)
+        super().__init__(params, cfg, head, cache, sampler=sampler,
+                         masked=masked, eos_id=eos_id, pad_id=pad_id,
+                         per_slot=per_slot, encoder_states=encoder_states)
+
+    def _setup_spec(self, cfg, cache, k, record_logits) -> None:
         leaf = next(model.cache_leaves(cache))
         dev, b = leaf.device, leaf.shape[1]
         self.k = k
         self.step = torch.zeros(1, dtype=torch.int64, device=dev)
-        self.hiddens = torch.zeros((k, b, cfg.d_model), dtype=torch.float32,
-                                   device=dev)
+        # On a mesh the hiddens keep the decode step's batch layout, so
+        # the verify's unembed runs the dense step's own local products.
+        self.hiddens = new_zeros(leaf, (k, b, cfg.d_model), torch.float32,
+                                 (None, spec_of(leaf)[1], None)
+                                 if is_dtensor(leaf) else None)
         self.drafts = torch.zeros((k, b), dtype=torch.int64, device=dev)
         self.pre_keys = torch.zeros((k, 2), dtype=torch.int64, device=dev)
         self.post_keys = torch.zeros((k, 2), dtype=torch.int64, device=dev)
@@ -311,9 +331,6 @@ class SpecLoop(DecodeLoop):
         if record_logits:
             self.draft_logits = torch.zeros((k, b, cfg.vocab_size),
                                             dtype=torch.float32, device=dev)
-        super().__init__(params, cfg, head, cache, sampler=sampler,
-                         masked=masked, eos_id=eos_id, pad_id=pad_id,
-                         per_slot=per_slot, encoder_states=encoder_states)
 
     def _warm_step(self) -> None:
         self.step.zero_()               # keep the step index inside the buffers
@@ -341,14 +358,14 @@ class SpecLoop(DecodeLoop):
             self.pos.add_(self.active if self.active is not None else 1)
         else:
             self.pos.add_(1)
-        self.hiddens.index_copy_(0, self.step, hidden[None])
+        index_copy_(self.hiddens, 0, self.step, hidden[None])
         self.drafts.index_copy_(0, self.step, nxt[None])
         if self.draft_logits is not None:
             self.draft_logits.index_copy_(0, self.step, logits[None])
         self.tok.copy_(nxt)
         self.step.add_(1)
 
-    @torch.inference_mode()
+    @serving_method
     def run(self, k: int):
         """One tick of ``k`` (<= the loop's depth) draft steps from the
         loaded carry, verified and committed on the device.
@@ -364,8 +381,8 @@ class SpecLoop(DecodeLoop):
         self.step.zero_()
         for _ in range(k):
             self._replay()
-        dense = model.dense_verify_logits(self.params, self.hiddens[:k],
-                                          self.cfg)           # (k, B, V)
+        dense = replicated(model.dense_verify_logits(
+            self.params, self.hiddens[:k], self.cfg))          # (k, B, V)
         if self.draft_logits is not None:
             self.verify_logits = dense
         # The sampler replayed on each draft step's pre-sample key: where
@@ -442,7 +459,7 @@ def generate_loop(params: dict, cfg: ModelConfig, *, head, sampler: Sampler,
                   template: dict, device, masked: bool,
                   eos_id: Optional[int] = None, pad_id: int = 0,
                   spec_k: int = 0, loops: Optional[dict] = None,
-                  encoder_states: Optional[torch.Tensor] = None):
+                  encoder_states: Optional[torch.Tensor] = None, mesh=None):
     """The static-batch loop over a decode cache shaped as ``template``
     (a cache, or one made on the meta device): a :class:`DecodeLoop`, or
     with ``spec_k`` a :class:`SpecLoop` of that depth, from the memo
@@ -450,14 +467,19 @@ def generate_loop(params: dict, cfg: ModelConfig, *, head, sampler: Sampler,
     see :func:`memo_loop`).  ``generate`` prefills into the loop's own
     cache (``loop.cache``), so no second cache is made.  With
     ``encoder_states`` the loop keeps a static buffer of their shape, which
-    ``load`` fills."""
+    ``load`` fills.  On a ``mesh`` (by default the mesh of a ``template``
+    of DTensors) the loop's cache is placed by ``cache_shardings``."""
+    from repro_torch.launch.steps import place_cache
+
+    if mesh is None:
+        mesh = operand_mesh(*model.cache_leaves(template))
     device = torch.device(device)
     b = next(model.cache_leaves(template)).shape[1]
     key = ("spec" if spec_k else "chunk", spec_k, cfg, head, sampler, b,
-           masked, eos_id, pad_id, str(device))
+           masked, eos_id, pad_id, str(device), id(mesh))
 
     def build():
-        cache = _zeros_like(template, device)
+        cache = place_cache(_zeros_like(template, device), mesh, b)
         enc = (None if encoder_states is None
                else torch.zeros_like(encoder_states, device=device))
         if spec_k:

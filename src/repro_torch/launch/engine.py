@@ -71,10 +71,12 @@ import torch
 from repro_torch.api.heads import DenseHead
 from repro_torch.api.sampler import Sampler
 from repro_torch.launch.decode_loop import DecodeLoop, SpecLoop
-from repro_torch.launch.steps import prefill_step, serve_step_
+from repro_torch.launch.steps import (_constrain_cache, place_cache,
+                                     prefill_step, serve_step_)
 from repro_torch.models import blocks
 from repro_torch.models import model as model_mod
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding.ctx import serving_method
 from repro_torch.models.model import (cache_expand_rows, cache_slot_insert_,
                                       cache_slot_reset_, init_decode_cache)
 
@@ -157,13 +159,20 @@ class EngineBackend:
     place, one decode step through ``head`` (or through ``head_params``
     given per call), and a megastep of K of them.
 
+    Every op runs in ``sharding.ctx.serving(mesh)`` (inference mode off a
+    mesh).  On a ``mesh`` the params and head arrays are DTensors
+    (``LM.with_mesh``), the pool is placed by ``cache_shardings`` (the
+    paged arenas by ``page_pool_shardings``) and every op keeps it placed:
+    the in-place slot ops write each rank's own rows, and the logits come
+    back replicated.
+
     Raises:
       NotImplementedError: ``cfg`` has encoder states (``xattn`` layers),
         which the engine's requests do not carry (as in the JAX package).
     """
 
     def __init__(self, params, cfg: ModelConfig, *, head=None,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         if cfg.n_encoder_tokens:
             raise NotImplementedError(
                 "engine serving of encoder-conditioned archs needs "
@@ -172,30 +181,39 @@ class EngineBackend:
         self.cfg = cfg
         self.head = head or DenseHead()
         self.device = torch.device(device)
+        self.mesh = mesh
         self._loops: Dict[tuple, DecodeLoop] = {}
 
+    @serving_method
     def init_pool(self, n_slots: int, max_seq: int) -> dict:
-        return init_decode_cache(self.cfg, n_slots, max_seq,
-                                 device=self.device)
+        return place_cache(init_decode_cache(self.cfg, n_slots, max_seq,
+                                             device=self.device),
+                           self.mesh, n_slots)
 
+    @serving_method
     def prefill(self, prompts: np.ndarray, max_seq: int):
         """Bulk-prefill (G, P) prompts → ((G, V) logits, filled cache)."""
         tokens = torch.as_tensor(prompts, device=self.device).long()
-        fresh = init_decode_cache(self.cfg, tokens.shape[0], max_seq,
-                                  device=self.device)
+        fresh = place_cache(init_decode_cache(self.cfg, tokens.shape[0],
+                                              max_seq, device=self.device),
+                            self.mesh, tokens.shape[0])
         return prefill_step(self.params, tokens, self.cfg, fresh)
 
+    @serving_method
     def insert(self, pool: dict, filled: dict, slots) -> dict:
         """``filled``'s rows into ``pool``'s ``slots``, in place."""
         return cache_slot_insert_(self.cfg, pool, filled, slots)
 
+    @serving_method
     def reset(self, pool: dict, slots) -> dict:
         """``slots`` of ``pool`` zeroed, in place."""
         return cache_slot_reset_(self.cfg, pool, slots)
 
+    @serving_method
     def expand_rows(self, filled: dict, inv) -> dict:
         return cache_expand_rows(self.cfg, filled, inv)
 
+    @serving_method
     def decode(self, pool: dict, tokens: np.ndarray, pos: np.ndarray,
                active: np.ndarray, head_params=None):
         """One decode step of every slot, written into ``pool`` → ((n_slots,
@@ -207,6 +225,7 @@ class EngineBackend:
             head=self.head, active=torch.as_tensor(active, device=dev),
             pos=torch.as_tensor(pos, device=dev), head_params=head_params)
 
+    @serving_method
     def megastep(self, pool: dict, tokens: np.ndarray, pos: np.ndarray,
                  active: np.ndarray, key: torch.Tensor, k: int,
                  sampler: Sampler, eos_id: Optional[int], head_params=None):
@@ -229,6 +248,7 @@ class EngineBackend:
                 out[k].astype(np.int32), loop.key.clone())
 
 
+    @serving_method
     def spec_megastep(self, pool: dict, tokens: np.ndarray, pos: np.ndarray,
                       active: np.ndarray, key: torch.Tensor, k: int,
                       sampler: Sampler, eos_id: Optional[int],
@@ -272,15 +292,19 @@ class EngineBackend:
                  for k in set(self.cfg.pattern)}
         return sorted(g for g in geoms if g is not None)
 
+    @serving_method
     def init_paged(self, n_slots: int, max_seq: int, page_size: int,
                    num_pages: int):
         """The paged engine's device state: (page arenas, state rows)."""
         del max_seq
-        return (model_mod.init_paged_cache(self.cfg, num_pages, page_size,
-                                           device=self.device),
-                model_mod.init_paged_state(self.cfg, n_slots,
-                                           device=self.device))
+        return (place_cache(model_mod.init_paged_cache(
+                    self.cfg, num_pages, page_size, device=self.device),
+                    self.mesh, paged=True),
+                place_cache(model_mod.init_paged_state(
+                    self.cfg, n_slots, device=self.device),
+                    self.mesh, n_slots))
 
+    @serving_method
     def paged_decode(self, pages: dict, state: dict, table: np.ndarray,
                      tokens: np.ndarray, pos: np.ndarray, active: np.ndarray,
                      *, max_seq: int, page_size: int, head_params=None):
@@ -293,7 +317,8 @@ class EngineBackend:
         dev = self.device
         pt = torch.as_tensor(table, device=dev)
         posd = torch.as_tensor(pos, device=dev).long()
-        view = model_mod.paged_gather_cache(self.cfg, pages, pt, max_seq)
+        view = _constrain_cache(
+            model_mod.paged_gather_cache(self.cfg, pages, pt, max_seq))
         full = model_mod.merge_paged_view(self.cfg, view, state)
         logits, _ = serve_step_(
             self.params, full,
@@ -303,6 +328,7 @@ class EngineBackend:
         model_mod.paged_commit_cache(self.cfg, pages, view, pt, posd, max_seq)
         return logits, pages, state
 
+    @serving_method
     def paged_insert(self, pages: dict, filled: dict, pt_rows: np.ndarray,
                      *, max_seq: int, page_size: int) -> dict:
         """Freshly prefilled rows into their newly mapped pages, in place."""
@@ -311,6 +337,7 @@ class EngineBackend:
             self.cfg, pages, filled, torch.as_tensor(pt_rows,
                                                      device=self.device))
 
+    @serving_method
     def page_copy(self, pages: dict, src_ids, dst_ids, *, max_seq: int,
                   page_size: int) -> dict:
         """The copy-on-write fork: pages ``src_ids`` → ``dst_ids`` in every
@@ -321,6 +348,7 @@ class EngineBackend:
             self.cfg, pages, torch.as_tensor(src_ids, device=dev).long(),
             torch.as_tensor(dst_ids, device=dev).long())
 
+    @serving_method
     def state_rows(self, filled: dict, row: int):
         """Copies of one prefilled row's recurrent state (what a
         prefix-cache entry keeps), or None for a model without rwkv or
@@ -330,6 +358,7 @@ class EngineBackend:
             return None
         return rows
 
+    @serving_method
     def state_restore(self, state: dict, entry_state: dict,
                       slot: int) -> dict:
         """A prefix entry's state rows into ``slot``, in place."""
@@ -899,7 +928,7 @@ def make_engine(params, cfg: ModelConfig, n_slots: int, max_seq: int, *,
                 eos_id: Optional[int] = None, decode_chunk: int = 1,
                 spec_decode: int = 0, paged: bool = False,
                 page_size: int = 16, num_pages: Optional[int] = None,
-                head_cache=None, device="cuda") -> ServeEngine:
+                head_cache=None, device="cuda", mesh=None) -> ServeEngine:
     """An engine over a real model on ``device``: the serving entry point
     behind ``LM.engine``/``LM.serve``.  ``head_cache=`` (a ``HeadCache``)
     makes it per-tenant: ``head`` is then the shared ``SketchHead`` spec
@@ -907,7 +936,9 @@ def make_engine(params, cfg: ModelConfig, n_slots: int, max_seq: int, *,
     bank row; every ``submit`` needs ``tenant=``, and
     ``engine.refresh(tenant, …)``/``engine.publish(tenant)`` fold live
     traffic into a tenant's head.  ``spec_decode``, ``paged``,
-    ``page_size`` and ``num_pages`` are :class:`ServeEngine`'s."""
+    ``page_size`` and ``num_pages`` are :class:`ServeEngine`'s.  On a
+    ``mesh`` (a ``DeviceMesh``; the params and head placed on it) the pool
+    and every engine op run SPMD over it (:class:`EngineBackend`)."""
     if head_cache is not None:
         from repro_torch.api.heads import SketchHead
         if not isinstance(head, SketchHead):
@@ -916,7 +947,7 @@ def make_engine(params, cfg: ModelConfig, n_slots: int, max_seq: int, *,
                 f"for head=; got "
                 f"{type(head).__name__ if head is not None else None}")
         head = dataclasses.replace(head, params=None, per_tenant=True)
-    backend = EngineBackend(params, cfg, head=head, device=device)
+    backend = EngineBackend(params, cfg, head=head, device=device, mesh=mesh)
     return ServeEngine(backend, n_slots, max_seq, eos_id=eos_id,
                        sampler=sampler, decode_chunk=decode_chunk,
                        spec_decode=spec_decode, paged=paged,

@@ -54,9 +54,10 @@ from repro_torch.api.heads import DenseHead, SketchHead
 from repro_torch.api.sampler import Sampler
 from repro_torch.launch.decode_loop import (decode_chunks, generate_loop,
                                             spec_decode_chunks)
-from repro_torch.launch.steps import prefill_step_, serve_step_
+from repro_torch.launch.steps import place_cache, prefill_step_, serve_step_
 from repro_torch.models.config import SketchHeadConfig
 from repro_torch.models.model import cache_leaves, init_decode_cache
+from repro_torch.sharding.ctx import serving
 
 #: The head that ``--sketch-head`` distills for an arch without its own.
 QUICK_HEAD = SketchHeadConfig(n_rows=128, n_buckets=16, k=1, proj_dim=32,
@@ -68,7 +69,7 @@ def generate(params: dict, cfg, prompts: torch.Tensor, gen_len: int, *,
              eos_id: Optional[int] = None, pad_id: int = 0,
              decode_chunk: int = 1, spec_decode: int = 0,
              return_stats: bool = False, loops: Optional[dict] = None,
-             encoder_states: Optional[torch.Tensor] = None):
+             encoder_states: Optional[torch.Tensor] = None, mesh=None):
     """Bulk prefill + decode. prompts (B, P) → tokens (B, P + gen_len).
 
     The first new token comes from the prefill's dense logits, each later
@@ -114,20 +115,21 @@ def generate(params: dict, cfg, prompts: torch.Tensor, gen_len: int, *,
     head = head or DenseHead()
     sampler = sampler or Sampler()
     b, p = prompts.shape
-    with torch.inference_mode():
+    with serving(mesh):
         if decode_chunk > 1 or spec_decode:
             template = init_decode_cache(cfg, b, p + gen_len, device="meta")
             loop = generate_loop(params, cfg, head=head, sampler=sampler,
                                  template=template, device=prompts.device,
                                  masked=eos_id is not None, eos_id=eos_id,
                                  pad_id=pad_id, spec_k=spec_decode,
-                                 loops=loops, encoder_states=encoder_states)
+                                 loops=loops, encoder_states=encoder_states,
+                                 mesh=mesh)
             cache = loop.cache
             for leaf in cache_leaves(cache):
                 leaf.zero_()
         else:
-            cache = init_decode_cache(cfg, b, p + gen_len,
-                                      device=prompts.device)
+            cache = place_cache(init_decode_cache(
+                cfg, b, p + gen_len, device=prompts.device), mesh)
         logits, cache = prefill_step_(params, prompts, cfg, cache,
                                       encoder_states=encoder_states)
         kw = dict(cfg=cfg, head=head, sampler=sampler, gen_len=gen_len,
@@ -412,6 +414,12 @@ def main(argv=None) -> None:
                     help="seed of the sampler's key chain, and of the "
                          "random backbone and prompts")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default=None,
+                    help="serve SPMD over a '<data>x<model>' mesh, one "
+                         "process a rank: run under torchrun (--nproc-per-"
+                         "node data*model; gloo on the CPU, NCCL on cards), "
+                         "which this joins; params, head and caches are "
+                         "placed by sharding/rules.py, and rank 0 prints")
     args = ap.parse_args(argv)
     if (args.stats_json or args.paged) and not args.engine:
         ap.error("--stats-json/--paged apply to engine mode; add --engine")
@@ -443,10 +451,13 @@ def main(argv=None) -> None:
     except ValueError as e:
         ap.error(str(e))
     device = check_device(args.device)
+    if args.mesh:
+        from repro_torch.launch.mesh import join_launcher_group
+        device = join_launcher_group(device)
 
     gen = torch.Generator(device).manual_seed(args.seed)
     lm = LM.from_config(args.arch, smoke=args.smoke, device=device,
-                        generator=gen)
+                        generator=gen, mesh=args.mesh)
     head_cache = None
     if args.tenants:
         spec, tenant_heads = build_tenant_heads(
@@ -454,7 +465,8 @@ def main(argv=None) -> None:
         # Capacity below the tenant count when the slots allow it, so the
         # run pages tenants in and out.
         head_cache = HeadCache(tenant_heads.__getitem__,
-                               capacity=max(1, min(args.tenants, args.batch)))
+                               capacity=max(1, min(args.tenants, args.batch)),
+                               mesh=lm.mesh)
         lm = lm.with_head(spec)
     elif args.sketch_head:
         lm = lm.with_head(build_or_load_head(

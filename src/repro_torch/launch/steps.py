@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.models.config import ModelConfig, param_count
 from repro_torch.models.layers import softcap
+from repro_torch.sharding.ctx import active_mesh, replicated
 from repro_torch.models.model import (backbone, decode_step, decode_step_,
                                       dense_logits, dense_verify_logits,
                                       final_hidden, lm_loss,
@@ -108,6 +109,36 @@ def train_step(params, opt_state: AdamWState, batch: Dict[str, torch.Tensor],
     return params, opt_state, {"loss": loss, **parts, **opt_metrics}
 
 
+def place_cache(cache: dict, mesh, batch_size: Optional[int] = None,
+                paged: bool = False) -> dict:
+    """``cache`` (a decode cache, or with ``paged`` a page-arena tree) as
+    DTensors on ``mesh`` by ``cache_shardings`` (``page_pool_shardings``);
+    ``cache`` itself without a mesh."""
+    if mesh is None:
+        return cache
+    from repro_torch.launch.mesh import distribute_tree
+    from repro_torch.sharding.rules import cache_shardings, page_pool_shardings
+
+    specs = (page_pool_shardings(cache, mesh) if paged
+             else cache_shardings(cache, mesh, batch_size))
+    return distribute_tree(cache, specs, mesh)
+
+
+def _constrain_cache(cache: dict) -> dict:
+    """Pin a decode cache to its per-leaf mesh layout inside an active
+    ``activation_sharding`` context (the JAX package's ``_constrain_cache``):
+    every DTensor leaf redistributed to its ``cache_shardings`` placements,
+    so prefill, decode and the slot ops keep the cache's layout step over
+    step.  A no-op outside a context."""
+    mesh = active_mesh()
+    if mesh is None:
+        return cache
+    from repro_torch.launch.mesh import distribute_tree
+    from repro_torch.sharding.rules import cache_shardings
+
+    return distribute_tree(cache, cache_shardings(cache, mesh), mesh)
+
+
 def prefill_step(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
                  cache: dict, encoder_states: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, dict]:
@@ -119,7 +150,8 @@ def prefill_step(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     x, new_cache = backbone(params, tokens, cfg, cache=cache, cache_pos=0,
                             encoder_states=encoder_states)
     h = final_hidden(params, x, cfg)
-    return dense_logits(params, h[:, -1], cfg), new_cache
+    return (replicated(dense_logits(params, h[:, -1], cfg)),
+            _constrain_cache(new_cache))
 
 
 def prefill_step_(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
@@ -132,7 +164,7 @@ def prefill_step_(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     x, cache = backbone(params, tokens, cfg, cache=cache, cache_pos=0,
                         in_place=True, encoder_states=encoder_states)
     h = final_hidden(params, x, cfg)
-    return dense_logits(params, h[:, -1], cfg), cache
+    return replicated(dense_logits(params, h[:, -1], cfg)), cache
 
 
 def serve_step(params: dict, cache: dict, tokens: torch.Tensor,
@@ -161,12 +193,12 @@ def serve_step(params: dict, cache: dict, tokens: torch.Tensor,
                                         cache_pos=pos, return_hidden=True,
                                         encoder_states=encoder_states)
         logits = head.apply(head.params if head_params is None
-                            else head_params, hidden)
+                              else head_params, hidden)
         if cfg.final_logit_softcap:
             logits = softcap(logits, cfg.final_logit_softcap)
     if active is not None:
         new_cache = mask_cache_update(cache, new_cache, active)
-    return logits, new_cache
+    return replicated(logits), _constrain_cache(new_cache)
 
 
 def serve_step_(params: dict, cache: dict, tokens: torch.Tensor,
@@ -187,7 +219,7 @@ def serve_step_(params: dict, cache: dict, tokens: torch.Tensor,
         logits, cache = decode_step_(params, cache, tokens, cfg,
                                      cache_pos=pos, active=active,
                                      encoder_states=encoder_states)
-        return logits, cache
+        return replicated(logits), cache
     hidden, cache = decode_step_(params, cache, tokens, cfg, cache_pos=pos,
                                  return_hidden=True, active=active,
                                  encoder_states=encoder_states)
@@ -195,7 +227,8 @@ def serve_step_(params: dict, cache: dict, tokens: torch.Tensor,
         logits = dense_verify_logits(params, hidden, cfg)
     else:
         logits = head.apply(head.params if head_params is None
-                            else head_params, hidden)
+                              else head_params, hidden)
         if cfg.final_logit_softcap:
             logits = softcap(logits, cfg.final_logit_softcap)
+    logits = replicated(logits)
     return (logits, cache, hidden) if return_hidden else (logits, cache)

@@ -17,13 +17,25 @@ continuous one (the reference's loader restarts at batch 0).
 
 On the card (``--device cuda``, the default) musicgen-large trains at full
 width and depth: its 3.23 B params hold 51.7 GB of state (bf16 params and
-grads, f32 master and moments).  ``--model-parallel`` other than 1 raises:
-the port has no mesh yet.
+grads, f32 master and moments).
+
+Under an initialised process group (``torchrun``; gloo on the CPU, NCCL
+on cards) the run is SPMD over ``make_host_mesh(model=--model-parallel)``,
+a (world / m, m) mesh, as the reference runs over its host mesh: the
+params placed by ``params_shardings``, the AdamW moments and master by
+``zero1_shardings`` (each rank steps its own block), the batch split by
+``batch_spec``, the activations constrained by ``activation_sharding``.
+Without a group, ``--model-parallel 1`` is the single-device run (the
+reference's 1×1 mesh) and any other value raises.
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch \
+      musicgen-large --smoke --device cpu --model-parallel 2
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Callable, Optional
 
@@ -37,6 +49,7 @@ from repro_torch.launch.steps import train_step
 from repro_torch.models.model import init_model
 from repro_torch.optim.adamw import OptimizerConfig, init_adamw
 from repro_torch.runtime.failure import StragglerTracker
+from repro_torch.sharding.ctx import on_mesh, replicated
 
 
 def train(arch: str = "stablelm-12b", *, smoke: bool = False,
@@ -54,11 +67,26 @@ def train(arch: str = "stablelm-12b", *, smoke: bool = False,
     ``on_step(step, metrics)`` runs after each
     step with the step's metrics as floats.  With ``ckpt_dir`` a run
     restores the latest complete checkpoint there and continues after it.
+    Under an initialised process group the run is SPMD over a
+    ``(world / model_parallel, model_parallel)`` mesh (the module
+    docstring); the returned params and state are then DTensors.
+
+    Raises:
+      ValueError: ``model_parallel`` other than 1 without an initialised
+        process group, or one that does not divide its world; ``ckpt_dir``
+        on a mesh.
     """
-    if model_parallel != 1:
-        raise NotImplementedError("--model-parallel: the port has no mesh "
-                                  "yet (ROADMAP item 11)")
+    import torch.distributed as dist
+
     device = check_device(device)
+    mesh = None
+    if model_parallel != 1 or (dist.is_available() and dist.is_initialized()):
+        if ckpt_dir:
+            raise ValueError("ckpt_dir on a mesh: checkpoints of DTensor state "
+                             "are not written (each rank would write its own "
+                             "copy into one directory)")
+        from repro_torch.launch.mesh import make_host_mesh
+        mesh = make_host_mesh(model=model_parallel, device_type=device.type)
     cfg = get_config(arch, smoke=smoke)
     if n_layers is not None:
         cfg = cfg.scaled(n_layers=n_layers)
@@ -70,6 +98,8 @@ def train(arch: str = "stablelm-12b", *, smoke: bool = False,
                           d_model=cfg.d_model)
     params = init_model(cfg, torch.Generator(device).manual_seed(0))
     opt_state = init_adamw(params)
+    if mesh is not None:
+        params, opt_state = _place_train_state(params, opt_state, mesh)
 
     ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
     start = 0
@@ -87,10 +117,13 @@ def train(arch: str = "stablelm-12b", *, smoke: bool = False,
             _, host = next(loader)
             batch_t = {k: torch.from_numpy(v).to(device)
                        for k, v in host.items()}
+            if mesh is not None:
+                batch_t = _place_batch(batch_t, mesh)
             t0 = time.time()
-            params, opt_state, m = train_step(params, opt_state, batch_t,
-                                              cfg, opt_cfg)
-            metrics = {k: float(v) for k, v in m.items()}
+            with on_mesh(mesh):
+                params, opt_state, m = train_step(params, opt_state, batch_t,
+                                                  cfg, opt_cfg)
+            metrics = {k: float(replicated(v)) for k, v in m.items()}
             tracker.record(0, time.time() - t0)
             losses.append(metrics["loss"])
             if on_step is not None:
@@ -114,6 +147,31 @@ def train(arch: str = "stablelm-12b", *, smoke: bool = False,
             "start": start, "seconds": dur}
 
 
+def _place_train_state(params, opt_state, mesh):
+    """Params by ``params_shardings``; the moments and master by
+    ``zero1_shardings`` (their own block a rank); the step replicated."""
+    from repro_torch.launch.mesh import distribute_tree
+    from repro_torch.sharding.rules import params_shardings, zero1_shardings
+
+    z1 = zero1_shardings(params, mesh)
+    params = distribute_tree(params, params_shardings(params, mesh), mesh)
+    return params, type(opt_state)(
+        step=opt_state.step,
+        mu=distribute_tree(opt_state.mu, z1, mesh),
+        nu=distribute_tree(opt_state.nu, z1, mesh),
+        master=(None if opt_state.master is None
+                else distribute_tree(opt_state.master, z1, mesh)))
+
+
+def _place_batch(batch: dict, mesh) -> dict:
+    """Each batch array split over the data axes by ``batch_spec``."""
+    from repro_torch.launch.mesh import distribute
+    from repro_torch.sharding.rules import P, batch_spec
+
+    return {k: distribute(v, P(batch_spec(v.shape[0], mesh)), mesh)
+            for k, v in batch.items()}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="stablelm-12b")
@@ -128,10 +186,14 @@ def main(argv=None) -> None:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    device = check_device(args.device)
+    if "WORLD_SIZE" in os.environ:          # launched by torchrun
+        from repro_torch.launch.mesh import join_launcher_group
+        device = join_launcher_group(device)
     train(args.arch, smoke=args.smoke, steps=args.steps, batch=args.batch,
           seq=args.seq, lr=args.lr, ckpt_dir=args.ckpt_dir,
           ckpt_every=args.ckpt_every, log_every=args.log_every,
-          model_parallel=args.model_parallel, device=args.device)
+          model_parallel=args.model_parallel, device=device)
 
 
 if __name__ == "__main__":

@@ -44,8 +44,11 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels.flash_attn.ops import flash_attention
+from repro_torch.sharding.ctx import constrain
+from repro_torch.kernels.common import operand_mesh
+from repro_torch.sharding.local import on_local_blocks, put_, put_rows_
 from repro_torch.models.config import AttentionConfig
-from repro_torch.models.layers import apply_rope, init_dense, softcap
+from repro_torch.models.layers import apply_rope, init_dense, matmul, softcap
 
 _CHUNK_THRESHOLD = 8192
 _KV_CHUNK = 1024
@@ -120,7 +123,7 @@ def paged_commit(cache: KVCache, view: KVCache, pt: torch.Tensor,
     phys = pt.long()[bi, wpos // ps]
     off = wpos % ps
     for pages, rows in zip(cache, view):
-        pages[:, phys, off] = rows[:, bi, wpos].to(pages.dtype)
+        put_(pages, (slice(None), phys, off), rows[:, bi, wpos].to(pages.dtype))
     return cache
 
 
@@ -142,7 +145,7 @@ def paged_insert(cache: KVCache, src: KVCache,
                 (*rows.shape[:2], pad, *rows.shape[3:]))], dim=2)
         rows = rows.reshape(rows.shape[0], rows.shape[1], npp, ps,
                             *rows.shape[3:])
-        pages[:, idx] = rows.to(pages.dtype)
+        put_(pages, (slice(None), idx), rows.to(pages.dtype))
     return cache
 
 
@@ -165,10 +168,13 @@ def _scores_mask(scores: torch.Tensor, q_pos: torch.Tensor,
 
 
 def _attend_full(q, k, v, q_pos, k_pos, cfg: AttentionConfig):
-    """Masked attention. q (B, Sq, Hq, dh), k/v (B, Sk, Hkv, dh)."""
+    """Masked attention. q (B, Sq, Hq, dh), k/v (B, Sk, Hkv, dh).  On a
+    mesh, each rank attends with its local batch rows and heads."""
+    if operand_mesh(q, k, v) is not None:
+        return _on_local_heads(_attend_full, q, k, v, q_pos, k_pos, cfg)
     b, sq, hq, dh = q.shape
-    groups = hq // cfg.n_kv_heads
-    qg = q.reshape(b, sq, cfg.n_kv_heads, groups, dh)
+    n_kv = k.shape[2]
+    qg = q.reshape(b, sq, n_kv, hq // n_kv, dh)
     scores = torch.einsum("bqkgd,bskd->bkgqs",
                           qg.to(torch.float32) * dh ** -0.5,
                           k.to(torch.float32))
@@ -183,10 +189,15 @@ def _attend_full(q, k, v, q_pos, k_pos, cfg: AttentionConfig):
 def _attend_chunked(q, k, v, q_pos, k_pos, cfg: AttentionConfig,
                     chunk: int = _KV_CHUNK):
     """Online-softmax attention over KV chunks (the flash recurrence, the
-    JAX package's ``lax.scan`` as a loop); k_pos is (Sk,)."""
+    JAX package's ``lax.scan`` as a loop); k_pos is (Sk,).  On a mesh,
+    each rank attends with its local batch rows and heads."""
+    if operand_mesh(q, k, v) is not None:
+        return _on_local_heads(_attend_chunked, q, k, v, q_pos, k_pos, cfg,
+                               chunk)
     b, sq, hq, dh = q.shape
     sk = k.shape[1]
-    n_kv, groups = cfg.n_kv_heads, hq // cfg.n_kv_heads
+    n_kv = k.shape[2]
+    groups = hq // n_kv
     pad = (-sk) % chunk
     if pad:
         zeros = k.new_zeros((b, pad, *k.shape[2:]))
@@ -213,6 +224,15 @@ def _attend_chunked(q, k, v, q_pos, k_pos, cfg: AttentionConfig,
     return out.reshape(b, sq, hq, dh).to(q.dtype)
 
 
+def _on_local_heads(core, q, k, v, q_pos, k_pos, *rest):
+    """``core`` on each rank's local batch rows and heads (positions of
+    shape (B, S) follow the batch); a DTensor of q's shape comes back."""
+    pos = lambda p: "bs" if p.dim() == 2 else "s"
+    return on_local_blocks(
+        lambda *a: (core(*a, *rest),), (q, k, v, q_pos, k_pos),
+        ("bshd", "bshd", "bshd", pos(q_pos), pos(k_pos)), ("bshd",))[0]
+
+
 def _ring_positions(size: int, cache_pos, device) -> torch.Tensor:
     """Absolute position each ring slot holds after writing ``cache_pos``
     (scalar, or (B,) per slot); slots never written hold ``_INT32_MAX``."""
@@ -225,6 +245,31 @@ def _ring_positions(size: int, cache_pos, device) -> torch.Tensor:
     return torch.where(k_pos >= 0, k_pos, _INT32_MAX)
 
 
+def _qkv(params: dict, x: torch.Tensor, cfg: AttentionConfig):
+    """q (B, S, H, dh), k and v (B, S, Hkv, dh) of x (B, S, d); on a mesh
+    the heads pinned to TP shards (head-parallel attention; KV heads
+    follow where they divide the axis)."""
+    b, s, _ = x.shape
+    q = (x @ params["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = (x @ params["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = (x @ params["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    return tuple(constrain(t, "dp", None, "tp", None) for t in (q, k, v))
+
+
+def _cross_core(q, k, v):
+    """Unmasked grouped attention in f32: q (B, S, H, dh), k/v (B, T,
+    Hkv, dh) → (B, S, H, dh) f32."""
+    b, s, hq, dh = q.shape
+    n_kv = k.shape[2]
+    qg = q.reshape(b, s, n_kv, hq // n_kv, dh)
+    scores = torch.einsum("bqkgd,bskd->bkgqs",
+                          qg.to(torch.float32) * dh ** -0.5,
+                          k.to(torch.float32))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.to(torch.float32))
+    return out.reshape(b, s, hq, dh)
+
+
 def cross_attention(params: dict, x: torch.Tensor, kv_source: torch.Tensor,
                     cfg: AttentionConfig) -> torch.Tensor:
     """x (B, S, d) attending to every state of ``kv_source`` (B, T, d):
@@ -232,21 +277,20 @@ def cross_attention(params: dict, x: torch.Tensor, kv_source: torch.Tensor,
     f32, the output cast to x's dtype before the output projection."""
     b, s, _ = x.shape
     t = kv_source.shape[1]
-    groups = cfg.n_heads // cfg.n_kv_heads
-    q = (x @ params["wq"]).reshape(b, s, cfg.n_kv_heads, groups, cfg.head_dim)
+    q = (x @ params["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
     # The JAX package's einsum promotes f32 states (the training data's)
     # with the bf16 weights to f32; bf16 states stay bf16.
     dt = torch.promote_types(kv_source.dtype, params["wk"].dtype)
     kv = kv_source.to(dt)
     k = (kv @ params["wk"].to(dt)).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
     v = (kv @ params["wv"].to(dt)).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
-    scores = torch.einsum("bqkgd,bskd->bkgqs",
-                          q.to(torch.float32) * cfg.head_dim ** -0.5,
-                          k.to(torch.float32))
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.to(torch.float32))
+    if operand_mesh(q, k, v) is not None:
+        out = on_local_blocks(lambda *a: (_cross_core(*a),), (q, k, v),
+                              ("bshd",) * 3, ("bshd",))[0]
+    else:
+        out = _cross_core(q, k, v)
     out = out.reshape(b, s, cfg.n_heads * cfg.head_dim).to(x.dtype)
-    return out @ params["wo"]
+    return matmul(out, params["wo"])
 
 
 def attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
@@ -267,9 +311,7 @@ def attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
     if kv_source is not None:
         return cross_attention(params, x, kv_source, cfg), None
     b, s, _ = x.shape
-    q = (x @ params["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = (x @ params["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = (x @ params["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q, k, v = _qkv(params, x, cfg)
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -353,8 +395,9 @@ def attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
                 k_pos = torch.where(k_pos < cache_pos + s, k_pos, _INT32_MAX)
             attend = _attend_chunked if s > _CHUNK_THRESHOLD else _attend_full
             out = attend(q, new_cache.k, new_cache.v, positions, k_pos, cfg)
-    out = out.reshape(b, s, cfg.n_heads * cfg.head_dim)
-    return out @ params["wo"], new_cache
+    out = constrain(out.reshape(b, s, cfg.n_heads * cfg.head_dim),
+                    "dp", None, "tp")
+    return matmul(out, params["wo"]), new_cache
 
 
 def attention_(params: dict, x: torch.Tensor, positions: torch.Tensor,
@@ -392,8 +435,8 @@ def attention_(params: dict, x: torch.Tensor, positions: torch.Tensor,
     k_new, v_new = k[:, 0].to(cache.k.dtype), v[:, 0].to(cache.v.dtype)
     if active is not None:
         k_old, v_old = cache.k[bi, slot], cache.v[bi, slot]
-    cache.k.index_put_((bi, slot), k_new)
-    cache.v.index_put_((bi, slot), v_new)
+    put_rows_(cache.k, slot, k_new)
+    put_rows_(cache.v, slot, v_new)
     if ring:
         k_pos = _ring_positions(size, cache_pos, x.device)
     else:
@@ -402,7 +445,8 @@ def attention_(params: dict, x: torch.Tensor, positions: torch.Tensor,
     out = _attend_full(q, cache.k, cache.v, positions, k_pos, cfg)
     if active is not None:
         keep = active[:, None, None]
-        cache.k.index_put_((bi, slot), torch.where(keep, k_new, k_old))
-        cache.v.index_put_((bi, slot), torch.where(keep, v_new, v_old))
-    out = out.reshape(b, s, cfg.n_heads * cfg.head_dim)
-    return out @ params["wo"]
+        put_rows_(cache.k, slot, torch.where(keep, k_new, k_old))
+        put_rows_(cache.v, slot, torch.where(keep, v_new, v_old))
+    out = constrain(out.reshape(b, s, cfg.n_heads * cfg.head_dim),
+                    "dp", None, "tp")
+    return matmul(out, params["wo"])

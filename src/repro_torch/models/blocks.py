@@ -30,6 +30,8 @@ from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.config import PORTED_KINDS, AttentionConfig, ModelConfig
 from repro_torch.models.layers import init_dense, rms_norm, swiglu
 from repro_torch.models.moe import init_moe, moe_ffn
+from repro_torch.sharding.ctx import constrain, like
+from repro_torch.sharding.local import put_
 
 #: The causal self-attention kinds (each runs ``flash_attn`` in a prefill).
 ATTN_KINDS = ("attn", "attn_local", "attn_global")
@@ -204,7 +206,7 @@ def paged_copy_pages(kind: str, cache, src_ids: torch.Tensor,
     if cache is None:
         return None
     for leaf in cache:
-        leaf[:, dst_ids] = leaf[:, src_ids]
+        put_(leaf, (slice(None), dst_ids), leaf[:, src_ids])
     return cache
 
 
@@ -245,14 +247,22 @@ def apply_layer(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
     it is cacheless causal self-attention, as in the JAX package."""
     _check_kind(kind)
     eps = cfg.norm_eps
-    h = rms_norm(x, params["norm1"], eps)
+    # Sequence parallelism: the residual stream lives sequence-sharded over
+    # TP (decode's S = 1 drops it); MoE layers opt out, as in the JAX
+    # package.  Each norm's output is gathered over the sequence before
+    # the mixer's and the FFN's products (Megatron's sequence parallelism,
+    # where GSPMD picks the same all-gather): flattening a (B, S, d)
+    # activation sharded on both B and S is a view DTensor refuses.
+    seq = "tp" if ffn != "moe" else None
+    x = constrain(x, "dp", seq, None)
+    h = _norm(x, params["norm1"], eps)
     if kind == "rwkv":
         delta, tm_last, new_state = rwkv_mod.rwkv_time_mix(
             params["mixer"], h,
             prev=cache.tm_prev if cache is not None else None,
             state0=cache.state if cache is not None else None)
         x = x + delta
-        h2 = rms_norm(x, params["norm2"], eps)
+        h2 = _norm(x, params["norm2"], eps)
         delta2, cm_last = rwkv_mod.rwkv_channel_mix(
             params["mixer"], h2,
             prev=cache.cm_prev if cache is not None else None)
@@ -279,17 +289,23 @@ def apply_layer(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
         delta, new_cache = attn_mod.attention(
             params["mixer"], h, positions, _attn_cfg(cfg, kind), cache=cache,
             cache_pos=cache_pos)
-    x = x + delta
-    h2 = rms_norm(x, params["norm2"], eps)
+    x = x + constrain(delta, "dp", seq, None)
+    h2 = _norm(x, params["norm2"], eps)
     delta2, aux = _ffn(params, h2, cfg, ffn)
-    return _with_aux(x + delta2, new_cache, aux, with_aux)
+    return _with_aux(x + constrain(delta2, "dp", seq, None), new_cache, aux,
+                     with_aux)
+
+
+def _norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """``rms_norm(x)``, gathered over the sequence on a mesh."""
+    return constrain(rms_norm(x, scale, eps), "dp", None, None)
 
 
 def _commit_(dst: torch.Tensor, new: torch.Tensor,
              active: Optional[torch.Tensor]) -> None:
     """``dst`` ← ``new`` (cast to dst's dtype), or only on the rows (axis 0)
     where ``active``: the value ``mask_cache_update`` would leave."""
-    new = new.to(dst.dtype)
+    new = like(new.to(dst.dtype), dst)
     if active is not None:
         new = torch.where(active.reshape(-1, *([1] * (dst.dim() - 1))),
                           new, dst)
@@ -312,12 +328,14 @@ def apply_layer_(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
     ``mask_cache_update``, bit for bit."""
     _check_kind(kind)
     eps = cfg.norm_eps
-    h = rms_norm(x, params["norm1"], eps)
+    seq = "tp" if ffn != "moe" else None
+    x = constrain(x, "dp", seq, None)
+    h = _norm(x, params["norm1"], eps)
     if kind == "rwkv":
         delta, tm_last, new_state = rwkv_mod.rwkv_time_mix(
             params["mixer"], h, prev=cache.tm_prev, state0=cache.state)
         x = x + delta
-        h2 = rms_norm(x, params["norm2"], eps)
+        h2 = _norm(x, params["norm2"], eps)
         delta2, cm_last = rwkv_mod.rwkv_channel_mix(
             params["mixer"], h2, prev=cache.cm_prev)
         _commit_(cache.tm_prev, tm_last, active)
@@ -340,6 +358,6 @@ def apply_layer_(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
         delta = attn_mod.attention_(params["mixer"], h, positions,
                                     _attn_cfg(cfg, kind), cache, cache_pos,
                                     active)
-    x = x + delta
-    h2 = rms_norm(x, params["norm2"], eps)
-    return x + _ffn(params, h2, cfg, ffn)[0]
+    x = x + constrain(delta, "dp", seq, None)
+    h2 = _norm(x, params["norm2"], eps)
+    return x + constrain(_ffn(params, h2, cfg, ffn)[0], "dp", seq, None)

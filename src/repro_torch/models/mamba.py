@@ -25,7 +25,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.models.config import MambaConfig
-from repro_torch.models.layers import init_dense, silu
+from repro_torch.models.layers import init_dense, matmul, silu
 
 _SCAN_CHUNK = 256
 
@@ -86,7 +86,7 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 def _selective_params(params: dict, x_conv: torch.Tensor, d_state: int,
                       r: int):
     """The conv output (bf16) → (Δ, B_t, C_t), f32."""
-    proj = (x_conv @ params["x_proj"]).to(torch.float32)
+    proj = matmul(x_conv, params["x_proj"]).to(torch.float32)
     dt, b_sel, c_sel = torch.split(proj, [r, d_state, d_state], dim=-1)
     dt = softplus(dt @ params["dt_proj"].to(torch.float32)
                   + params["dt_bias"])
@@ -198,7 +198,7 @@ def mamba_block(params: dict, x: torch.Tensor, cfg: MambaConfig, *,
 
     y = y + x_conv.to(torch.float32) * params["d_skip"]
     y = (y * silu(z.to(torch.float32))).to(x.dtype)
-    out = y @ params["out_proj"]
+    out = matmul(y, params["out_proj"])
     new_cache = (MambaCache(new_conv, h.to(cache.ssm.dtype))
                  if cache is not None else None)
     return out, new_cache

@@ -39,8 +39,9 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels.flash_attn.ops import flash_attention
+from repro_torch.sharding.local import put_rows_
 from repro_torch.models.config import MLAConfig
-from repro_torch.models.layers import apply_rope, init_dense
+from repro_torch.models.layers import apply_rope, init_dense, matmul
 
 _NEG_INF = -1e30
 _INT32_MAX = 2 ** 31 - 1      # the JAX package's "never written" key position
@@ -219,7 +220,7 @@ def mla_attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
             k_pos = torch.where(k_pos < cache_pos + s, k_pos, _INT32_MAX)
             out = _absorbed(params, q_nope, q_rope, *new_cache, positions,
                             k_pos, cfg, x.dtype)
-    return out @ params["w_o"], new_cache
+    return matmul(out, params["w_o"]), new_cache
 
 
 def mla_attention_(params: dict, x: torch.Tensor, positions: torch.Tensor,
@@ -246,7 +247,7 @@ def mla_attention_(params: dict, x: torch.Tensor, positions: torch.Tensor,
     if active is not None:
         old = tuple(leaf[bi, slot] for leaf in cache)
     for leaf, row in zip(cache, new):
-        leaf.index_put_((bi, slot), row)
+        put_rows_(leaf, slot, row)
     i = torch.arange(size, device=x.device)[None, :]
     k_pos = torch.where(i < cache_pos[:, None] + 1, i, _INT32_MAX)
     out = _absorbed(params, q_nope, q_rope, *cache, positions, k_pos, cfg,
@@ -254,5 +255,5 @@ def mla_attention_(params: dict, x: torch.Tensor, positions: torch.Tensor,
     if active is not None:
         keep = active[:, None]
         for leaf, row, was in zip(cache, new, old):
-            leaf.index_put_((bi, slot), torch.where(keep, row, was))
-    return out @ params["w_o"]
+            put_rows_(leaf, slot, torch.where(keep, row, was))
+    return matmul(out, params["w_o"])

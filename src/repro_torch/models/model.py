@@ -51,6 +51,9 @@ from repro_torch.models import blocks
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (embed_scaled, init_dense, rms_norm,
                                       softcap, unembed)
+from repro_torch.sharding.ctx import constrain, is_dtensor, like
+from repro_torch.sharding.local import (index_copy_, index_fill_, new_zeros,
+                                        put_rows_, spec_of)
 
 
 def init_model(cfg: ModelConfig, generator: torch.Generator) -> dict:
@@ -191,7 +194,7 @@ def mask_cache_update_(cache: dict, new_cache: dict,
     where ``active`` written into ``cache``, which is returned."""
     for old, new in zip(cache_leaves(cache), cache_leaves(new_cache)):
         mask = active.reshape(1, -1, *([1] * (new.dim() - 2)))
-        old.copy_(torch.where(mask, new, old))
+        old.copy_(like(torch.where(mask, new, old), old))
     return cache
 
 
@@ -220,7 +223,7 @@ def cache_slot_insert_(cfg: ModelConfig, pool: dict, src: dict,
     into ``pool`` slot ``slots[i]``; other rows are not touched."""
     del cfg
     for old, new in _leaf_pairs(pool, src):
-        old.index_copy_(1, _slot_index(slots, old.device), new.to(old.dtype))
+        index_copy_(old, 1, slots, new.to(old.dtype))
     return pool
 
 
@@ -248,7 +251,7 @@ def cache_slot_reset_(cfg: ModelConfig, pool: dict, slots) -> dict:
     zeroed, other rows not touched."""
     del cfg
     for leaf in cache_leaves(pool):
-        leaf.index_fill_(1, _slot_index(slots, leaf.device), 0)
+        index_fill_(leaf, 1, slots, 0)
     return pool
 
 
@@ -315,7 +318,8 @@ def _train_backbone(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     ``remat`` each period runs under ``torch.utils.checkpoint`` (its
     activations recomputed in the backward; the prologue's are kept, as
     the JAX package keeps them outside its scan)."""
-    x = embed_scaled(tokens, params["embed"], cfg.d_model)
+    x = constrain(embed_scaled(tokens, params["embed"], cfg.d_model),
+                  "dp", None, None)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for layer in params.get("prologue", ()):
@@ -347,7 +351,8 @@ def backbone(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     in bf16 and the new cache.  With ``in_place``, each layer's new cache
     is written into its rows of ``cache``, which is returned: the same
     values, and only one layer's new cache is live beside it."""
-    x = embed_scaled(tokens, params["embed"], cfg.d_model)
+    x = constrain(embed_scaled(tokens, params["embed"], cfg.d_model),
+                  "dp", None, None)
     positions, cache_pos = _positions(tokens.shape[1], cache_pos,
                                       tokens.device)
     made = {}
@@ -359,7 +364,8 @@ def backbone(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
             cache_pos=cache_pos, ffn=ffn, encoder_states=encoder_states)
         if in_place and nc is not None:
             for dst, leaf in zip(stack, nc):
-                dst[i].copy_(leaf)
+                dst = dst[i]
+                dst.copy_(like(leaf, dst))
         elif not in_place:
             made.setdefault((sec, key), []).append(nc)
     if in_place or cache is None:
@@ -383,7 +389,15 @@ def lm_loss(params: dict, tokens: torch.Tensor, labels: torch.Tensor,
     valid = labels >= 0
     safe = torch.where(valid, labels, 0).long()
     lse = torch.logsumexp(logits, dim=-1)
-    label_logit = logits.gather(-1, safe[..., None])[..., 0]
+    if is_dtensor(logits):
+        # Vocab-parallel logits: each rank picks the labels in its vocab
+        # block (one nonzero term a row, so the sum is exact), where a
+        # gather would need DTensor's masked partial through a squeeze.
+        vocab = torch.arange(logits.shape[-1], device=labels.device)
+        label_logit = torch.where(vocab == safe[..., None], logits,
+                                  0.0).sum(-1)
+    else:
+        label_logit = logits.gather(-1, safe[..., None])[..., 0]
     nll = lse - label_logit
     ce = torch.where(valid, nll, 0.0).sum() / valid.sum().clamp_min(1)
     return ce + aux_coef * aux, {"ce": ce, "aux": aux}
@@ -391,8 +405,10 @@ def lm_loss(params: dict, tokens: torch.Tensor, labels: torch.Tensor,
 
 def final_hidden(params: dict, x: torch.Tensor, cfg: ModelConfig
                  ) -> torch.Tensor:
-    """The final norm of the residual stream, in x's dtype."""
-    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+    """The final norm of the residual stream, in x's dtype (gathered over
+    the sequence on a mesh, as each layer's norms are)."""
+    return constrain(rms_norm(x, params["final_norm"], cfg.norm_eps),
+                     "dp", None, None)
 
 
 def dense_logits(params: dict, h: torch.Tensor, cfg: ModelConfig
@@ -400,7 +416,8 @@ def dense_logits(params: dict, h: torch.Tensor, cfg: ModelConfig
     """f32 logits of final hiddens ``h`` through the output table, then
     ``final_logit_softcap``."""
     table = params["embed"] if cfg.tie_embeddings else params["head"]
-    logits = unembed(h, table).to(torch.float32)
+    logits = constrain(unembed(h, table).to(torch.float32),
+                       "dp", None, "tp")          # vocab-parallel logits
     if cfg.final_logit_softcap:
         logits = softcap(logits, cfg.final_logit_softcap)
     return logits
@@ -483,7 +500,8 @@ def decode_step_(params: dict, cache: dict, tokens: torch.Tensor,
         raise ValueError(f"{cfg.name}: decode_step_ needs cache_pos (tokens "
                          "already cached) for its attention layers")
     b = tokens.shape[0]
-    x = embed_scaled(tokens, params["embed"], cfg.d_model)
+    x = constrain(embed_scaled(tokens, params["embed"], cfg.d_model),
+                  "dp", None, None)
     pos = positions = None
     if cache_pos is not None:
         pos = _slot_positions(cache_pos, b, tokens.device)
@@ -526,9 +544,16 @@ def init_spec_snapshot(cfg: ModelConfig, cache: dict, k: int) -> dict:
                                                         _index(c, 0)):
             return None
         if kind in blocks.RECURRENT_KINDS:
-            return type(c)(*(leaf.new_zeros((k, *leaf.shape)) for leaf in c))
+            return type(c)(*(new_zeros(leaf, (k, *leaf.shape), spec=(
+                (None, *spec_of(leaf)) if is_dtensor(leaf) else None))
+                for leaf in c))
         rows = (k, c.k.shape[0], c.k.shape[1], *c.k.shape[3:])
-        return RingSnapshot(c.k.new_zeros(rows), c.v.new_zeros(rows),
+        spec = None
+        if is_dtensor(c.k):
+            sp = spec_of(c.k)
+            spec = (None, sp[0], sp[1], *sp[3:])
+        return RingSnapshot(new_zeros(c.k, rows, spec=spec),
+                            new_zeros(c.v, rows, spec=spec),
                             torch.zeros((k, c.k.shape[1]), dtype=torch.int64,
                                         device=c.k.device))
     return _rebuild(cache, buffers)
@@ -549,12 +574,12 @@ def cache_snapshot_(cfg: ModelConfig, cache: dict, snap: dict,
         if isinstance(s, RingSnapshot):
             slot = pos % c.k.shape[2]
             bi = torch.arange(slot.shape[0], device=slot.device)
-            s.k.index_copy_(0, step, c.k[:, bi, slot][None])
-            s.v.index_copy_(0, step, c.v[:, bi, slot][None])
+            index_copy_(s.k, 0, step, c.k[:, bi, slot][None])
+            index_copy_(s.v, 0, step, c.v[:, bi, slot][None])
             s.slot.index_copy_(0, step, slot[None])
         else:
             for buf, leaf in zip(s, c):
-                buf.index_copy_(0, step, leaf[None])
+                index_copy_(buf, 0, step, leaf[None])
 
 
 def cache_rollback_(cfg: ModelConfig, cache: dict, snap: dict,
@@ -578,13 +603,14 @@ def cache_rollback_(cfg: ModelConfig, cache: dict, snap: dict,
                 undo = m <= j
                 slot = s.slot[j]
                 for leaf, old in ((c.k, s.k[j]), (c.v, s.v[j])):
-                    leaf[:, bi, slot] = torch.where(undo, old,
-                                                    leaf[:, bi, slot])
+                    put_rows_(leaf, slot,
+                              torch.where(undo, old, leaf[:, bi, slot]), dim=1)
         else:
             idx = m.clamp(max=k - 1).reshape(1)
             for buf, leaf in zip(s, c):
-                leaf.copy_(torch.where(keep, leaf,
-                                       buf.index_select(0, idx)[0]))
+                leaf.copy_(like(torch.where(keep, leaf,
+                                            buf.index_select(0, idx)[0]),
+                                leaf))
 
 
 # -- the paged pool (launch/engine.py, launch/paging.py) -------------------

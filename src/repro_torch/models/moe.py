@@ -32,7 +32,8 @@ from typing import Tuple
 import torch
 
 from repro_torch.models.config import MoEConfig
-from repro_torch.models.layers import init_dense, silu
+from repro_torch.models.layers import init_dense, matmul, silu
+from repro_torch.sharding.ctx import constrain, logical_axis_size, replicated
 
 
 def init_moe(generator: torch.Generator, d_model: int, cfg: MoEConfig,
@@ -94,9 +95,12 @@ def _experts(params: dict, xe: torch.Tensor) -> torch.Tensor:
     """Every expert's SwiGLU on its buffer: xe (G, E, C, d) → (G, E, C, d),
     one ``torch.bmm`` over the expert axis per product."""
     g, e, c, d = xe.shape
+    ep = e % logical_axis_size("tp") == 0
+    spec_f = ("tp", None, None) if ep else (None, None, "tp")
     xs = xe.permute(1, 0, 2, 3).reshape(e, g * c, d)
-    h = silu(torch.bmm(xs, params["w_gate"])) * torch.bmm(xs, params["w_up"])
-    ye = torch.bmm(h, params["w_down"])
+    gate = constrain(silu(torch.bmm(xs, params["w_gate"])), *spec_f)
+    up = constrain(torch.bmm(xs, params["w_up"]), *spec_f)
+    ye = matmul(gate * up, params["w_down"])
     return ye.reshape(e, g, c, d).permute(1, 0, 2, 3)
 
 
@@ -111,7 +115,8 @@ def _aux_loss(probs: torch.Tensor, mask: torch.Tensor,
 
 def _shared(params: dict, x: torch.Tensor) -> torch.Tensor:
     sh = params["shared"]
-    return (silu(x @ sh["w_gate"]) * (x @ sh["w_up"])) @ sh["w_down"]
+    gs = constrain(silu(x @ sh["w_gate"]) * (x @ sh["w_up"]), "dp", None, "tp")
+    return matmul(gs, sh["w_down"])
 
 
 def moe_ffn(params: dict, x: torch.Tensor,
@@ -119,6 +124,8 @@ def moe_ffn(params: dict, x: torch.Tensor,
     """The MoE FFN on x (B, S, d) → (out (B, S, d) in x's dtype, the f32
     aux loss), index-based dispatch (see the module docstring)."""
     b0, s0, d = x.shape
+    # Routing needs whole groups: gather a sequence-sharded stream once.
+    x = constrain(x, "dp", None, None)
     xg, gsz = _groups(x, cfg)
     g, s, e = xg.shape[0], gsz, cfg.n_experts
     probs, mask, gates, pos, in_cap, capacity = route(params, xg, cfg)
@@ -128,6 +135,9 @@ def moe_ffn(params: dict, x: torch.Tensor,
     # column ``slots`` where it is not routed or does not fit.
     flat = torch.where(in_cap,
                        expert * capacity + pos.clamp(max=capacity - 1), slots)
+    # On a mesh the dispatch indices are gathered whole (G·s·E int64s):
+    # the scatter below builds a plain index table from them.
+    flat = replicated(flat)
     # Each (expert, slot) names its token, or the zero row s; only the
     # spare column takes duplicate writes, and it is dropped.
     src = torch.full((g, slots + 1), s, dtype=torch.int64, device=x.device)

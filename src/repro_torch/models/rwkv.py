@@ -23,7 +23,9 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import init_dense, sigmoid, silu
+from repro_torch.kernels.common import operand_mesh
+from repro_torch.models.layers import init_dense, matmul, sigmoid, silu
+from repro_torch.sharding.local import on_local_blocks
 
 _CHUNK = 32
 _HEAD_DIM = 64
@@ -88,8 +90,13 @@ def _token_shift(x: torch.Tensor, prev: Optional[torch.Tensor]) -> torch.Tensor:
 def _wkv_chunked(r, k, v, logw, u, state0):
     """Chunked WKV-6. r,k,v: (B,S,H,dk); logw: (B,S,H,dk) (≤0); u: (H,dk).
 
-    Returns y: (B,S,H,dv) and the final state (B,H,dk,dv), all f32.
+    Returns y: (B,S,H,dv) and the final state (B,H,dk,dv), all f32.  On a
+    mesh each rank runs its local batch rows and heads.
     """
+    if operand_mesh(r, k, v, logw, state0) is not None:
+        return on_local_blocks(_wkv_chunked, (r, k, v, logw, u, state0),
+                               ("bshd",) * 4 + ("hd", "bhde"),
+                               ("bshd", "bhde"))
     b, s, h, dk = r.shape
     chunk = min(s, _CHUNK)
     pad = (-s) % chunk
@@ -166,7 +173,7 @@ def rwkv_time_mix(params: dict, x: torch.Tensor, *,
     yh = (y - y.mean(-1, keepdim=True)) * torch.rsqrt(
         y.var(-1, unbiased=False, keepdim=True) + 1e-5)
     y = (yh.reshape(b, s, d) * (1.0 + params["ln_x"])).to(x.dtype)
-    return (y * g) @ params["w_o"], x[:, -1], state
+    return matmul(y * g, params["w_o"]), x[:, -1], state
 
 
 def rwkv_channel_mix(params: dict, x: torch.Tensor, *,
@@ -179,6 +186,6 @@ def rwkv_channel_mix(params: dict, x: torch.Tensor, *,
     xk = (x32 * mu_cm[0] + sh32 * (1 - mu_cm[0])).to(x.dtype)
     xr = (x32 * mu_cm[1] + sh32 * (1 - mu_cm[1])).to(x.dtype)
     kk = torch.square(F.relu(xk @ params["cm_k"]))
-    cm = kk @ params["cm_v"]
+    cm = matmul(kk, params["cm_v"])
     rr = sigmoid(xr @ params["cm_r"])
     return rr * cm, x[:, -1]

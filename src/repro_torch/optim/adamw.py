@@ -32,6 +32,8 @@ from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.sharding.ctx import is_dtensor, like
+
 #: Elements a slice of the in-place update (64 MiB of f32).
 CHUNK = 1 << 24
 
@@ -120,13 +122,37 @@ def _chunks(t: torch.Tensor):
 
 
 def global_norm(tree) -> torch.Tensor:
-    """``sqrt(Σ g²)`` over every leaf, in f32 (a slice at a time)."""
+    """``sqrt(Σ g²)`` over every leaf, in f32 (a slice at a time).  DTensor
+    leaves (a mesh's grads) add their local sums, all-reduced once: a
+    plain 0-d tensor, the same on every rank."""
     leaves = tree_leaves(tree)
     total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    sharded = [g for g in leaves if is_dtensor(g)]
     for g in leaves:
+        if is_dtensor(g):
+            continue
         for c in _chunks(g.detach()):
             total = total + c.to(torch.float32).square().sum()
+    if sharded:
+        part = torch.zeros_like(total)
+        for g in sharded:
+            part = part + _replica_sum(g)
+        import torch.distributed as dist
+        dist.all_reduce(part)
+        total = total + part
     return total.sqrt()
+
+
+def _replica_sum(g) -> torch.Tensor:
+    """This rank's share of ``Σ g²`` over a DTensor: its local sum, divided
+    by the number of ranks holding the same block (its replicas), so that
+    the sum over every rank counts each element once."""
+    local = g.detach().to_local().to(torch.float32).square().sum()
+    reps = 1
+    for i, p in enumerate(g.placements):
+        if not p.is_shard():
+            reps *= g.device_mesh.size(i)
+    return local / reps
 
 
 def adamw_update(grads, state: AdamWState, cfg: OptimizerConfig, params
@@ -152,6 +178,8 @@ def adamw_update(grads, state: AdamWState, cfg: OptimizerConfig, params
         if out.dtype != g.dtype or out.shape != g.shape:
             raise ValueError(f"a param of {out.dtype} {tuple(out.shape)} for a "
                              f"grad of {g.dtype} {tuple(g.shape)}")
+        if is_dtensor(m):
+            return _upd_local(g, m, v, p, out)
         for gc, mc, vc, pc, oc in zip(*map(_chunks, (g.detach(), m, v,
                                                      p.detach(),
                                                      out.detach()))):
@@ -167,6 +195,26 @@ def adamw_update(grads, state: AdamWState, cfg: OptimizerConfig, params
             for c, c32 in ((mc, m32), (vc, v32), (oc, p32)):
                 if c is not c32:
                     c.copy_(c32)
+        return out
+
+    def _upd_local(g, m, v, p, out):
+        """The update on a mesh (ZeRO-1): each rank steps its own block of
+        the moments and master, the grad brought to their layout, and the
+        new param block is gathered back to the param's layout."""
+        from torch.distributed.tensor import DTensor
+
+        g_l = like(g.detach(), m).to_local()
+        if p is out:                 # lean: the params are the reference
+            ref_l = like(p.detach(), m).to_local().clone()
+            new_l = ref_l
+        else:                        # the master's own block, in place
+            ref_l = p.to_local()
+            new_l = torch.empty_like(ref_l, dtype=out.dtype)
+        upd(g_l, m.to_local(), v.to_local(), ref_l, new_l)
+        new = DTensor.from_local(new_l, m.device_mesh, m.placements,
+                                 run_check=False, shape=m.shape,
+                                 stride=m.stride())
+        out.detach().copy_(like(new, out))
         return out
 
     with torch.no_grad():

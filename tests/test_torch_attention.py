@@ -57,6 +57,17 @@ FLASH_CASES = [(96, None, None, 32, 32), (200, 64, None, 64, 64),
                (128, None, 50.0, 32, 64), (256, 32, 30.0, 128, 128)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread while this file runs: its cases are many tiny
+    eager ops, and PyTorch's default (a thread per core in every pytest
+    worker) oversubscribes the machine under ``-n 6``."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def jx():
     """The JAX package's pieces these tests hold the port against."""

@@ -37,6 +37,17 @@ from repro_torch.kernels.sketch_head.ops import (dequantize_sketch_ref,
                                                  sketch_head_ref)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread while this file runs: its cases are many tiny
+    eager ops, and PyTorch's default (a thread per core in every pytest
+    worker) oversubscribes the machine under ``-n 6``."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def jx():
     """The JAX package's functions (imported here, so that the cuda cases
@@ -585,6 +596,50 @@ def test_cuda_fused_decode_tenants(cuda, quant):
                                    n_buckets=r, scale=heads[t][5],
                                    quant=quant)
         assert torch.equal(got[row], want[row])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [None, "int8", "int4"])
+@pytest.mark.parametrize("m", [2, 4])
+def test_cuda_fused_decode_row_start(cuda, m, quant):
+    """The global-row input of the row-sharded head: the rwkv6 serve head
+    (d 2048, L 128, R 16, d' 32) launched on each of m row shards with
+    ``row_start`` its first global row.  Each shard's indices are the whole
+    launch's columns exactly and follow the boundary rule against
+    ``lsh_hash_ref`` at that ``row_start``; its logits are within the gather
+    bound of the plain gather at its indices; and the shards' partial means
+    scaled by (L/m)/L sum to the whole launch's within the same bound (f32
+    reassociation of L/m-term means, ``gather_atol``)."""
+    shape = (4, 2048, 32, 128, 1, 16, 65519, 2.0)
+    hid, proj, w, bias, store, scale, bw, r, atol = _cuda_case(cuda, shape,
+                                                               quant)
+    b, n_rows = hid.shape[0], shape[3]
+    whole_idx = torch.empty((b, n_rows), dtype=torch.int32, device=cuda)
+    whole = fused_decode_logits(hid, proj, w, bias, store, bandwidth=bw,
+                                n_buckets=r, scale=scale, quant=quant,
+                                idx_out=whole_idx)
+    ls = n_rows // m
+    total = torch.zeros_like(whole)
+    for part in range(m):
+        rows = slice(part * ls, (part + 1) * ls)
+        srows = (slice(part * ls // 2, (part + 1) * ls // 2)
+                 if quant == "int4" else rows)
+        st = store[srows].contiguous()
+        sc = None if scale is None else scale[rows].contiguous()
+        idx = torch.empty((b, ls), dtype=torch.int32, device=cuda)
+        out = fused_decode_logits(hid, proj, w[rows].contiguous(),
+                                  bias[rows].contiguous(), st, bandwidth=bw,
+                                  n_buckets=r, scale=sc, quant=quant,
+                                  idx_out=idx, row_start=part * ls)
+        torch.cuda.synchronize()
+        assert torch.equal(idx, whole_idx[:, rows])
+        check_hash_indices(idx, lsh_hash_ref(hid @ proj, w[rows], bias[rows],
+                                             bw, r, part * ls),
+                           hid, w[rows], bias[rows], bw, proj=proj)
+        torch.testing.assert_close(out, sketch_head_ref(st, idx, sc, quant),
+                                   rtol=0, atol=atol)
+        total += out * (ls / n_rows)
+    torch.testing.assert_close(total, whole, rtol=0, atol=atol)
 
 
 _RACE_SHAPES = [  # (m, n_rows, r, v): v classes, the (L, R, V) entry's V

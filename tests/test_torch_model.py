@@ -38,6 +38,17 @@ BF16_ULP = 2.0 ** -8
 ARCH = "rwkv6-1.6b"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread while this file runs: its cases are many tiny
+    eager ops, and PyTorch's default (a thread per core in every pytest
+    worker) oversubscribes the machine under ``-n 6``."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def setup():
     jcfg, cfg = jax_config(ARCH, smoke=True), get_config(ARCH, smoke=True)

@@ -49,6 +49,17 @@ CASES = {
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread while this file runs: its cases are many tiny
+    eager ops, and PyTorch's default (a thread per core in every pytest
+    worker) oversubscribes the machine under ``-n 6``."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def jx():
     jax = pytest.importorskip("jax")

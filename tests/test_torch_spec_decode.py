@@ -51,6 +51,17 @@ PROMPT = {"rwkv6-1.6b": 5, "gemma2-27b": 12,    # gemma2: past its window 8
 GEN = 9
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread while this file runs: its cases are many tiny
+    eager ops, and PyTorch's default (a thread per core in every pytest
+    worker) oversubscribes the machine under ``-n 6``."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def jx():
     """The JAX package's pieces these tests hold the port against."""

@@ -43,6 +43,17 @@ QUANTS = [None, "int8", "int4"]
 BACKENDS = ["fused", "two_kernel", "ref"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread while this file runs: its cases are many tiny
+    eager ops, and PyTorch's default (a thread per core in every pytest
+    worker) oversubscribes the machine under ``-n 6``."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _kernel_params(seed, d, v, m=128):
     rng = np.random.default_rng(seed)
     return {"points": rng.standard_normal((m, CFG.proj_dim)).astype(np.float32),

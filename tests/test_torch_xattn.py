@@ -38,6 +38,17 @@ PROMPT, GEN = 7, 9
 HEAD = dict(n_rows=32, n_buckets=8, k=1, proj_dim=16, bandwidth=2.0)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread while this file runs: its cases are many tiny
+    eager ops, and PyTorch's default (a thread per core in every pytest
+    worker) oversubscribes the machine under ``-n 6``."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def jx():
     """The JAX package's smoke model (key 0), a sketch head it froze (key
