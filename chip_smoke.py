@@ -255,6 +255,20 @@ kernels through the same wrappers and checks.
    musicgen's training shape and every case under ``cases``), the card
    line, and last ``{"ok": true, "device": {...}}``.
 
+21. Dry-run phase: the JAX package's four test_dryrun cells at full size
+   (granite-8b train_4k on the 16×16 mesh and decode_32k on the 2×16×16,
+   mixtral-8x7b train_4k on the 2×16×16, rwkv6-1.6b long_500k on the
+   16×16), each ``python -m repro_torch.launch.dryrun --device cuda`` in a
+   process of its own, started after the kernel phases and collected after
+   the flash_attn_bwd phase: exit 0, per-rank FLOPs, 256 or 512 ranks,
+   flash_attn traced on the train cells; each cell's per-rank FLOPs,
+   collective bytes and arguments + temp against the card's memory.  And
+   the calibration, around the musicgen-large step at B = 4, S = 2048 and
+   gemma2-27b's 4160-token prefill: ``launch/hlo_analysis.analyze`` on the
+   real step and on its fake trace at one rank, equal FLOPs, the fake
+   trace's kernel calls equal to the real launches, and the predicted peak
+   (arguments + temp) against the allocator's within PEAK_RATIO_BOUND.
+
 Any failed check raises, so the exit code is non-zero and the last line
 is not printed.  Without a CUDA device it exits non-zero at once.
 """
@@ -286,6 +300,8 @@ from repro_torch.configs import get_config
 from repro_torch.core.sketch_lm_head import (dequantize_head, freeze_head, quantize_counts,
                                              quantize_head)
 from repro_torch.kernels import _build
+from repro_torch.kernels.work import (flash_attn_bwd_work, flash_attn_work, hash_work,
+                                      kernel_work, live_pairs)
 from repro_torch.kernels.flash_attn.ops import (flash_attention, flash_attention_bwd,
                                                flash_attention_bwd_ref, flash_attention_lse,
                                                flash_attention_lse_ref, flash_attention_ref)
@@ -311,6 +327,7 @@ from repro_torch.data.tabular import DATASETS
 from repro_torch.launch import paper_repro, serve
 from repro_torch.launch.decode_loop import WARMUP_STEPS, SpecLoop
 from repro_torch.launch.engine import EngineBackend
+from repro_torch.launch.hlo_analysis import analyze
 from repro_torch.launch.serve import engine_stream
 from repro_torch.launch import steps as steps_mod
 from repro_torch.launch.steps import prefill_step, prefill_step_, serve_step, serve_step_
@@ -319,7 +336,7 @@ from repro_torch.models.attention import KVCache
 from repro_torch.models.config import SketchHeadConfig
 from repro_torch.models.layers import (apply_rope, embed_scaled, init_dense, rms_norm,
                                       softcap)
-from repro_torch.optim.adamw import OptimizerConfig, adamw_update
+from repro_torch.optim.adamw import OptimizerConfig, adamw_update, tree_map
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
@@ -393,6 +410,17 @@ MUSICGEN_TRAIN = "musicgen-large training (B 8, S 128, MHA 32, dh 64)"
 FLASH_FWD_KERNELS = ("flash_attn_kernel", "flash_attn_tc_kernel")
 FLASH_BWD_KERNELS = ("bwd_dot_kernel", "dkdv_tc_kernel", "dq_tc_kernel", "dkdv_kernel",
                      "dq_kernel")
+# The dry run: the JAX package's four test_dryrun cells at full
+# size, each traced on fake CUDA tensors over a fake group of the mesh's
+# ranks by ``python -m repro_torch.launch.dryrun``.
+DRYRUN_CELLS = (("granite-8b", "train_4k", "single"), ("granite-8b", "decode_32k", "multi"),
+                ("mixtral-8x7b", "train_4k", "multi"), ("rwkv6-1.6b", "long_500k", "single"))
+DRYRUN_RESULTS = Path(__file__).resolve().parent / "results" / "dryrun_torch"
+# The calibration's bound on the measured peak over the dry run's (PERF.md
+# §6): the caching allocator rounds each block up to 512 bytes and
+# may give a large request a block up to 1 MiB larger, and Python's
+# collector frees cycles at its own times in either run.
+PEAK_RATIO_BOUND = (0.95, 1.05)
 
 
 def ptxas_report(name, log):
@@ -462,47 +490,9 @@ class Timer:
         return float(np.median(times))
 
 
-def count_bytes(store: torch.Tensor, idx: torch.Tensor, quant) -> int:
-    """Bytes of the count rows that ``idx`` (B, L) touches: one V-row of
-    the (L or ⌈L/2⌉, R, V) store per distinct (storage row, bucket)."""
-    n_rows = idx.shape[1]
-    rows = torch.arange(n_rows, device=idx.device)
-    srow = rows // 2 if quant == "int4" else rows
-    key = (srow[None, :] * store.shape[1] + idx.long()).unique()
-    return int(key.numel()) * store.shape[2] * store.element_size()
-
-
 def bound(n_bytes: float, n_ops: float, flop_per_s: float = F32_FLOP_PER_S) -> tuple:
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / flop_per_s
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
-
-
-def kernel_work(name, hidden, head, idx, quant):
-    """(bytes, operations) the kernel's function needs on these inputs:
-    each input read once (only the count rows idx touches), each output
-    written once; f32 multiply-adds count 2."""
-    b, d = hidden.shape
-    n_rows, k, dp = head["w"].shape
-    v = head["array"].shape[2]
-    small = 4 * (n_rows * k * dp + n_rows * k)                  # w, b
-    scale = 0 if quant is None else 4 * head["scale"].numel()
-    gather_ops = b * n_rows * v * (1 if quant is None else 2)
-    hash_ops = 2 * b * n_rows * k * dp
-    sketch = count_bytes(head["array"], idx, quant)
-    if name == "fused_decode":
-        return (4 * b * d + 4 * d * dp + small + scale + sketch + 4 * b * v,
-                2 * b * d * dp + hash_ops + gather_ops)
-    if name == "lsh_hash":
-        return hash_work(b, n_rows, k, dp)
-    return 4 * b * n_rows + scale + sketch + 4 * b * v, gather_ops
-
-
-def hash_work(b, n_rows, k, dp):
-    """(bytes, operations) of lsh_hash on (B, d') queries and an (L, K, d')
-    bank: x, w and b read once, the (B, L) int32 indices written once; the
-    B·L·K·d' multiply-adds count 2."""
-    return (4 * (b * dp + n_rows * k * dp + n_rows * k + b * n_rows),
-            2 * b * n_rows * k * dp)
 
 
 def random_head(gen, cfg, v, quant, d=D_MODEL):
@@ -1792,11 +1782,6 @@ def lm_distill_phase():
           f"launches {launched}")
 
 
-def live_pairs(s, window):
-    """(query, key) pairs a causal (+window) attention of length s keeps."""
-    return sum(min(i + 1, window or s) for i in range(s))
-
-
 def flash_cases():
     """(label, B, S, H, Hkv, dh, dtype, window, softcap) of the flash phase:
     gemma2-27b's heads at the main path's and the long prefill's shapes
@@ -1893,10 +1878,7 @@ def check_flash(timer, gen, b, s, h, hkv, dh, dtype, window, cap):
         raise AssertionError(f"{rec['library']} disagrees by {lerr}")
     rec["library_ms"], rec["library_max_abs_err"] = timer.ms(lib), lerr
     del want
-    size = q.element_size()
-    pairs = b * h * live_pairs(s, window)
-    rec["bytes"] = size * (2 * q.numel() + k.numel() + v.numel())
-    rec["ops"] = 4 * dh * pairs
+    rec["bytes"], rec["ops"] = flash_attn_work(b, s, h, hkv, dh, window, q.element_size())
     # bf16 inputs: their products at the tensor cores' bf16 peak (the
     # kernel's path); f32 inputs: at the CUDA cores' f32 peak.
     rec["bound_ms"], rec["bound_by"] = bound(
@@ -2024,12 +2006,9 @@ def check_flash_bwd(timer, gen, b, s, h, hkv, dh, dtype, window, cap, flex):
                 raise AssertionError(f"{rec['library']} {name} disagrees by {rel} in norm")
     rec["library_ms"] = timer.ms(lib)
     del lo, got, want
-    size = q.element_size()
     pairs = b * h * live_pairs(s, window)
-    # q, k, v, out, dout read, dq, dk, dv written, and the f32 lse.
-    rec["bytes"] = size * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) + 4 * lse.numel()
-    rec["ops"] = 8 * dh * pairs                 # dv, dp, dq, dk
-    rec["recompute_ops"] = 2 * dh * pairs       # s, recomputed
+    rec["bytes"], rec["ops"], rec["recompute_ops"] = flash_attn_bwd_work(
+        b, s, h, hkv, dh, window, q.element_size())
     peak = BF16_TC_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
     rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], rec["ops"], peak)
     rec["bound_with_recompute_ms"] = bound(rec["bytes"], rec["ops"] + rec["recompute_ops"],
@@ -2061,6 +2040,116 @@ def flash_bwd_phase(dev, timer):
     print("flash_attn_bwd: every case within its bound of the plain backward, bit-stable "
           "over two launches; the forward's output bits unchanged by lse", flush=True)
     return recs
+
+
+def start_dryrun():
+    """The dry run's four cells, each ``python -m repro_torch.launch.dryrun``
+    in a process of its own (its fake group apart from this process's
+    NCCL group, and the CPU work beside the card's), all at once."""
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent / "src"),
+               OMP_NUM_THREADS="1")
+    procs = {}
+    for arch, shape, mesh in DRYRUN_CELLS:
+        out = DRYRUN_RESULTS / f"{arch}__{shape}__{mesh}.json"
+        out.unlink(missing_ok=True)
+        procs[arch, shape, mesh] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+             shape, "--mesh", mesh, "--device", "cuda"], cwd=Path(__file__).resolve().parent,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return time.perf_counter(), procs
+
+
+def dryrun_phase(started):
+    """Waits for the dry run's cells (``start_dryrun``): each exits 0 with
+    per-rank FLOPs, ``n_devices`` 256 or 512, and flash_attn traced on the
+    train cells; prints each cell's per-rank FLOPs, collective bytes and
+    argument + temp bytes beside the card's memory."""
+    t0, procs = started
+    card = torch.cuda.get_device_properties(0).total_memory
+    failed = []
+    for (arch, shape, mesh), proc in procs.items():
+        log, _ = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            failed.append(f"{arch} {shape} {mesh}: rc {proc.returncode}\n{log[-3000:]}")
+            continue
+        rec = json.loads((DRYRUN_RESULTS / f"{arch}__{shape}__{mesh}.json").read_text())
+        want_ranks = 512 if mesh == "multi" else 256
+        calls = rec["kernels"].get("flash_attn", 0)
+        if (not rec["flops"] > 0 or rec["n_devices"] != want_ranks
+                or (shape.startswith("train") and not calls > 0)):
+            failed.append(f"{arch} {shape} {mesh}: {json.dumps(rec)[:2000]}")
+            continue
+        mem = rec["memory_analysis"]
+        held = mem["argument_size_bytes"] + mem["temp_size_bytes"]
+        print(f"dry run {arch} × {shape} × {mesh} ({rec['n_devices']} ranks, {rec['device']}, "
+              f"traced in {rec['trace_s']} s): per rank {rec['flops']:.4e} flops, "
+              f"{rec['bytes_accessed']:.4e} B accessed, collectives "
+              f"{json.dumps(rec['collective_bytes'])}, arguments "
+              f"{mem['argument_size_bytes'] / 2 ** 30:.2f} GiB + temp "
+              f"{mem['temp_size_bytes'] / 2 ** 30:.2f} GiB = {held / 2 ** 30:.2f} GiB of the "
+              f"card's {card / 2 ** 30:.2f} GiB ({'fits' if held <= card else 'does not fit'}); "
+              f"kernels {rec['kernels']}", flush=True)
+    if failed:
+        raise AssertionError("dry run cells failed:\n" + "\n".join(failed))
+    print(f"dry run: {len(procs)} cells in {time.perf_counter() - t0:.1f} s wall (in parallel "
+          f"with the phases before)", flush=True)
+
+
+def fake_like(tree):
+    """A fake tensor (``FakeTensorMode`` active) of each leaf's shape,
+    strides, dtype and device."""
+    return tree_map(lambda t: torch.empty_strided(
+        t.shape, t.stride(), dtype=t.dtype, device=t.device), tree)
+
+
+def calibrate(label, fn, args, fake_args, want):
+    """The dry run's analyzer on a real step ``fn(*args)`` and on its fake
+    trace ``fn(*fake_args())`` (built inside a ``FakeTensorMode``) at one
+    rank: equal FLOPs, the fake trace's kernel calls equal to the real
+    run's launches (and to ``want``), and the predicted peak (arguments +
+    temp) against the allocator's (the step's arguments plus what
+    ``max_memory_allocated`` rose above the memory held before it) within
+    PEAK_RATIO_BOUND.  Returns the real step's result."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    free_card()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    real = analyze(fn, *args)
+    torch.cuda.synchronize()
+    real_s = time.perf_counter() - t0
+    launched = {k: n for k, n in counts().items() if n}
+    rose = torch.cuda.max_memory_allocated() - before
+    t0 = time.perf_counter()
+    with FakeTensorMode():
+        fake = analyze(fn, *fake_args())
+    fake_s = time.perf_counter() - t0
+    rmem, fmem = real["memory"], fake["memory"]
+    measured = rmem["argument_size_bytes"] + rose
+    predicted = fmem["argument_size_bytes"] + fmem["temp_size_bytes"]
+    ratio = measured / predicted
+    print(f"calibration, {label}: flops real {real['flops']:.6e}, fake {fake['flops']:.6e}; "
+          f"kernel calls fake {fake['kernels']}, real {real['kernels']}, launches {launched}; "
+          f"peak predicted {predicted / 2 ** 30:.3f} GiB (arguments "
+          f"{fmem['argument_size_bytes'] / 2 ** 30:.3f} + temp "
+          f"{fmem['temp_size_bytes'] / 2 ** 30:.3f}; the real run's own count: temp "
+          f"{rmem['temp_size_bytes'] / 2 ** 30:.3f}), measured {measured / 2 ** 30:.3f} GiB "
+          f"(max_memory_allocated {torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB, "
+          f"{before / 2 ** 30:.3f} held before); ratio {ratio:.4f}; real step {real_s:.2f} s "
+          f"under the analyzer, fake trace {fake_s:.2f} s", flush=True)
+    if real["flops"] != fake["flops"]:
+        raise AssertionError(f"{label}: the real step's flops {real['flops']} != the fake "
+                             f"trace's {fake['flops']}")
+    if not fake["kernels"] == real["kernels"] == launched == want:
+        raise AssertionError(f"{label}: kernel calls fake {fake['kernels']}, real "
+                             f"{real['kernels']}, launches {launched}, want {want}")
+    if not PEAK_RATIO_BOUND[0] <= ratio <= PEAK_RATIO_BOUND[1]:
+        raise AssertionError(f"{label}: measured over predicted peak {ratio:.4f} outside "
+                             f"{PEAK_RATIO_BOUND}")
+    return real["result"]
 
 
 def train_batch(cfg, b, s, step, dev):
@@ -2208,6 +2297,12 @@ def train_phase(dev, timer):
     attn, bwd = attention_split(by_kernel, "train step at length")
     split = {k: round(v, 2) for k, v in by_kernel.items()}
     lpeak = torch.cuda.max_memory_allocated() / 2 ** 30
+    params, opt_state, _ = calibrate(
+        f"{TRAIN_ARCH} train step at B={b}, S={s}",
+        lambda p, o, bt: steps_mod.train_step(p, o, bt, cfg, opt_cfg),
+        (params, opt_state, batch),
+        lambda: (steps_mod.abstract_params(cfg), steps_mod.abstract_opt_state(cfg),
+                 fake_like(batch)), per_step)
     print(f"{TRAIN_ARCH} train step at B={b}, S={s}: {lwall:.1f} ms wall, loss "
           f"{float(m['loss']):.4f}; profiled {kt:.1f} ms of kernels in {n_k} launches (busy "
           f"{kt / lwall:.3f}), attention kernels {attn:.1f} ms ({attn / kt:.3f}; backward "
@@ -2491,6 +2586,13 @@ def gemma_long_prefill(lm, timer):
     if tokens.shape != (1, GEMMA_LONG + 4) or int(tokens.min()) < 0 or \
             int(tokens.max()) >= cfg.vocab_size:
         raise AssertionError(f"long generate: bad tokens {tuple(tokens.shape)}")
+    with torch.inference_mode():
+        calibrate(f"{cfg.name} prefill of {GEMMA_LONG} tokens",
+                  lambda p, t, c: prefill_step(p, t, cfg, c),
+                  (lm.params, prompt, model.init_decode_cache(cfg, 1, max_seq, device=dev)),
+                  lambda: (steps_mod.abstract_params(cfg), fake_like(prompt),
+                           steps_mod.abstract_cache(cfg, 1, max_seq)),
+                  {"flash_attn": cfg.n_layers})
     share = ("not measured (the profiler saw no device events)" if not kernels else
              f"flash_attn {attn_ms:.3f} ms of {busy:.3f} ms of kernels "
              f"({attn_ms / busy:.3f} of the kernel time, {attn_ms / (wall * 1e3):.3f} of "
@@ -3300,9 +3402,11 @@ def main() -> None:
         print(f"phase seconds: {phase_seconds}")
         print(card_line())
         return
+    dryrun = start_dryrun()
     timed("race_update", race_phase, dev, timer)
     flash = timed("flash_attn", flash_phase, dev, timer)
     flash_bwd = timed("flash_attn_bwd", flash_bwd_phase, dev, timer)
+    timed("dry run", dryrun_phase, dryrun)
     timed("backbone", backbone_phase, dev)
     runs, recs, lm, frozen, kparams, loop_args = timed("main path", main_path, dev, timer)
     loop_ms = timed("decode loop", decode_loop_phase, *loop_args)

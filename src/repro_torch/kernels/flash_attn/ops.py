@@ -22,6 +22,12 @@ cores (a dK/dV kernel by key tile and a dQ kernel by query tile, bf16
 wgmma on TMA-staged tiles, p and ds split into three exact bf16 terms;
 held to ``parity.flash_attn_bwd_tol``'s tensor-core form) and f32 inputs
 on the CUDA cores.
+
+Fake CUDA tensors (``FakeTensorMode``: the dry run's shape propagation)
+take the kernels' own checks but the pointer alignment (a fake tensor has
+no address), get empty outputs of the kernels' shapes and dtypes, and
+launch nothing.  Every call, launched or fake, reports its work
+(``kernels/work.py``) to an active op analyzer.
 """
 
 from __future__ import annotations
@@ -32,7 +38,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from torch._subclasses.fake_tensor import is_fake
+
+from repro_torch.kernels import _build, work
 from repro_torch.kernels.common import check_operand, operand_mesh, stream_of
 from repro_torch.sharding.local import on_local_blocks
 
@@ -195,12 +203,17 @@ def _forward(q, k, v, window, softcap, with_lse: bool):
         return flash_attention_ref(q, k, v, window=window,
                                    softcap=softcap), None
     b, s, h, hkv, dh = _check_cuda("flash_attn", q, k, v, window)
-    if q.dtype == torch.bfloat16:
+    fake = is_fake(q)
+    if q.dtype == torch.bfloat16 and not fake:
         _check_tma_aligned("flash_attn", q, k, v)
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
            if with_lse else None)
     if out.numel() == 0:
+        return out, lse
+    work.record("flash_attn", *work.flash_attn_work(
+        b, s, h, hkv, dh, window, q.element_size(), with_lse))
+    if fake:                  # shape propagation: nothing to launch
         return out, lse
     with torch.cuda.device(q.device):
         rc = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -304,12 +317,18 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_operand("out", out, dev, q.dtype, (b, s, h, dh))
     check_operand("dout", dout, dev, q.dtype, (b, s, h, dh))
     check_operand("lse", lse, dev, torch.float32, (b, h, s))
-    if q.dtype == torch.bfloat16:
+    fake = is_fake(q)
+    if q.dtype == torch.bfloat16 and not fake:
         _check_tma_aligned("flash_attn_bwd", q, k, v, dout)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0:
         return dq, dk, dv
     d_row = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+    n_bytes, ops, recomputed = work.flash_attn_bwd_work(
+        b, s, h, hkv, dh, window, q.element_size())
+    work.record("flash_attn_bwd", n_bytes, ops + recomputed)
+    if fake:                  # shape propagation: nothing to launch
+        return dq, dk, dv
     with torch.cuda.device(dev):
         rc = _bwd_launcher()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

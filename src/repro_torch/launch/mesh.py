@@ -121,19 +121,45 @@ def distribute(x: torch.Tensor, spec, mesh):
     return distribute_tensor(x, mesh, placements)
 
 
-def distribute_tree(tree, specs, mesh):
+def distribute_tree(tree, specs, mesh, place=None):
     """Every tensor leaf of ``tree`` distributed by the matching spec of
-    ``specs`` (a tree of the same structure; ``None`` preserved)."""
+    ``specs`` (a tree of the same structure; ``None`` preserved), each by
+    ``place(leaf, spec, mesh)`` (:func:`distribute` by default)."""
+    place = place or distribute
     if tree is None:
         return None
     if isinstance(tree, dict):
-        return {k: distribute_tree(v, specs[k], mesh) for k, v in tree.items()}
+        return {k: distribute_tree(v, specs[k], mesh, place)
+                for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(distribute_tree(v, s, mesh)
+        return type(tree)(*(distribute_tree(v, s, mesh, place)
                             for v, s in zip(tree, specs)))
     if isinstance(tree, list):
-        return [distribute_tree(v, s, mesh) for v, s in zip(tree, specs)]
-    return distribute(tree, specs, mesh)
+        return [distribute_tree(v, s, mesh, place)
+                for v, s in zip(tree, specs)]
+    return place(tree, specs, mesh)
+
+
+def shard_like(x: torch.Tensor, spec, mesh):
+    """A DTensor of ``x``'s global shape, dtype and device laid out by
+    ``spec``, whose local block is a new empty tensor of this rank's shard
+    shape: the dry run's placement of fake tensors, which
+    :func:`distribute` cannot place (its replication broadcasts, and a
+    fake group has no data to send)."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    from repro_torch.sharding.rules import to_placements
+
+    placements = to_placements(spec, mesh)
+    with unset_fake_temporarily():       # the mesh's own (real) coordinates
+        shape, _ = compute_local_shape_and_global_offset(x.shape, mesh,
+                                                         placements)
+    local = torch.empty(shape, dtype=x.dtype, device=x.device)
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=x.shape, stride=x.stride())
 
 
 def gather_tree(tree, device):

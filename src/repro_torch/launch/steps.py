@@ -12,23 +12,30 @@ loops of ``generate``, the engine and ``launch/decode_loop.py`` run it),
 and so does ``prefill_step_``, the prefill into a zeroed cache.  Each
 takes ``encoder_states`` (B, T, d), what an arch's ``xattn`` layers
 attend to.
+
+``abstract_params``, ``abstract_opt_state``, ``abstract_cache`` and
+``input_specs`` are the JAX package's ``jax.eval_shape`` inputs of the dry
+run (``launch/dryrun.py``): fake tensors (``FakeTensorMode``) of the
+shapes and dtypes a step takes, allocating nothing.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.configs import SHAPES, get_config
 from repro_torch.models.config import ModelConfig, param_count
 from repro_torch.models.layers import softcap
-from repro_torch.sharding.ctx import active_mesh, replicated
+from repro_torch.sharding.ctx import active_mesh, is_dtensor, replicated
 from repro_torch.models.model import (backbone, decode_step, decode_step_,
                                       dense_logits, dense_verify_logits,
-                                      final_hidden, lm_loss,
-                                      mask_cache_update)
+                                      final_hidden, init_decode_cache,
+                                      init_model, lm_loss, mask_cache_update)
 from repro_torch.optim.adamw import (AdamWState, OptimizerConfig,
-                                     adamw_update, tree_leaves, tree_map)
+                                     adamw_update, init_adamw, tree_leaves,
+                                     tree_map)
 
 
 def opt_config_for(cfg: ModelConfig, **kw) -> OptimizerConfig:
@@ -47,6 +54,20 @@ def _like(tree, leaves):
     return tree_map(lambda _: next(it), tree)
 
 
+def _microbatch(x: torch.Tensor, i: int, accum: int) -> torch.Tensor:
+    """Microbatch ``i`` of ``accum`` along x's first axis: its i-th block
+    of rows; a DTensor's from each rank's own rows (its placements kept)."""
+    if not is_dtensor(x):
+        m = x.shape[0] // accum
+        return x[i * m:(i + 1) * m]
+    from torch.distributed.tensor import DTensor
+
+    local = x.to_local()
+    m = local.shape[0] // accum
+    return DTensor.from_local(local[i * m:(i + 1) * m], x.device_mesh,
+                              x.placements, run_check=False)
+
+
 def loss_and_grads(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                    opt_cfg: OptimizerConfig):
     """``(loss, {"ce", "aux"}, grads)`` of ``lm_loss`` over ``batch``
@@ -56,7 +77,9 @@ def loss_and_grads(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     into that many microbatches, run one after the other; their grads, loss
     and parts are summed in f32, each divided by the count first, and the
     summed grads cast to the params' dtypes, as the reference's scan
-    does.  The params' leaves are set to require grad (in place)."""
+    does.  On a mesh each rank splits its own rows (:func:`_microbatch`),
+    so every microbatch keeps every rank busy and no row moves.  The
+    params' leaves are set to require grad (in place)."""
     leaves = tree_leaves(params)
     for t in leaves:
         if not t.requires_grad:
@@ -81,12 +104,10 @@ def loss_and_grads(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                          f"microbatches")
     dev = leaves[0].device
     zero = lambda: torch.zeros((), dtype=torch.float32, device=dev)
-    gacc = [torch.zeros(t.shape, dtype=torch.float32, device=dev)
-            for t in leaves]
+    gacc = [torch.zeros_like(t, dtype=torch.float32) for t in leaves]
     lacc, pacc = zero(), {"ce": zero(), "aux": zero()}
-    m = n // accum
     for i in range(accum):
-        mb = {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
+        mb = {k: _microbatch(v, i, accum) for k, v in batch.items()}
         loss, parts, grads = one(mb)
         for a, g in zip(gacc, grads):
             a.add_(g / accum)
@@ -140,18 +161,22 @@ def _constrain_cache(cache: dict) -> dict:
 
 
 def prefill_step(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-                 cache: dict, encoder_states: Optional[torch.Tensor] = None
-                 ) -> Tuple[torch.Tensor, dict]:
-    """The whole (B, P) prompt in one forward pass that fills the cache;
-    returns the last position's logits (B, V) through the dense head and
-    the filled cache.  Only the last position is unembedded (and
+                 cache: Optional[dict] = None,
+                 encoder_states: Optional[torch.Tensor] = None):
+    """The whole (B, P) prompt in one forward pass: the last position's
+    logits (B, V) through the dense head.  With ``cache`` (the serving
+    prefill) it fills the cache and returns ``(logits, filled cache)``;
+    without one (the JAX package's cacheless form, the dry run's prefill)
+    the logits alone.  Only the last position is unembedded (and
     softcapped): the (B, P, V) logits of the other positions are never
     made."""
     x, new_cache = backbone(params, tokens, cfg, cache=cache, cache_pos=0,
                             encoder_states=encoder_states)
     h = final_hidden(params, x, cfg)
-    return (replicated(dense_logits(params, h[:, -1], cfg)),
-            _constrain_cache(new_cache))
+    logits = replicated(dense_logits(params, h[:, -1], cfg))
+    if cache is None:
+        return logits
+    return logits, _constrain_cache(new_cache)
 
 
 def prefill_step_(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
@@ -232,3 +257,73 @@ def serve_step_(params: dict, cache: dict, tokens: torch.Tensor,
             logits = softcap(logits, cfg.final_logit_softcap)
     logits = replicated(logits)
     return (logits, cache, hidden) if return_hidden else (logits, cache)
+
+
+# --------------------------------------------------------------------------
+# abstract inputs
+# --------------------------------------------------------------------------
+
+def _fake_mode():
+    """The active ``FakeTensorMode``, or a new one: every abstract input
+    of one dry-run cell must come from the mode its trace runs in."""
+    from torch._guards import detect_fake_mode
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    return detect_fake_mode() or FakeTensorMode()
+
+
+def abstract_params(cfg: ModelConfig, device="cuda") -> dict:
+    """``init_model``'s tree as fake tensors on ``device``: the same
+    shapes and dtypes, nothing drawn."""
+    with _fake_mode():
+        params = init_model(cfg, torch.Generator())
+        return tree_map(lambda t: torch.empty_like(t, device=device), params)
+
+
+def abstract_opt_state(cfg: ModelConfig, lean: bool = False,
+                       device="cuda") -> AdamWState:
+    """``init_adamw``'s state of :func:`abstract_params`, fake."""
+    with _fake_mode():
+        return init_adamw(abstract_params(cfg, device), lean=lean)
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                   device="cuda") -> dict:
+    """``init_decode_cache``'s tree, fake."""
+    with _fake_mode():
+        return init_decode_cache(cfg, batch, max_seq, device=device)
+
+
+def input_specs(arch: str, shape: str, *, smoke: bool = False,
+                device="cuda") -> Dict[str, Any]:
+    """Fake inputs of one (arch × shape) dry-run cell (the JAX package's
+    ShapeDtypeStructs): ``kind`` (train, prefill or decode), ``cfg``,
+    ``seq``, ``batch`` and what that step takes: ``batch_inputs`` (tokens
+    and labels (B, S) int32, with ``encoder_states``) for a train step;
+    ``tokens`` (B, S) and ``encoder_states`` (B, T, d) bf16 or None for a
+    prefill; ``tokens`` (B, 1), ``pos`` (a 0-d int32), ``cache`` (a
+    decode cache of ``seq`` positions) and ``encoder_states`` for a
+    decode step."""
+    cfg = get_config(arch, smoke=smoke)
+    seq, batch, kind = SHAPES[shape]
+    out: Dict[str, Any] = {"kind": kind, "cfg": cfg, "seq": seq,
+                           "batch": batch}
+    with _fake_mode():
+        i32 = lambda *s: torch.empty(s, dtype=torch.int32, device=device)
+        enc = (torch.empty((batch, cfg.n_encoder_tokens, cfg.d_model),
+                           dtype=torch.bfloat16, device=device)
+               if cfg.n_encoder_tokens else None)
+        if kind == "train":
+            out["batch_inputs"] = {"tokens": i32(batch, seq),
+                                   "labels": i32(batch, seq)}
+            if enc is not None:
+                out["batch_inputs"]["encoder_states"] = enc
+        elif kind == "prefill":
+            out["tokens"] = i32(batch, seq)
+            out["encoder_states"] = enc
+        else:           # decode: one new token against a cache of seq
+            out["tokens"] = i32(batch, 1)
+            out["pos"] = i32()
+            out["cache"] = abstract_cache(cfg, batch, seq, device)
+            out["encoder_states"] = enc
+    return out

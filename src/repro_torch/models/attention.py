@@ -44,7 +44,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels.flash_attn.ops import flash_attention
-from repro_torch.sharding.ctx import constrain
+from repro_torch.sharding.ctx import constrain, logical_axis_size
 from repro_torch.kernels.common import operand_mesh
 from repro_torch.sharding.local import on_local_blocks, put_, put_rows_
 from repro_torch.models.config import AttentionConfig
@@ -245,15 +245,38 @@ def _ring_positions(size: int, cache_pos, device) -> torch.Tensor:
     return torch.where(k_pos >= 0, k_pos, _INT32_MAX)
 
 
+def _split_heads(t: torch.Tensor, n_heads: int, head_dim: int):
+    """(B, S, n·dh) → (B, S, n, dh).  On a mesh whose model axis does not
+    divide n, the features are gathered first: DTensor has no layout for
+    a head split between ranks (GSPMD's reshape makes one)."""
+    if n_heads % logical_axis_size("tp"):
+        t = constrain(t, "dp", None, None)
+    return t.reshape(*t.shape[:2], n_heads, head_dim)
+
+
 def _qkv(params: dict, x: torch.Tensor, cfg: AttentionConfig):
     """q (B, S, H, dh), k and v (B, S, Hkv, dh) of x (B, S, d); on a mesh
     the heads pinned to TP shards (head-parallel attention; KV heads
     follow where they divide the axis)."""
-    b, s, _ = x.shape
-    q = (x @ params["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = (x @ params["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = (x @ params["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q = _split_heads(x @ params["wq"], cfg.n_heads, cfg.head_dim)
+    k = _split_heads(x @ params["wk"], cfg.n_kv_heads, cfg.head_dim)
+    v = _split_heads(x @ params["wv"], cfg.n_kv_heads, cfg.head_dim)
     return tuple(constrain(t, "dp", None, "tp", None) for t in (q, k, v))
+
+
+def _expand_kv(k: torch.Tensor, v: torch.Tensor, cfg: AttentionConfig):
+    """The JAX package's train/prefill rule: on a mesh whose model axis
+    does not divide the KV heads, each KV head is repeated over its group
+    of query heads (then MHA), so that attention splits over the heads;
+    k and v as they are otherwise."""
+    groups = cfg.n_heads // cfg.n_kv_heads
+    tp = logical_axis_size("tp")
+    if groups == 1 or cfg.n_kv_heads % tp == 0:
+        return k, v
+    b, s, n_kv, dh = k.shape
+    return tuple(constrain(t[:, :, :, None].expand(b, s, n_kv, groups, dh)
+                           .reshape(b, s, cfg.n_heads, dh),
+                           "dp", None, "tp", None) for t in (k, v))
 
 
 def _cross_core(q, k, v):
@@ -276,14 +299,13 @@ def cross_attention(params: dict, x: torch.Tensor, kv_source: torch.Tensor,
     grouped heads, no RoPE, no mask, the softmax and both products in
     f32, the output cast to x's dtype before the output projection."""
     b, s, _ = x.shape
-    t = kv_source.shape[1]
-    q = (x @ params["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    q = _split_heads(x @ params["wq"], cfg.n_heads, cfg.head_dim)
     # The JAX package's einsum promotes f32 states (the training data's)
     # with the bf16 weights to f32; bf16 states stay bf16.
     dt = torch.promote_types(kv_source.dtype, params["wk"].dtype)
     kv = kv_source.to(dt)
-    k = (kv @ params["wk"].to(dt)).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
-    v = (kv @ params["wv"].to(dt)).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
+    k = _split_heads(kv @ params["wk"].to(dt), cfg.n_kv_heads, cfg.head_dim)
+    v = _split_heads(kv @ params["wv"].to(dt), cfg.n_kv_heads, cfg.head_dim)
     if operand_mesh(q, k, v) is not None:
         out = on_local_blocks(lambda *a: (_cross_core(*a),), (q, k, v),
                               ("bshd",) * 3, ("bshd",))[0]
@@ -321,7 +343,7 @@ def attention(params: dict, x: torch.Tensor, positions: torch.Tensor,
         cache_pos = int(cache_pos)
     new_cache = None
     if cache is None:
-        out = flash_attention(q, k, v, window=cfg.window,
+        out = flash_attention(q, *_expand_kv(k, v, cfg), window=cfg.window,
                               softcap=cfg.logit_softcap)
     elif s > 1 and not per_slot and cfg.window and cfg.window <= cache.k.shape[1]:
         # Bulk write into a rolling SWA ring: attend over (old ring ∪ new

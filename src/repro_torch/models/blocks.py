@@ -261,7 +261,7 @@ def apply_layer(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
             params["mixer"], h,
             prev=cache.tm_prev if cache is not None else None,
             state0=cache.state if cache is not None else None)
-        x = x + delta
+        x = x + constrain(delta, "dp", seq, None)
         h2 = _norm(x, params["norm2"], eps)
         delta2, cm_last = rwkv_mod.rwkv_channel_mix(
             params["mixer"], h2,
@@ -271,7 +271,8 @@ def apply_layer(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
             new_cache = rwkv_mod.RWKVCache(
                 tm_last.to(cache.tm_prev.dtype), cm_last.to(cache.cm_prev.dtype),
                 new_state.to(cache.state.dtype))
-        return _with_aux(x + delta2, new_cache, None, with_aux)
+        return _with_aux(x + constrain(delta2, "dp", seq, None), new_cache,
+                         None, with_aux)
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
     if kind == "mamba":
@@ -334,14 +335,14 @@ def apply_layer_(params: dict, x: torch.Tensor, cfg: ModelConfig, kind: str,
     if kind == "rwkv":
         delta, tm_last, new_state = rwkv_mod.rwkv_time_mix(
             params["mixer"], h, prev=cache.tm_prev, state0=cache.state)
-        x = x + delta
+        x = x + constrain(delta, "dp", seq, None)
         h2 = _norm(x, params["norm2"], eps)
         delta2, cm_last = rwkv_mod.rwkv_channel_mix(
             params["mixer"], h2, prev=cache.cm_prev)
         _commit_(cache.tm_prev, tm_last, active)
         _commit_(cache.cm_prev, cm_last, active)
         _commit_(cache.state, new_state, active)
-        return x + delta2
+        return x + constrain(delta2, "dp", seq, None)
     if kind == "mamba":
         delta, new = mamba_mod.mamba_block(params["mixer"], h, cfg.mamba,
                                            cache=cache)

@@ -189,3 +189,16 @@ def param_count(cfg: ModelConfig) -> int:
                 total += 3 * d * cfg.d_ff               # SwiGLU
         total += 2 * d                                  # norms
     return total + d                                    # final norm
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Parameters touched per token: an MoE layer's top_k and shared
+    experts only, as the JAX package counts them."""
+    if cfg.moe is None or cfg.moe_every == 0:
+        return param_count(cfg)
+    mo = cfg.moe
+    n_moe_layers = sum(1 for j in range(cfg.n_layers)
+                       if cfg.ffn_kind(j) == "moe")
+    inactive = (n_moe_layers * (mo.n_experts - mo.top_k) * 3 * cfg.d_model
+                * mo.d_ff_expert)
+    return param_count(cfg) - inactive

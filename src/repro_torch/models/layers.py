@@ -154,7 +154,21 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    return table[tokens.long()]
+    """The rows of ``table`` at ``tokens`` (an exact gather; a negative id
+    counts from the end, as indexing does).  On a mesh the vocab-parallel
+    lookup (DTensor's masked partial) is summed at once, and its gradient
+    settled to the sum's layout: torch 2.11's DTensor can neither index
+    with a batch split over two mesh dims nor turn a partial gradient back
+    into the masked partial."""
+    from repro_torch.sharding.ctx import is_dtensor, settled
+
+    if not is_dtensor(table):
+        return table[tokens.long()]
+    from torch.distributed.tensor import Replicate
+
+    x = torch.nn.functional.embedding(tokens.long() % table.shape[0], table)
+    return settled(x.redistribute(x.device_mesh, [
+        Replicate() if p.is_partial() else p for p in x.placements]))
 
 
 def embed_scaled(tokens: torch.Tensor, table: torch.Tensor,

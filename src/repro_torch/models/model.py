@@ -51,7 +51,8 @@ from repro_torch.models import blocks
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (embed_scaled, init_dense, rms_norm,
                                       softcap, unembed)
-from repro_torch.sharding.ctx import constrain, is_dtensor, like
+from repro_torch.sharding.ctx import (constrain, is_dtensor, like,
+                                      recompute_contexts)
 from repro_torch.sharding.local import (index_copy_, index_fill_, new_zeros,
                                         put_rows_, spec_of)
 
@@ -335,7 +336,8 @@ def _train_backbone(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
         if remat:
             x, a = checkpoint(_period, x, layers, positions, encoder_states,
                               cfg, use_reentrant=False,
-                              preserve_rng_state=False)
+                              preserve_rng_state=False,
+                              context_fn=recompute_contexts)
         else:
             x, a = _period(x, layers, positions, encoder_states, cfg)
         aux = aux + a

@@ -33,7 +33,8 @@ import torch
 
 from repro_torch.models.config import MoEConfig
 from repro_torch.models.layers import init_dense, matmul, silu
-from repro_torch.sharding.ctx import constrain, logical_axis_size, replicated
+from repro_torch.sharding.ctx import (constrain, logical_axis_size,
+                                      replicated, settled)
 
 
 def init_moe(generator: torch.Generator, d_model: int, cfg: MoEConfig,
@@ -69,7 +70,10 @@ def _groups(x: torch.Tensor, cfg: MoEConfig):
     pad = (-s0) % gsz
     if pad:
         x = torch.cat([x, x.new_zeros((b0, pad, d))], dim=1)
-    return x.reshape(-1, gsz, d), gsz
+    # The gradient comes back split over the model axis too (the expert
+    # path's layout), more ways than the batch has rows, which DTensor
+    # cannot fold back into (B, S, d): settled to the forward's layout.
+    return settled(x.reshape(-1, gsz, d)), gsz
 
 
 def route(params: dict, x: torch.Tensor, cfg: MoEConfig):

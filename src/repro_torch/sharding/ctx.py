@@ -15,6 +15,7 @@ dimension is dropped per call, so one model code serves every mesh.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 import threading
@@ -40,6 +41,26 @@ def activation_sharding(mesh):
         yield
     finally:
         _state.ctx = prev
+
+
+def recompute_contexts():
+    """``torch.utils.checkpoint``'s ``context_fn``: the forward runs as it
+    is, the recompute under the activation context active now.  The
+    recompute runs inside the backward, which for CUDA tensors runs on
+    the autograd engine's device thread, where this thread's context is
+    not set."""
+    ctx = getattr(_state, "ctx", None)
+
+    @contextmanager
+    def restored():
+        prev = getattr(_state, "ctx", None)
+        _state.ctx = ctx
+        try:
+            yield
+        finally:
+            _state.ctx = prev
+
+    return contextlib.nullcontext(), restored()
 
 
 def active_mesh():
@@ -119,6 +140,22 @@ def like(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     if tuple(src.placements) != tuple(dst.placements):
         src = src.redistribute(dst.device_mesh, dst.placements)
     return src
+
+
+def settled(x):
+    """``x``, whose gradient is brought to ``x``'s own layout before it
+    flows back into the ops that made ``x`` (a plain tensor as it is).
+    DTensor hands a gradient back in whatever layout its consumers left
+    (a partial sum, a split over more mesh dims than x had), which the
+    backward of a view, or of a redistribution from a masked partial,
+    may not take."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(x.to_local(), x.device_mesh, x.placements,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
 
 
 def replicated(x):
