@@ -64,7 +64,9 @@ kernels through the same wrappers and checks.
    shadow against a plain fold of the same points; the bank row and the
    in-flight streams bitwise unchanged until ``publish``; after it, new
    requests equal a fresh engine loaded with the published head.
-6. Engine path: ``LM.engine`` with the dense and the fused head (requests
+6. Engine path (since PR 28 on the first ENGINE_LAYERS of the main
+   path's 24 layers, full width, ``shallow``): ``LM.engine`` with the
+   dense and the fused head (requests
    arriving together equal ``LM.generate`` of the same batch; every step
    of the staggered ``serve --engine`` stream against the request run
    alone at the engine's row counts, bit for bit, and at batch 1 under
@@ -130,9 +132,11 @@ kernels through the same wrappers and checks.
    held against their plain versions and timed at gemma2's width; then
    the decode loop as for rwkv6 (dense and fused), with the peak memory
    and the captured graphs' pools.
-12. gemma2-27b engine, dense and fused: four requests arriving together
+12. gemma2-27b engine, dense and fused (since PR 28 on its first
+   ENGINE_LAYERS layers, full width): four requests arriving together
    over four slots equal ``LM.generate``; six staggered requests over two
-   slots under ``check_staggered``; flash_attn 46 per prefill batch.
+   slots under ``check_staggered``; flash_attn one a layer per prefill
+   batch.
 13. gemma2-27b long prefill: B=1, a 4160-token prompt (only the last
    position unembedded; peak memory): flash_attn 46 launches, the first
    local layer's ring (4096 slots, 64 wrapped) equal to its keys
@@ -244,7 +248,13 @@ kernels through the same wrappers and checks.
    head dim the flash kernel does not take) on the mesh, generate at
    decode_chunk 1 and 4 and the engine equal off it; ``compressed_psum``
    of CUDA gradients over the one-rank group (mean + new error = the
-   gradient).  The group is destroyed at the end of the phase.
+   gradient); and the checkpoints of a mesh run (``mesh_resume``):
+   musicgen-large at full width and 2 layers through ``launch.train.train``
+   on the mesh, 6 steps saving at step 3 (each leaf gathered, rank 0
+   writing), then a new mesh run restored from it (each rank's own
+   blocks): its losses, params and optimizer state equal the continuous
+   mesh run's bit for bit, flash_attn 4 and flash_attn_bwd 2 launches a
+   step.  The group is destroyed at the end of the phase.
 20. Prints the ``{"kernels": [...]}`` line (race_update's launches from the
    refresh path, race_query's from the paper phase, flash_attn's from the
    gemma2 main path with its record at the main path's global-layer
@@ -258,11 +268,15 @@ kernels through the same wrappers and checks.
 21. Dry-run phase: the JAX package's four test_dryrun cells at full size
    (granite-8b train_4k on the 16×16 mesh and decode_32k on the 2×16×16,
    mixtral-8x7b train_4k on the 2×16×16, rwkv6-1.6b long_500k on the
-   16×16), each ``python -m repro_torch.launch.dryrun --device cuda`` in a
-   process of its own, started after the kernel phases and collected after
-   the flash_attn_bwd phase: exit 0, per-rank FLOPs, 256 or 512 ranks,
-   flash_attn traced on the train cells; each cell's per-rank FLOPs,
-   collective bytes and arguments + temp against the card's memory.  And
+   16×16) and granite-8b decode_32k on the 16×16, each ``python -m
+   repro_torch.launch.dryrun --device cuda`` in a process of its own,
+   started after the kernel phases and collected after the flash_attn_bwd
+   phase: exit 0, per-rank FLOPs, 256 or 512 ranks, flash_attn traced on
+   the train cells, and granite's decode on the 2×16×16 mesh moving no more
+   collective bytes a rank than on the 16×16 (its batch, and its cache's,
+   split over pod and data, never gathered back to data); each cell's
+   per-rank FLOPs, collective bytes and arguments + temp against the
+   card's memory.  And
    the calibration, around the musicgen-large step at B = 4, S = 2048 and
    gemma2-27b's 4160-token prefill: ``launch/hlo_analysis.analyze`` on the
    real step and on its fake trace at one rank, equal FLOPs, the fake
@@ -393,6 +407,7 @@ NEW_ARCHS = (("deepseek-v3-671b", 5, True), ("llama-3.2-vision-11b", None, False
 EXPERT_CHUNK = 32                   # experts a draw: (32, 7168, 2048) f32 is 1.9 GB
 SEEDED = dict(temperature=0.9, top_k=12, seed=7)   # the reference tests' "seeded"
 SPEC_KS = (4, 16)                   # speculative draft lengths
+ENGINE_LAYERS = 8                   # the rwkv6 and gemma2 engine phases' depth
 PAGE_SIZE = 16                      # the paged engine's tokens a page
 MEMO_PROMPTS = (16, 32, 64)         # generate's prompt lengths in the memo phase
 MEMO_LONG = 4100                    # a prompt past gemma2's 4096-slot window
@@ -411,10 +426,12 @@ FLASH_FWD_KERNELS = ("flash_attn_kernel", "flash_attn_tc_kernel")
 FLASH_BWD_KERNELS = ("bwd_dot_kernel", "dkdv_tc_kernel", "dq_tc_kernel", "dkdv_kernel",
                      "dq_kernel")
 # The dry run: the JAX package's four test_dryrun cells at full
-# size, each traced on fake CUDA tensors over a fake group of the mesh's
-# ranks by ``python -m repro_torch.launch.dryrun``.
+# size, and granite's decode on the 16×16 mesh beside its 2×16×16 one, each
+# traced on fake CUDA tensors over a fake group of the mesh's ranks by
+# ``python -m repro_torch.launch.dryrun``.
 DRYRUN_CELLS = (("granite-8b", "train_4k", "single"), ("granite-8b", "decode_32k", "multi"),
-                ("mixtral-8x7b", "train_4k", "multi"), ("rwkv6-1.6b", "long_500k", "single"))
+                ("mixtral-8x7b", "train_4k", "multi"), ("rwkv6-1.6b", "long_500k", "single"),
+                ("granite-8b", "decode_32k", "single"))
 DRYRUN_RESULTS = Path(__file__).resolve().parent / "results" / "dryrun_torch"
 # The calibration's bound on the measured peak over the dry run's (PERF.md
 # §6): the caching allocator rounds each block up to 512 bytes and
@@ -2062,11 +2079,13 @@ def start_dryrun():
 def dryrun_phase(started):
     """Waits for the dry run's cells (``start_dryrun``): each exits 0 with
     per-rank FLOPs, ``n_devices`` 256 or 512, and flash_attn traced on the
-    train cells; prints each cell's per-rank FLOPs, collective bytes and
-    argument + temp bytes beside the card's memory."""
+    train cells; a decode cell on 2×16×16 moves no more collective bytes a
+    rank than on 16×16; prints each cell's per-rank FLOPs, collective bytes
+    and argument + temp bytes beside the card's memory."""
     t0, procs = started
     card = torch.cuda.get_device_properties(0).total_memory
     failed = []
+    coll = {}
     for (arch, shape, mesh), proc in procs.items():
         log, _ = proc.communicate(timeout=600)
         if proc.returncode != 0:
@@ -2079,6 +2098,7 @@ def dryrun_phase(started):
                 or (shape.startswith("train") and not calls > 0)):
             failed.append(f"{arch} {shape} {mesh}: {json.dumps(rec)[:2000]}")
             continue
+        coll[arch, shape, mesh] = rec["collective_bytes"]["total"]
         mem = rec["memory_analysis"]
         held = mem["argument_size_bytes"] + mem["temp_size_bytes"]
         print(f"dry run {arch} × {shape} × {mesh} ({rec['n_devices']} ranks, {rec['device']}, "
@@ -2089,6 +2109,15 @@ def dryrun_phase(started):
               f"{mem['temp_size_bytes'] / 2 ** 30:.2f} GiB = {held / 2 ** 30:.2f} GiB of the "
               f"card's {card / 2 ** 30:.2f} GiB ({'fits' if held <= card else 'does not fit'}); "
               f"kernels {rec['kernels']}", flush=True)
+    for (arch, shape, mesh), multi in coll.items():
+        single = coll.get((arch, shape, "single"))
+        if mesh == "multi" and shape.startswith("decode") and single is not None:
+            if multi > single:
+                failed.append(f"{arch} {shape}: {multi:.4e} collective bytes a rank on "
+                              f"2×16×16, more than 16×16's {single:.4e}")
+            else:
+                print(f"dry run {arch} × {shape}: collective bytes a rank {multi:.4e} on "
+                      f"2×16×16, at most 16×16's {single:.4e}", flush=True)
     if failed:
         raise AssertionError("dry run cells failed:\n" + "\n".join(failed))
     print(f"dry run: {len(procs)} cells in {time.perf_counter() - t0:.1f} s wall (in parallel "
@@ -2314,6 +2343,30 @@ def train_phase(dev, timer):
                        long_step_wall_ms=lwall, long_attention_share=attn / kt)
 
 
+def resume_kwargs(dev):
+    """``launch.train.train``'s arguments for the resume checks."""
+    return dict(steps=RESUME_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, device=dev,
+                n_layers=RESUME_LAYERS, ckpt_every=RESUME_AT, log=lambda line: None)
+
+
+def check_resumed(label, cont, resumed):
+    """A run restored from the RESUME_AT checkpoint against the
+    continuous one: it starts after RESUME_AT, and its losses and every
+    leaf of its params and optimizer state (a DTensor's full tensor) equal
+    the continuous run's bit for bit.  Returns the number of leaves."""
+    from repro_torch.sharding.ctx import replicated
+    if resumed["start"] != RESUME_AT + 1:
+        raise AssertionError(f"{label}: resume started at {resumed['start']}")
+    a = list(leaves([cont["params"], list(cont["opt_state"])]))
+    r = list(leaves([resumed["params"], list(resumed["opt_state"])]))
+    bad = [i for i, (x, y) in enumerate(zip(a, r))
+           if not torch.equal(replicated(x), replicated(y))]
+    if bad or cont["losses"][RESUME_AT + 1:] != resumed["losses"]:
+        raise AssertionError(f"{label}: the resumed run differs from the continuous one: "
+                             f"leaves {bad}, losses {cont['losses']} vs {resumed['losses']}")
+    return len(a)
+
+
 def resume_phase(dev):
     """musicgen-large at RESUME_LAYERS layers through the train entry
     point: RESUME_STEPS steps saving a checkpoint at RESUME_AT, then a new
@@ -2326,8 +2379,7 @@ def resume_phase(dev):
     from repro_torch.launch import train as train_cli
     from repro_torch.optim.adamw import init_adamw
     t0 = time.perf_counter()
-    kw = dict(steps=RESUME_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, device=dev,
-              n_layers=RESUME_LAYERS, ckpt_every=RESUME_AT, log=lambda line: None)
+    kw = resume_kwargs(dev)
     with tempfile.TemporaryDirectory() as tmp:
         cont = train_cli.train(TRAIN_ARCH, ckpt_dir=tmp, **kw)
         resumed = train_cli.train(TRAIN_ARCH, ckpt_dir=tmp, **kw)
@@ -2345,19 +2397,27 @@ def resume_phase(dev):
     if extra > largest:
         raise AssertionError(f"a restore allocated {extra} B beyond its template, more than "
                              f"the largest leaf's {largest} B")
-    if resumed["start"] != RESUME_AT + 1:
-        raise AssertionError(f"resume started at {resumed['start']}")
-    a = list(leaves([cont["params"], list(cont["opt_state"])]))
-    r = list(leaves([resumed["params"], list(resumed["opt_state"])]))
-    bad = [i for i, (x, y) in enumerate(zip(a, r)) if not torch.equal(x, y)]
-    if bad or cont["losses"][RESUME_AT + 1:] != resumed["losses"]:
-        raise AssertionError(f"the resumed run differs from the continuous one: leaves {bad}, "
-                             f"losses {cont['losses']} vs {resumed['losses']}")
+    n_leaves = check_resumed(TRAIN_ARCH, cont, resumed)
     print(f"{TRAIN_ARCH} at {RESUME_LAYERS} layers: resumed at step {RESUME_AT} equals the "
-          f"continuous run bit for bit ({len(a)} leaves, losses "
+          f"continuous run bit for bit ({n_leaves} leaves, losses "
           f"{[round(x, 6) for x in resumed['losses']]}); the restore allocated {extra} B "
           f"beyond its template (largest leaf {largest} B); {time.perf_counter() - t0:.1f} s",
           flush=True)
+
+
+def shallow(lm, n_layers):
+    """``lm``'s first ``n_layers`` layers (whole periods: views of its
+    period stacks) at full width, serving its head: the engine phases'
+    model, whose eager, host-bound ticks take time in proportion to the
+    depth."""
+    def first(tree, k):
+        return ({n: first(v, k) for n, v in tree.items()} if isinstance(tree, dict)
+                else tree[:k])
+
+    params = dict(lm.params, periods=first(lm.params["periods"],
+                                           n_layers // len(lm.cfg.pattern)))
+    return LM.from_config(lm.cfg.name, device=lm.device, params=params, head=lm.head,
+                          n_layers=n_layers)
 
 
 def free_card():
@@ -2761,7 +2821,41 @@ def _mesh_checks(dev, timer, lm, frozen, runs, mesh, compressed_psum,
                                  f"from the gradient ({k})")
     print("compressed_psum of CUDA gradients over the one-rank NCCL group: mean + new "
           "error = the gradient", flush=True)
+    out["resume"] = mesh_resume(dev)
     return out
+
+
+def mesh_resume(dev):
+    """musicgen-large at full width and RESUME_LAYERS layers through the
+    train entry point on the one-rank mesh (the initialised group):
+    RESUME_STEPS steps saving at RESUME_AT (every leaf gathered, rank 0
+    writing), then a new mesh run restored from that checkpoint (each
+    rank's own blocks); its losses, params and optimizer state equal the
+    continuous mesh run's bit for bit, and each of its steps launches
+    flash_attn twice a layer and flash_attn_bwd once.  Returns its seconds
+    and the resumed run's launches."""
+    from repro_torch.launch import train as train_cli
+    from repro_torch.sharding.ctx import is_dtensor
+    t0 = time.perf_counter()
+    kw = resume_kwargs(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        cont = train_cli.train(TRAIN_ARCH, ckpt_dir=tmp, **kw)
+        reset_counts()
+        resumed = train_cli.train(TRAIN_ARCH, ckpt_dir=tmp, **kw)
+        launched = counts()
+    n_steps = RESUME_STEPS - RESUME_AT - 1
+    expect_launches(f"{TRAIN_ARCH} mesh resume ({n_steps} steps)", launched,
+                    {"flash_attn": 2 * RESUME_LAYERS * n_steps,
+                     "flash_attn_bwd": RESUME_LAYERS * n_steps})
+    if not is_dtensor(cont["params"]["embed"]):
+        raise AssertionError("the mesh run's params are not DTensors")
+    n_leaves = check_resumed(f"{TRAIN_ARCH} on the mesh", cont, resumed)
+    seconds = round(time.perf_counter() - t0, 1)
+    print(f"mesh 1x1 {TRAIN_ARCH} at {RESUME_LAYERS} layers: checkpoint at step {RESUME_AT} "
+          f"written from the mesh, the resumed mesh run equals the continuous one bit for "
+          f"bit ({n_leaves} leaves, losses {[round(x, 6) for x in resumed['losses']]}); "
+          f"launches over its {n_steps} steps {launched}; {seconds} s", flush=True)
+    return {"seconds": seconds, "launches": launched}
 
 
 def mesh_smoke_archs(mesh):
@@ -3417,7 +3511,7 @@ def main() -> None:
     refresh_launches, recs["race_update"] = timed("refresh f32", refresh_phase, dev, timer, lm,
                                                   kparams, None)
     timed("refresh int8", refresh_phase, dev, timer, lm, kparams, "int8")
-    timed("engine", engine_phase, dev, lm, frozen, kparams)
+    timed("engine", engine_phase, dev, shallow(lm, ENGINE_LAYERS), frozen, kparams)
     timed("spec engine", spec_engine_phase, lm, frozen)
     timed("paged engine", paged_phase, lm, frozen)
     timed("race_query", query_phase, dev, timer)
@@ -3429,7 +3523,7 @@ def main() -> None:
     loop_ms = timed("gemma2 decode loop", decode_loop_phase, *loop_args)
     timed("gemma2 spec generate", spec_phase, *loop_args[:5], loop_ms)
     del loop_args
-    timed("gemma2 engine", gemma_engine_phase, glm, gfrozen)
+    timed("gemma2 engine", gemma_engine_phase, shallow(glm, ENGINE_LAYERS), gfrozen)
     timed("gemma2 paged engine", paged_phase, glm, gfrozen)
     free_card()
     timed("gemma2 memo", memo_phase, glm, gfrozen)

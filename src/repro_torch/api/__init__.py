@@ -2,10 +2,13 @@
 ``HeadCache`` and the sampler; and the paper's core objects,
 ``RepresenterSketch`` and ``SketchConfig``."""
 
-from repro_torch.api.heads import DenseHead, HeadCache, SketchHead, load_head
+from repro_torch.api.heads import (HEAD_KINDS, DenseHead, HeadCache,
+                                   LogitHead, SketchHead, get_head_class,
+                                   load_head, register_head)
 from repro_torch.api.lm import LM
 from repro_torch.api.sampler import Sampler
 from repro_torch.core.sketch import RepresenterSketch, SketchConfig
 
-__all__ = ["LM", "DenseHead", "HeadCache", "SketchHead", "Sampler",
+__all__ = ["LM", "LogitHead", "DenseHead", "HeadCache", "SketchHead",
+           "Sampler", "HEAD_KINDS", "register_head", "get_head_class",
            "load_head", "RepresenterSketch", "SketchConfig"]

@@ -1,39 +1,115 @@
-"""Logit heads: the dense unembed, or the Representer-Sketch head on one of
-its decode backends (``fused``, ``two_kernel``, ``ref``); and the
-``HeadCache`` that pages per-tenant sketch heads into a bank on the
-device."""
+"""Logit heads: the ``LogitHead`` registry, the dense unembed, and the
+Representer-Sketch head on one of its decode backends (``fused``,
+``two_kernel``, ``ref``); and the ``HeadCache`` that pages per-tenant
+sketch heads into a bank on the device.
+
+A head is a hashable spec: its kind, its backend and, for a head with
+state, the frozen arrays (excluded from equality, so a spec keys a memo
+of compiled steps).  A new head kind is one :func:`register_head` class:
+``load_head`` dispatches on the kind an archive stores.
+"""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Type
 
 import torch
 
 from repro_torch.core.sketch_lm_head import (HEAD_BACKENDS, QUANT_MODES,
                                              apply_head, load_head_full,
-                                             save_head)
+                                             quantize_head, save_head)
 from repro_torch.models.config import SketchHeadConfig
 from repro_torch.sharding.ctx import like, replicated
 
+HEAD_KINDS: Dict[str, Type["LogitHead"]] = {}
+
+
+def register_head(kind: str):
+    """Class decorator: register a :class:`LogitHead` subclass under
+    ``kind``, the head's stored ``meta_kind`` that :func:`load_head`
+    dispatches on.
+
+    >>> @register_head("null")
+    ... class NullHead(LogitHead):
+    ...     kind = "null"
+    >>> get_head_class("null") is NullHead
+    True
+    >>> del HEAD_KINDS["null"]
+    """
+
+    def deco(cls):
+        HEAD_KINDS[kind] = cls
+        return cls
+
+    return deco
+
+
+def get_head_class(kind: str) -> Type["LogitHead"]:
+    """The class registered under ``kind``; raises KeyError for a kind
+    never registered.
+
+    >>> get_head_class("dense").__name__
+    'DenseHead'
+    """
+    if kind not in HEAD_KINDS:
+        raise KeyError(f"unknown head kind {kind!r}; registered: "
+                       f"{sorted(HEAD_KINDS)}")
+    return HEAD_KINDS[kind]
+
 
 @dataclasses.dataclass(frozen=True)
-class DenseHead:
-    """The backbone's own ``h · Wᵀ`` unembed; carries no state."""
+class LogitHead:
+    """Base spec: hashable, equal on its static config alone.
 
-    kind = "dense"
+    ``needs_hidden`` tells the decode step whether the backbone returns the
+    final hidden (the head makes the logits) or runs its own dense unembed;
+    ``params`` (on heads with state) takes no part in hash or equality."""
+
+    kind = "abstract"
     needs_hidden = False
     params = None
 
-    def to(self, device) -> "DenseHead":
+    def apply(self, params: Any, hidden: torch.Tensor) -> torch.Tensor:
+        """(B, V) f32 logits from (B, d) final hiddens; the base has
+        none."""
+        raise NotImplementedError
+
+    def without_params(self) -> "LogitHead":
+        """The bare spec, what a memo of compiled steps keys on."""
+        return self
+
+    def with_params(self, params: Any) -> "LogitHead":
+        """This spec with its runtime arrays; a head without state takes
+        none (ValueError)."""
+        if params is not None:
+            raise ValueError(f"{type(self).__name__} is stateless")
+        return self
+
+    def to(self, device) -> "LogitHead":
         return self
 
     def describe(self) -> str:
         return self.kind
 
 
+@register_head("dense")
 @dataclasses.dataclass(frozen=True)
-class SketchHead:
+class DenseHead(LogitHead):
+    """The backbone's own ``h · Wᵀ`` unembed; carries no state."""
+
+    kind = "dense"
+    needs_hidden = False
+
+    def apply(self, params, hidden):
+        """Never called: dense logits come out of the backbone."""
+        raise RuntimeError("DenseHead logits come from the backbone's "
+                           "unembed; serve_step should not call apply()")
+
+
+@register_head("sketch")
+@dataclasses.dataclass(frozen=True)
+class SketchHead(LogitHead):
     """The Representer-Sketch head: frozen ``params`` ({"proj", "w", "b",
     "array"} + "scale" when quantized), its config, decode ``backend`` and
     count storage ``quant``.
@@ -47,6 +123,8 @@ class SketchHead:
     'sketch/two_kernel/int8'
     >>> SketchHead(per_tenant=True).describe()
     'sketch/fused/tenants'
+    >>> SketchHead().with_backend("two_kernel").backend
+    'two_kernel'
     """
 
     kind = "sketch"
@@ -89,11 +167,32 @@ class SketchHead:
         return apply_head(params, hidden, self.cfg, backend=self.backend,
                           quant=self.quant)
 
+    def without_params(self) -> "SketchHead":
+        """The bare spec, what a memo of compiled steps keys on."""
+        if self.params is None:
+            return self
+        return dataclasses.replace(self, params=None)
+
     def with_params(self, params: dict) -> "SketchHead":
         return dataclasses.replace(self, params=params)
 
     def with_backend(self, backend: str) -> "SketchHead":
         return dataclasses.replace(self, backend=backend)
+
+    def quantized(self, quant: Optional[str]) -> "SketchHead":
+        """This head with its count array stored as ``quant`` (``"int8"``,
+        ``"int4"``; None or the current mode: the head itself), its params
+        quantized at once by ``quantize_head``.  An already quantized head
+        raises ValueError: quantizing again would compound the rounding
+        (dequantize first)."""
+        if quant == self.quant:
+            return self
+        if self.quant is not None:
+            raise ValueError(f"head is already {self.quant}-quantized; cannot "
+                             f"re-quantize to {quant!r}")
+        params = (quantize_head(self.params, quant)
+                  if self.params is not None else None)
+        return dataclasses.replace(self, quant=quant, params=params)
 
     def to(self, device) -> "SketchHead":
         """This head with its params on ``device``."""
@@ -117,20 +216,34 @@ class SketchHead:
                   backend=self.backend, quant=self.quant)
 
     @classmethod
+    def from_archive(cls, params: dict, cfg: SketchHeadConfig,
+                     meta: dict) -> "SketchHead":
+        """A head from an archive's parsed ``(params, cfg, meta)``
+        (``load_head_full``), on the backend it was saved with (v1
+        archives: ``fused``)."""
+        return cls(cfg=cfg, backend=meta["backend"], quant=meta["quant"],
+                   params=params)
+
+    @classmethod
     def load(cls, path, device="cuda") -> "SketchHead":
-        """A head from an archive of either package, on the backend it was
-        saved with (v1 archives: ``fused``)."""
-        return load_head(path, device)
+        """A head from an archive of either package, its params on
+        ``device``."""
+        return cls.from_archive(*load_head_full(path, device))
 
 
-def load_head(path, device="cuda") -> SketchHead:
-    """Load a saved head; only the ``sketch`` kind has archives."""
+def load_head(path, device="cuda") -> LogitHead:
+    """Any saved head, by the kind its archive stores (one read of the
+    archive): the registered class's ``from_archive``, else its
+    ``load(path)``.  Raises KeyError for a kind never registered and
+    TypeError for a class with neither."""
     params, cfg, meta = load_head_full(path, device)
-    if meta["kind"] != SketchHead.kind:
-        raise KeyError(f"head kind {meta['kind']!r} is not ported; only "
-                       f"'sketch' archives load")
-    return SketchHead(cfg=cfg, backend=meta["backend"], quant=meta["quant"],
-                      params=params)
+    cls = get_head_class(meta["kind"])
+    if hasattr(cls, "from_archive"):
+        return cls.from_archive(params, cfg, meta)
+    if not hasattr(cls, "load"):
+        raise TypeError(f"head kind {meta['kind']!r} does not support "
+                        f"load()")
+    return cls.load(path)
 
 
 class HeadCache:

@@ -137,6 +137,11 @@ class Sampler:
         if not 0 < self.top_p <= 1.0:
             raise ValueError(f"top_p must be in (0, 1], got {self.top_p}")
 
+    @classmethod
+    def greedy(cls) -> "Sampler":
+        """The greedy policy (``Sampler()``)."""
+        return cls()
+
     @property
     def is_greedy(self) -> bool:
         """True when ``temperature == 0`` (argmax; the key is never split)."""

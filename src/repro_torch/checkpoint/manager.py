@@ -24,6 +24,20 @@ writers and raises the first error.  Old steps beyond ``keep`` are
 removed after each write.  ``restore`` copies each stored leaf into the
 template's own tensor, so a restart holds one copy of the state (the
 musicgen-large state alone is about 42 GiB).
+
+On a mesh (DTensor leaves, under an initialised process group) the
+layout and the keys stay the same, so one checkpoint serves the JAX
+package, the port off a mesh and the port on a mesh.  ``save`` gathers
+each DTensor leaf to a full tensor (``sharding.ctx.replicated``, a
+collective every rank calls, in the same leaf order) and copies it to the
+host before the next leaf is gathered, so no device holds a second copy
+of the state;
+rank 0 alone keeps the host copies and writes the shard file and the
+manifest, as the reference's host 0 does.  ``restore`` has each rank read
+the file and copy only its own block of each leaf (by the leaf's
+placements) into the template's local tensor.  ``wait`` and ``restore``
+end in a barrier of every rank, so no rank reads a step that rank 0 is
+still writing.
 """
 
 from __future__ import annotations
@@ -38,6 +52,8 @@ from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.sharding.ctx import is_dtensor, replicated
 
 
 def _children(tree) -> List[Tuple[str, Any]]:
@@ -68,39 +84,71 @@ def flatten_with_keys(tree, prefix: str = "") -> List[Tuple[str, Any]]:
     return out
 
 
-def _host_items(tree) -> List[Tuple[str, np.ndarray]]:
+def _host_items(tree, keep: bool = True) -> List[Tuple[str, np.ndarray]]:
+    """``(key, host array)`` of every leaf, DTensors gathered first (every
+    rank calls this); with ``keep`` False the gathers run and nothing is
+    copied to the host (a rank that does not write)."""
     items = []
     for key, leaf in flatten_with_keys(tree):
         if not torch.is_tensor(leaf):
             raise TypeError(f"{key}: a checkpoint holds tensors, got "
                             f"{type(leaf).__name__}")
+        leaf = replicated(leaf.detach())
+        if not keep:
+            continue
         if leaf.dtype == torch.bfloat16:
-            bits = leaf.detach().view(torch.int16).to("cpu", copy=True)
+            bits = leaf.view(torch.int16).to("cpu", copy=True)
             arr = bits.numpy().view(np.uint16)
         else:
-            arr = leaf.detach().to("cpu", copy=True).numpy()
+            arr = leaf.to("cpu", copy=True).numpy()
         items.append((key, arr))
     return items
 
 
+def _own_block(arr: np.ndarray, leaf) -> Tuple[np.ndarray, torch.Tensor]:
+    """This rank's block of the stored full ``arr`` and the tensor it goes
+    into: a DTensor's local tensor, by its placements; else ``leaf``."""
+    if not is_dtensor(leaf):
+        return arr, leaf.detach()
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    shape, offset = compute_local_shape_and_global_offset(
+        leaf.shape, leaf.device_mesh, leaf.placements)
+    block = arr[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+    return block, leaf.to_local().detach()
+
+
 def _restore_leaf(key: str, arr: np.ndarray, leaf: torch.Tensor) -> None:
-    """Copy the stored ``arr`` into the template ``leaf`` in place; raises
-    on another shape or dtype."""
+    """Copy the stored ``arr`` into the template ``leaf`` in place (into
+    a DTensor's local tensor, its own block of ``arr``); raises on another
+    shape or dtype."""
     if tuple(arr.shape) != tuple(leaf.shape):
         raise ValueError(f"{key}: stored shape {arr.shape}, template "
                          f"{tuple(leaf.shape)}")
+    arr, dst = _own_block(arr, leaf)
     if leaf.dtype == torch.bfloat16:
         if arr.dtype.itemsize != 2 or arr.dtype.kind not in "uiV":
             raise ValueError(f"{key}: stored {arr.dtype} for a bfloat16 leaf")
         src = torch.from_numpy(np.asarray(arr, order="C").view(np.int16))
-        dst = leaf.detach().view(torch.int16)
+        dst = dst.view(torch.int16)
     else:
         want = torch.empty((), dtype=leaf.dtype).numpy().dtype
         if arr.dtype != want:
             raise ValueError(f"{key}: stored {arr.dtype}, template {want}")
-        src, dst = torch.from_numpy(np.asarray(arr, order="C")), leaf.detach()
+        src = torch.from_numpy(np.asarray(arr, order="C"))
     with torch.no_grad():
         dst.copy_(src)
+
+
+def _group_rank() -> Tuple[int, int]:
+    """(rank, world size) of the initialised default process group, or
+    (0, 1)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
 
 
 class CheckpointManager:
@@ -114,13 +162,20 @@ class CheckpointManager:
         self._pending: List[threading.Thread] = []
         self._errors: List[BaseException] = []
         self._lock = threading.Lock()
+        rank, self._world = _group_rank()
+        self._writer = rank == 0
 
     # -- write ---------------------------------------------------------------
 
     def save(self, step: int, tree: Any, blocking: bool = False) -> None:
         """Snapshot ``tree`` for ``step``: host copies now, the files on a
-        thread (``blocking`` waits for them)."""
-        items = _host_items(tree)
+        thread (``blocking`` waits for them).  Under a process group every
+        rank calls it; rank 0 writes."""
+        items = _host_items(tree, keep=self._writer)
+        if not self._writer:
+            if blocking:
+                self.wait()
+            return
 
         def worker():
             try:
@@ -134,8 +189,7 @@ class CheckpointManager:
             self._pending.append(t)
         t.start()
         if blocking:
-            t.join()
-            self._raise_errors()
+            self.wait()
 
     def _raise_errors(self) -> None:
         with self._lock:
@@ -166,10 +220,16 @@ class CheckpointManager:
         self._gc()
 
     def wait(self) -> None:
+        """Drain the writes, raise the first error; under a process group
+        of several ranks every rank then waits at a barrier."""
         with self._lock:
             pending, self._pending = self._pending, []
         for t in pending:
             t.join()
+        if self._world > 1:
+            import torch.distributed as dist
+
+            dist.barrier()
         self._raise_errors()
 
     def _gc(self) -> None:
@@ -193,9 +253,11 @@ class CheckpointManager:
     def restore(self, template: Any, step: Optional[int] = None
                 ) -> Tuple[Any, int]:
         """Restore into ``template``'s own tensors, leaf by leaf, so the
-        device holds no second copy of the state: another shape or dtype
-        in the file raises (the leaves before it are then already
-        overwritten).  Returns (template, step)."""
+        device holds no second copy of the state (a DTensor leaf: its own
+        block into its local tensor): another shape or dtype in the file
+        raises (the leaves before it are then already overwritten).
+        Returns (template, step)."""
+        self.wait()
         if step is None:
             step = self.latest_step()
         if step is None:

@@ -8,6 +8,10 @@ so that ``launch/hlo_analysis.analyze`` counts a kernel's work alike
 whether the wrapper launched it on the card or only propagated its shapes
 for the dry run (fake tensors).  Bytes count each input read once and
 each output written once; a multiply-add counts 2 operations.
+
+The models' chunk loops run through :func:`chunk_loop`, so that an active
+analyzer can trace a few of their iterations and weigh them by the trip
+count, as the JAX package's analyzer weighs a scan's body.
 """
 
 from __future__ import annotations
@@ -38,6 +42,42 @@ def record(name: str, n_bytes: int, n_ops: int) -> None:
     operations, told to every active :func:`recording` sink."""
     for sink in tuple(_sinks):
         sink(name, n_bytes, n_ops)
+
+
+# The active analyzers' loop runners, process-wide as the sinks are.
+_loop_runners: List[Callable] = []
+
+
+@contextmanager
+def weighing_loops(runner: Callable):
+    """Run every :func:`chunk_loop` inside through ``runner(n, body,
+    carry)``, while no autograd graph is recorded."""
+    _loop_runners.append(runner)
+    try:
+        yield
+    finally:
+        _loop_runners.remove(runner)
+
+
+def chunk_loop(n: int, body: Callable, carry):
+    """``y, carry = body(c, carry)`` for c in 0..n-1; returns the list of
+    the ys and the last carry.  Every iteration runs the same ops at the
+    same shapes, but for the first (its carry may be laid out otherwise)
+    and the last (a padded last chunk).  Under :func:`weighing_loops` with
+    grad off, the runner traces the first two iterations and the last and
+    weighs the second by the trip count; otherwise every iteration runs."""
+    if _loop_runners and n > 3 and not torch.is_grad_enabled():
+        return _loop_runners[-1](n, body, carry)
+    return run_loop(n, body, carry)
+
+
+def run_loop(n: int, body: Callable, carry):
+    """Every iteration of :func:`chunk_loop`, in order."""
+    ys = []
+    for c in range(n):
+        y, carry = body(c, carry)
+        ys.append(y)
+    return ys, carry
 
 
 def live_pairs(s: int, window: Optional[int]) -> int:

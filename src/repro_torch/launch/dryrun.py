@@ -30,6 +30,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-8b \\
       --shape train_4k --mesh single [--smoke] [--device cpu]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
+  # ... --check-loops: the chunk loops traced every iteration as well,
+  # the counts held equal (launch/hlo_analysis.py weighs them)
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ import time
 import traceback
 from contextlib import contextmanager
 from pathlib import Path
+from typing import Optional
 
 from repro_torch.configs import SHAPES, cells
 
@@ -49,10 +52,10 @@ RESULTS_DIR = Path(__file__).resolve().parents[3] / "results" / "dryrun_torch"
 
 
 def build_cell(arch: str, shape: str, mesh, *, smoke: bool = False,
-               device: str = "cuda"):
+               device: str = "cuda", seq: Optional[int] = None):
     """``(step, args, cfg)`` of one cell on ``mesh``: ``step(*args)`` runs
-    the cell's step on fake state placed by the sharding rules.  Call it
-    inside a ``FakeTensorMode``."""
+    the cell's step on fake state placed by the sharding rules (``seq``
+    cuts the shape's length).  Call it inside a ``FakeTensorMode``."""
     from repro_torch.launch.mesh import distribute_tree, shard_like
     from repro_torch.launch.steps import (abstract_opt_state, abstract_params,
                                           input_specs, opt_config_for,
@@ -65,7 +68,7 @@ def build_cell(arch: str, shape: str, mesh, *, smoke: bool = False,
     def place(tree, specs):
         return distribute_tree(tree, specs, mesh, shard_like)
 
-    spec = input_specs(arch, shape, smoke=smoke, device=device)
+    spec = input_specs(arch, shape, smoke=smoke, device=device, seq=seq)
     cfg, kind, seq = spec["cfg"], spec["kind"], spec["seq"]
     params = abstract_params(cfg, device)
     params = place(params, params_shardings(params, mesh))
@@ -151,10 +154,11 @@ def _strided_shard_bookkeeping_real():
 
 
 def run_cell(arch: str, shape: str, mesh_kind: str, *, smoke: bool = False,
-             device: str = "cuda", save: bool = True,
-             verbose: bool = True) -> dict:
+             device: str = "cuda", save: bool = True, verbose: bool = True,
+             weigh_loops: bool = True) -> dict:
     """Trace one cell on the 16×16 (``single``) or 2×16×16 (``multi``)
-    mesh of a fake group and return (and save) its per-rank record."""
+    mesh of a fake group and return (and save) its per-rank record
+    (``weigh_loops`` False traces every chunk-loop iteration)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.launch.hlo_analysis import analyze
@@ -167,7 +171,7 @@ def run_cell(arch: str, shape: str, mesh_kind: str, *, smoke: bool = False,
         with FakeTensorMode(), _strided_shard_bookkeeping_real():
             step, args, cfg = build_cell(arch, shape, mesh, smoke=smoke,
                                          device=device)
-            hl = analyze(step, *args)
+            hl = analyze(step, *args, weigh_loops=weigh_loops)
         trace_s = time.time() - t0
 
     result = {
@@ -202,6 +206,19 @@ def run_cell(arch: str, shape: str, mesh_kind: str, *, smoke: bool = False,
     return result
 
 
+def _check_loops(weighed: dict, per_iteration: dict) -> None:
+    """Raise unless the two records' counts (all but the trace time)
+    are equal; print both trace times."""
+    keys = [k for k in weighed if k != "trace_s"]
+    diff = [k for k in keys if weighed[k] != per_iteration[k]]
+    tag = f"[{weighed['arch']} × {weighed['shape']} × {weighed['mesh']}]"
+    if diff:
+        raise AssertionError(f"{tag} weighed loops differ in {diff}")
+    print(f"{tag} loops weighed: counts equal the per-iteration trace's "
+          f"(trace {weighed['trace_s']} s against "
+          f"{per_iteration['trace_s']} s)", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", help="architecture id")
@@ -215,6 +232,9 @@ def main() -> None:
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="the fake tensors' device: cuda takes the kernels' "
                          "fake branches, cpu their plain versions")
+    ap.add_argument("--check-loops", action="store_true",
+                    help="also trace every chunk-loop iteration and fail "
+                         "unless the counts equal the weighed trace's")
     args = ap.parse_args()
     if not args.all and (args.arch is None or args.shape is None):
         ap.error("give --arch and --shape, or --all")
@@ -225,8 +245,12 @@ def main() -> None:
     for arch, shape in todo:
         for mk in meshes:
             try:
-                run_cell(arch, shape, mk, smoke=args.smoke,
-                         device=args.device)
+                rec = run_cell(arch, shape, mk, smoke=args.smoke,
+                               device=args.device)
+                if args.check_loops:
+                    _check_loops(rec, run_cell(
+                        arch, shape, mk, smoke=args.smoke, device=args.device,
+                        save=False, verbose=False, weigh_loops=False))
             except Exception as e:  # noqa: BLE001 — report-and-continue CLI
                 failures.append((arch, shape, mk, repr(e)[:200]))
                 traceback.print_exc()

@@ -30,6 +30,16 @@ placeholders to learn its output's metadata, is no work of the rank and
 is not counted.  So a step on fake tensors (``FakeTensorMode``) over a
 fake process group counts what each rank of that group would run.
 
+A chunk loop (``kernels/work.chunk_loop``: the WKV and Mamba scans) that
+records no autograd graph is traced through its first two iterations and
+its last, the second weighted by the trip count, as the reference's
+analyzer weighs a scan's body (``weigh_loops``): its iterations run the
+same ops at the same shapes (the first may differ in its carry, the last
+may be padded), so every count equals the per-iteration trace's.  The
+skipped iterations' outputs are allocated (uncounted) so that the peak
+holds what the full loop holds.  A loop on real tensors runs every
+iteration.
+
 No ``bytes_bf16adj``: the port computes bf16 in bf16 (there is no f32
 legalization, as on XLA's CPU backend), so its bytes are the true dtypes'.
 """
@@ -39,7 +49,7 @@ from __future__ import annotations
 import math
 import weakref
 from collections import Counter, defaultdict
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Callable, Dict, List, Tuple
 
 import torch
@@ -121,6 +131,49 @@ class _Counter(TorchDispatchMode):
         self.live = 0               # bytes of storages allocated in the step
         self.peak = 0
         self._refs: Dict[int, weakref.ref] = {}
+
+    def _totals(self) -> tuple:
+        return (self.flops, self.elementwise, self.bytes, dict(self.coll),
+                self.n_ops, Counter(self.kernels), len(self.flop_items))
+
+    def loop(self, n: int, body: Callable, carry):
+        """``kernels/work.chunk_loop``'s iterations, weighed: the first,
+        the second and the last traced, the second counted n - 2 times
+        (the first may differ in its carry: a plain zero state, say); the
+        ones between stand in as uncounted allocations of the second's
+        outputs.  A loop on real tensors (a calibration run) runs every
+        iteration: its outputs are used."""
+        from torch._subclasses.fake_tensor import is_fake
+
+        if not is_fake(carry):
+            return work.run_loop(n, body, carry)
+        y, carry = body(0, carry)
+        ys = [y]
+        flops, elem, nbytes, coll, n_ops, kernels, n_items = self._totals()
+        y, carry = body(1, carry)
+        ys.append(y)
+        w = n - 3
+        self.flops += w * (self.flops - flops)
+        self.elementwise += w * (self.elementwise - elem)
+        self.bytes += w * (self.bytes - nbytes)
+        for kind, v in list(self.coll.items()):
+            self.coll[kind] += w * (v - coll.get(kind, 0))
+        self.n_ops += w * (self.n_ops - n_ops)
+        for name, v in list(self.kernels.items()):
+            self.kernels[name] += w * (v - kernels.get(name, 0))
+        self.flop_items += [(f * w, op, shapes) for f, op, shapes
+                            in self.flop_items[n_items:]]
+        self.propagating += 1
+        try:
+            stand_ins = [pytree.tree_map_only(torch.Tensor, torch.empty_like,
+                                              y) for _ in range(w)]
+        finally:
+            self.propagating -= 1
+        self._track([], [_local(t) for t in _tensors(stand_ins)])
+        ys += stand_ins
+        y, carry = body(n - 1, carry)
+        ys.append(y)
+        return ys, carry
 
     def kernel(self, name: str, n_bytes: int, n_ops: int) -> None:
         self.kernels[name] += 1
@@ -239,8 +292,11 @@ def _storage_bytes(tensors, exclude=()) -> int:
     return total
 
 
-def analyze(fn: Callable, *args, top_ops: int = 0, **kwargs) -> dict:
-    """Run ``fn(*args, **kwargs)`` and count what this rank dispatched.
+def analyze(fn: Callable, *args, top_ops: int = 0, weigh_loops: bool = True,
+            **kwargs) -> dict:
+    """Run ``fn(*args, **kwargs)`` and count what this rank dispatched
+    (chunk loops weighed unless ``weigh_loops`` is False: then every
+    iteration is traced).
 
     Returns the JAX package's keys, each per rank: ``flops``,
     ``elementwise_flops``, ``bytes_accessed``, ``collective_bytes`` (by
@@ -253,8 +309,10 @@ def analyze(fn: Callable, *args, top_ops: int = 0, **kwargs) -> dict:
     arg_tensors = _tensors((args, kwargs))
     arg_storages = {id(_local(t).untyped_storage()) for t in arg_tensors}
     counter = _Counter(top_ops)
+    loops = (work.weighing_loops(counter.loop) if weigh_loops
+             else nullcontext())
     with _outside_propagation(counter), work.recording(counter.kernel), \
-            counter:
+            loops, counter:
         result = fn(*args, **kwargs)
     coll = dict(counter.coll)
     out = {

@@ -42,7 +42,6 @@ bank each) through a ``HeadCache``, requests round-robin over tenants.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import time
 from typing import Optional
@@ -212,7 +211,7 @@ def build_or_load_head(params, cfg, head_path: Optional[str],
     ``backend`` says otherwise; ``quant`` quantizes an f32 archive's
     counts), or distilled from the dense head now (seeds 11, 12) and
     frozen (seed 13) when ``head_path`` is None."""
-    from repro_torch.core.sketch_lm_head import freeze_head, quantize_head
+    from repro_torch.core.sketch_lm_head import freeze_head
     from repro_torch.api.heads import load_head
 
     dev = params["embed"].device
@@ -231,12 +230,8 @@ def build_or_load_head(params, cfg, head_path: Optional[str],
             f"vocab={cfg.vocab_size})")
     if backend is not None:
         head = head.with_backend(backend)
-    if quant is not None and head.quant != quant:
-        if head.quant is not None:
-            raise ValueError(f"head is stored {head.quant}; cannot "
-                             f"re-quantize to {quant}")
-        head = dataclasses.replace(head, quant=quant,
-                                   params=quantize_head(head.params, quant))
+    if quant is not None:
+        head = head.quantized(quant)    # raises on a conflicting mode
     return head
 
 

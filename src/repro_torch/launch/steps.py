@@ -295,7 +295,7 @@ def abstract_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 
 def input_specs(arch: str, shape: str, *, smoke: bool = False,
-                device="cuda") -> Dict[str, Any]:
+                device="cuda", seq: Optional[int] = None) -> Dict[str, Any]:
     """Fake inputs of one (arch × shape) dry-run cell (the JAX package's
     ShapeDtypeStructs): ``kind`` (train, prefill or decode), ``cfg``,
     ``seq``, ``batch`` and what that step takes: ``batch_inputs`` (tokens
@@ -303,9 +303,11 @@ def input_specs(arch: str, shape: str, *, smoke: bool = False,
     ``tokens`` (B, S) and ``encoder_states`` (B, T, d) bf16 or None for a
     prefill; ``tokens`` (B, 1), ``pos`` (a 0-d int32), ``cache`` (a
     decode cache of ``seq`` positions) and ``encoder_states`` for a
-    decode step."""
+    decode step.  ``seq`` cuts the shape's length (a short cell for the
+    tests)."""
     cfg = get_config(arch, smoke=smoke)
-    seq, batch, kind = SHAPES[shape]
+    full_seq, batch, kind = SHAPES[shape]
+    seq = full_seq if seq is None else seq
     out: Dict[str, Any] = {"kind": kind, "cfg": cfg, "seq": seq,
                            "batch": batch}
     with _fake_mode():

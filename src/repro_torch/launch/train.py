@@ -29,7 +29,11 @@ Without a group, ``--model-parallel 1`` is the single-device run (the
 reference's 1×1 mesh) and any other value raises.
 
   torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch \
-      musicgen-large --smoke --device cpu --model-parallel 2
+      musicgen-large --smoke --device cpu --model-parallel 2 \
+      [--ckpt-dir DIR --ckpt-every 2]
+
+A mesh run checkpoints in the same layout: every rank gathers each leaf
+and rank 0 writes it; a rerun restores each rank's own blocks.
 """
 
 from __future__ import annotations
@@ -71,20 +75,20 @@ def train(arch: str = "stablelm-12b", *, smoke: bool = False,
     ``(world / model_parallel, model_parallel)`` mesh (the module
     docstring); the returned params and state are then DTensors.
 
+    On a mesh every rank gathers each leaf for a checkpoint and rank 0
+    writes it; a restore copies each rank's own blocks (the layout and
+    keys of an off-mesh or a JAX package's checkpoint, which restore here
+    alike).
+
     Raises:
       ValueError: ``model_parallel`` other than 1 without an initialised
-        process group, or one that does not divide its world; ``ckpt_dir``
-        on a mesh.
+        process group, or one that does not divide its world.
     """
     import torch.distributed as dist
 
     device = check_device(device)
     mesh = None
     if model_parallel != 1 or (dist.is_available() and dist.is_initialized()):
-        if ckpt_dir:
-            raise ValueError("ckpt_dir on a mesh: checkpoints of DTensor state "
-                             "are not written (each rank would write its own "
-                             "copy into one directory)")
         from repro_torch.launch.mesh import make_host_mesh
         mesh = make_host_mesh(model=model_parallel, device_type=device.type)
     cfg = get_config(arch, smoke=smoke)

@@ -24,6 +24,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.work import chunk_loop
 from repro_torch.models.config import MambaConfig
 from repro_torch.models.layers import init_dense, matmul, silu
 
@@ -169,8 +170,8 @@ def mamba_block(params: dict, x: torch.Tensor, cfg: MambaConfig, *,
     else:
         chunk = min(s, _SCAN_CHUNK)
         n_chunks = -(-s // chunk)
-        ys, h = [], init_h
-        for c in range(n_chunks):
+
+        def chunk_step(c, h):
             x_chunk = x_conv[:, c * chunk:(c + 1) * chunk]
             live = x_chunk.shape[1]
             if live < chunk:           # the last chunk's pad: zero inputs
@@ -191,9 +192,10 @@ def mamba_block(params: dict, x: torch.Tensor, cfg: MambaConfig, *,
             inc = torch.cat([inc[:, :1] + h[:, None] * decay[:, :1],
                              inc[:, 1:]], dim=1)
             _, states = associative_scan(decay, inc)
-            ys.append(torch.einsum("bsin,bsn->bsi", states, c_sel)
-                      .to(x.dtype))
-            h = states[:, -1]
+            return (torch.einsum("bsin,bsn->bsi", states, c_sel)
+                    .to(x.dtype), states[:, -1])
+
+        ys, h = chunk_loop(n_chunks, chunk_step, init_h)
         y = torch.cat(ys, dim=1)[:, :s].to(torch.float32)
 
     y = y + x_conv.to(torch.float32) * params["d_skip"]

@@ -39,7 +39,9 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels.flash_attn.ops import flash_attention
+from repro_torch.sharding.ctx import constrain, logical_axis_size
 from repro_torch.sharding.local import put_rows_
+from repro_torch.models.attention import _split_heads
 from repro_torch.models.config import MLAConfig
 from repro_torch.models.layers import apply_rope, init_dense, matmul
 
@@ -109,9 +111,8 @@ def _project(params: dict, x: torch.Tensor, positions: torch.Tensor,
              cfg: MLAConfig, rope_theta: float):
     """q_nope (B, S, H, nope), q_rope (B, S, H, rope) and the latent c_kv
     (B, S, rank), k_rope (B, S, rope) of x (B, S, d), RoPE applied."""
-    b, s, _ = x.shape
-    q = ((x @ params["w_dq"]) @ params["w_uq"]).reshape(
-        b, s, cfg.n_heads, cfg.qk_head_dim)
+    q = _split_heads((x @ params["w_dq"]) @ params["w_uq"], cfg.n_heads,
+                     cfg.qk_head_dim)
     q_nope, q_rope = q.split([cfg.qk_nope_head_dim, cfg.qk_rope_head_dim],
                              dim=-1)
     q_rope = apply_rope(q_rope, positions, rope_theta)
@@ -121,16 +122,25 @@ def _project(params: dict, x: torch.Tensor, positions: torch.Tensor,
     return q_nope, q_rope, c_kv, k_rope
 
 
+def _head_weight(w: torch.Tensor, n_heads: int, head_dim: int):
+    """(rank, n·dh) → (rank, n, dh).  On a mesh whose model axis does not
+    divide n the weight is gathered first, as ``_split_heads`` gathers an
+    activation's features."""
+    if n_heads % logical_axis_size("tp"):
+        w = constrain(w, None, None)
+    return w.reshape(w.shape[0], n_heads, head_dim)
+
+
 def _materialised(params: dict, q_nope, q_rope, c_kv, k_rope,
                   cfg: MLAConfig) -> torch.Tensor:
     """Causal attention over the prompt's own latent on the ``flash_attn``
     kernel: per-head K and V materialised from the latent (V padded up to
     the q/k head dim), H = Hkv.  Returns (B, S, H · v_head_dim)."""
     b, s, h, _ = q_nope.shape
-    k_nope = (c_kv @ params["w_uk"]).reshape(b, s, h, cfg.qk_nope_head_dim)
+    k_nope = _split_heads(c_kv @ params["w_uk"], h, cfg.qk_nope_head_dim)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         b, s, h, cfg.qk_rope_head_dim)], dim=-1)
-    v = (c_kv @ params["w_uv"]).reshape(b, s, h, cfg.v_head_dim)
+    v = _split_heads(c_kv @ params["w_uv"], h, cfg.v_head_dim)
     pad = cfg.qk_head_dim - cfg.v_head_dim
     if pad > 0:
         v = torch.cat([v, v.new_zeros((b, s, h, pad))], dim=-1)
@@ -146,8 +156,7 @@ def _absorbed(params: dict, q_nope, q_rope, c_all, r_all, positions,
     output; keys at ``k_pos`` ((T,) or (B, T)) later than the query's
     position are masked.  Returns (B, S, H · v_head_dim) in ``dtype``."""
     b, s, h, _ = q_nope.shape
-    r = cfg.kv_lora_rank
-    w_uk = params["w_uk"].reshape(r, h, cfg.qk_nope_head_dim)
+    w_uk = _head_weight(params["w_uk"], h, cfg.qk_nope_head_dim)
     q_lat = torch.einsum("bshd,rhd->bshr", q_nope.to(torch.float32),
                          w_uk.to(torch.float32))
     c32 = c_all.to(torch.float32)
@@ -162,7 +171,7 @@ def _absorbed(params: dict, q_nope, q_rope, c_all, r_all, positions,
         keep = (positions[:, None] >= k_pos[None, :])[None, None]
     probs = torch.softmax(torch.where(keep, scores, _NEG_INF), dim=-1)
     o_lat = torch.einsum("bhst,btr->bshr", probs, c32)
-    w_uv = params["w_uv"].reshape(r, h, cfg.v_head_dim)
+    w_uv = _head_weight(params["w_uv"], h, cfg.v_head_dim)
     o = torch.einsum("bshr,rhd->bshd", o_lat, w_uv.to(torch.float32))
     return o.reshape(b, s, h * cfg.v_head_dim).to(dtype)
 

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.common import operand_mesh
+from repro_torch.kernels.work import chunk_loop
 from repro_torch.models.layers import init_dense, matmul, sigmoid, silu
 from repro_torch.sharding.local import on_local_blocks
 
@@ -108,9 +109,8 @@ def _wkv_chunked(r, k, v, logw, u, state0):
     rc, kc, vc, lwc = resh(r), resh(k), resh(v), resh(logw)
     mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                  device=r.device), diagonal=-1)
-    state = state0.to(torch.float32)
-    ys = []
-    for c in range(n_chunks):
+
+    def chunk_step(c, state):
         rb, kb, vb, lwb = rc[:, c], kc[:, c], vc[:, c], lwc[:, c]  # (B,c,H,dk)
         # Cumulative log-decay INCLUSIVE of step t: L_t = Σ_{s≤t} logw_s.
         lcum = torch.cumsum(lwb, dim=1)
@@ -133,7 +133,9 @@ def _wkv_chunked(r, k, v, logw, u, state0):
         # State update: S_out = diag(W_c) S_in + Σ_s diag(W_c/W_s) k_sᵀ v_s.
         state = (torch.exp(l_total)[..., None] * state
                  + torch.einsum("bshk,bshv->bhkv", k_inc, vb))
-        ys.append(y_inter + y_intra + y_diag)
+        return y_inter + y_intra + y_diag, state
+
+    ys, state = chunk_loop(n_chunks, chunk_step, state0.to(torch.float32))
     y = torch.cat(ys, dim=1)[:, :s]
     return y, state
 

@@ -161,8 +161,48 @@ def settled(x):
 def replicated(x):
     """A DTensor gathered to a full plain tensor on every rank (the logits
     before the sampler, so each rank draws the same token); a plain tensor
-    as it is."""
-    return x.full_tensor() if is_dtensor(x) else x
+    as it is.  A DTensor sharded evenly over every dim of a mesh that is
+    the whole process group comes back from one all-gather over the group
+    (``full_tensor`` gathers mesh dim by mesh dim, each stage's output a
+    collective of its own: on a mesh with ``pod`` the batch is gathered
+    twice); any other by ``full_tensor``."""
+    if not is_dtensor(x):
+        return x
+    out = _gathered_once(x)
+    return x.full_tensor() if out is None else out
+
+
+def _gathered_once(x):
+    """``x``'s full tensor from one all-gather of its local blocks over
+    the whole group, rearranged by its placements; None unless every mesh
+    dim shards ``x`` evenly and the mesh is the whole group in rank
+    order."""
+    import torch.distributed as dist
+
+    mesh, placements = x.device_mesh, x.placements
+    if mesh.ndim < 2 or not all(p.is_shard() for p in placements):
+        return None
+    with torch._C._DisableTorchDispatch():     # the mesh's real rank map
+        ranks = mesh.mesh.flatten().tolist()
+    if ranks != list(range(dist.get_world_size())):
+        return None
+    local = x.to_local()
+    dims = [p.dim % x.dim() for p in placements]
+    split = [math.prod(mesh.size(i) for i, d in enumerate(dims) if d == t)
+             for t in range(x.dim())]
+    if any(g != n * k for g, n, k in zip(x.shape, local.shape, split)):
+        return None
+    c10d = torch.ops._c10d_functional
+    blocks = c10d.wait_tensor(c10d.all_gather_into_tensor(
+        local.contiguous(), dist.get_world_size(),
+        dist.group.WORLD.group_name))
+    blocks = blocks.view(*mesh.shape, *local.shape)
+    # Each tensor dim: the mesh dims that split it (the first the major
+    # split), then its local block.
+    order = []
+    for t in range(x.dim()):
+        order += [i for i, d in enumerate(dims) if d == t] + [mesh.ndim + t]
+    return blocks.permute(order).reshape(x.shape)
 
 
 @contextmanager

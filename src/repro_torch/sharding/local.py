@@ -11,6 +11,7 @@ plain op, so the single-device path keeps its bits.
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -158,26 +159,27 @@ def on_local_blocks(fn, args: Sequence, layouts: Sequence,
     over the batch and the heads (an attention or a recurrence core, a
     kernel launch).
 
-    ``layouts`` names each arg's dims: ``b`` the batch (over ``data``
-    where it divides, as ``kernels.common.batch_entry`` decides), ``h``
+    ``layouts`` names each arg's dims: ``b`` the batch (over every data
+    axis where their product divides it, else ``data`` where it divides:
+    the rules' ``batch_spec``, as the caches are laid out), ``h``
     the heads (over ``model`` where every head dim divides it), any other
     letter a dim kept whole on every rank; an arg whose layout is None is
     passed as it is.  DTensor args are redistributed to that layout, plain
     tensors taken as replicated.  ``fn`` returns a tuple laid out as
     ``out_layouts`` says, which comes back as DTensors of the global
     shapes; ``to_local`` and ``from_local`` carry autograd through."""
-    from repro_torch.kernels.common import (batch_entry, from_local_block,
-                                            local_block, mesh_axis_size,
-                                            operand_mesh)
-    from repro_torch.sharding.rules import P
+    from repro_torch.kernels.common import (from_local_block, local_block,
+                                            mesh_axis_size, operand_mesh)
+    from repro_torch.sharding.rules import P, _names, batch_spec
 
     mesh = operand_mesh(*args)
     sizes = {c: [a.shape[i] for a, lay in zip(args, layouts) if lay
                  for i, ch in enumerate(lay) if ch == c] for c in "bh"}
     m = mesh_axis_size(mesh, "model")
-    entry = {"b": batch_entry(mesh, sizes["b"][0]) if sizes["b"] else None,
+    entry = {"b": batch_spec(sizes["b"][0], mesh) if sizes["b"] else None,
              "h": "model" if all(n % m == 0 for n in sizes["h"]) else None}
-    factor = {c: mesh_axis_size(mesh, e) if e else 1 for c, e in entry.items()}
+    factor = {c: math.prod(mesh_axis_size(mesh, a) for a in _names(e))
+              for c, e in entry.items()}
 
     def spec(lay):
         return P(*(entry.get(c) for c in lay))

@@ -146,11 +146,13 @@ def test_model_parallel_without_a_group_raises():
 
 
 def test_checkpoints_on_a_mesh_raise(tmp_path):
-    """A mesh run refuses ``ckpt_dir`` (its DTensor state is not written)
-    before it builds anything."""
+    """A mesh run's checkpoints need the mesh's process group: without one,
+    ``model_parallel=2`` with ``ckpt_dir`` raises before it builds or
+    writes anything.  (With a group, a mesh run saves and restores:
+    ``test_torch_train_ckpt_mesh.py``.)"""
     from repro_torch.launch.train import train
 
-    with pytest.raises(ValueError, match="ckpt_dir on a mesh"):
+    with pytest.raises(ValueError, match="process group"):
         train(ARCH, model_parallel=2, ckpt_dir=str(tmp_path),
               log=lambda s: None, **KW)
     assert not any(tmp_path.iterdir())

@@ -50,11 +50,6 @@ def _heads(hp):
                                        params=hp)}
 
 
-def _quantized(hp, quant):
-    return SketchHead(cfg=HEAD_CFG, backend="fused", quant=quant,
-                      params=quantize_head(hp, quant))
-
-
 def _lm(meshed, head):
     """The backbone already placed on the mesh, serving ``head`` (whose
     arrays ``with_head`` places)."""
@@ -154,7 +149,7 @@ def serving_ranks(rank: int, world: int, arch: str) -> dict:
                 r[f"quant/{quant}/{backend}/f32"] = replicated(apply_head(
                     placed, hidden, HEAD_CFG, backend=backend)).numpy()
 
-    lm = _lm(dense_mesh, _quantized(hp, "int8"))
+    lm = _lm(dense_mesh, SketchHead(cfg=HEAD_CFG, params=hp).quantized("int8"))
     r["quant/int8/dtype"] = str(lm.head.params["array"].dtype)
     r["quant/int8/placements"] = {k: spec_of(v)
                                   for k, v in lm.head.params.items()}
@@ -269,7 +264,8 @@ def spec_ranks(rank: int, world: int, arch: str) -> dict:
 
     prompts = _prompts(13, cfg.vocab_size)
     for quant in ("int8", "int4"):
-        lm = _lm(dense_mesh, _quantized(hp, quant))
+        head = SketchHead(cfg=HEAD_CFG, params=hp).quantized(quant)
+        lm = _lm(dense_mesh, head)
         r[f"quantgen/{quant}/static"] = lm.generate(prompts, 5).numpy()
         r[f"quantgen/{quant}/again"] = lm.generate(prompts, 5).numpy()
         r[f"quantgen/{quant}/served"] = lm.serve(
